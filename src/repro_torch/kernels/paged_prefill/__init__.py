@@ -1,0 +1,1 @@
+"""See kernel.py for the design and ops.py for the public wrapper."""

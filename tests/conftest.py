@@ -11,6 +11,12 @@ def pytest_configure(config):
         "markers",
         "slow: long-running (minutes on CPU); excluded from the CI gate "
         "via -m 'not slow', still part of the full tier-1 run")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the port's CUDA kernels, so it needs an NVIDIA card and "
+        "nvcc; skips elsewhere (on the card, which has no JAX: "
+        "PYTHONPATH=src python -m pytest --noconftest -o markers=cuda "
+        "tests/test_torch_cuda.py)")
 
 
 @pytest.fixture(scope="session")
