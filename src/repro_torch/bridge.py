@@ -1,13 +1,17 @@
-"""Map a JAX parameter pytree (as numpy arrays) onto the port's modules.
+"""Map a JAX parameter pytree (as numpy arrays) onto the port's modules, and
+back.
 
 The JAX ``CausalLM`` keeps each pattern position's block params stacked over
 repeats (``stack/pos{i}/...`` leaves are ``[repeats, ...]``,
 ``repro/nn/transformer.py:285-293``); the port has one module per layer, so
 leaf ``stack/pos{i}/<path>`` row ``r`` becomes ``stack.layers.{l}.<path>``
 with ``l = r * len(pattern) + i``.  Every other leaf maps by path
-(``embed/table`` -> ``embed.table``).  Both directions are checked: a JAX leaf
-with no port tensor, or a port tensor with no JAX leaf, raises.  The
-checkpoint format of ``repro/checkpoint/ckpt.py`` is not read here yet.
+(``embed/table`` -> ``embed.table``).  FP, QAT (``w``, SubLN ``scale``)
+and packed trees all map this way.  Both directions are checked: a JAX leaf
+with no port tensor, or a port tensor with no JAX leaf, raises.
+``jax_params_from_torch`` is the reverse map, so tests can compare trained
+parameters leaf by leaf.  The checkpoint format of
+``repro/checkpoint/ckpt.py`` is not read here yet.
 """
 from __future__ import annotations
 
@@ -72,5 +76,32 @@ def jax_params_to_torch(cfg: ModelConfig, params_np: Mapping,
                 raise ValueError(f"{key}: JAX shape {a.shape} != port "
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(a)).to(t.dtype))
-    model.embed.refresh()
     return model
+
+
+def jax_params_from_torch(cfg: ModelConfig, model: CausalLM) -> Dict:
+    """The port model's tensors as the JAX param tree (nested dicts of numpy
+    arrays, block leaves stacked ``[repeats, ...]``)."""
+    n_pat = len(cfg.resolved_pattern())
+    state = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    tree: Dict = {}
+
+    def put(path, leaf):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+
+    stacked: Dict[tuple, list] = {}
+    for key, leaf in state.items():
+        parts = key.split(".")
+        if parts[:2] == ["stack", "layers"]:
+            layer = int(parts[2])
+            rep, pos = divmod(layer, n_pat)
+            path = ("stack", f"pos{pos}", *parts[3:])
+            stacked.setdefault(path, [None] * cfg.repeats)[rep] = leaf
+        else:
+            put(tuple(parts), leaf)
+    for path, rows in stacked.items():
+        put(path, np.stack(rows))
+    return tree

@@ -1,10 +1,13 @@
-"""BitLinear (fp / qat forward / packed) and SubLN — port of
+"""BitLinear (fp / qat / packed) and SubLN — port of
 ``repro/core/bitlinear.py``.
 
 Weights keep the JAX layout ``[in, out]`` (``y = x @ w``), so the bridge
-copies them without a transpose.  ``packed`` stores ``w_packed`` uint8
-``[in/4, out]`` plus a scalar ``delta`` as buffers; with
-``QuantConfig.use_kernel`` the projection runs the w2a8 CUDA kernel.
+copies them without a transpose.  ``fp`` and ``qat`` hold a trainable
+``w`` (and ``b``); ``qat`` runs the fake-quant forward with STE gradients,
+or with ``QuantConfig.use_kernel`` the bitlinear CUDA kernel (whose backward
+is the same STE).  ``packed`` stores ``w_packed`` uint8 ``[in/4, out]`` plus
+a scalar ``delta`` as buffers; with ``use_kernel`` the projection runs the
+w2a8 CUDA kernel.
 """
 from __future__ import annotations
 
@@ -38,11 +41,10 @@ class BitLinear(nn.Module):
             self.register_buffer("w_packed", p["w_packed"])
             self.register_buffer("delta", p["delta"])
         else:
-            self.w = nn.Parameter(w, requires_grad=False)
+            self.w = nn.Parameter(w)
         if use_bias:
             self.b = nn.Parameter(torch.zeros((out_dim,), dtype=policy.param_dtype,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.policy.compute_dtype
@@ -50,10 +52,18 @@ class BitLinear(nn.Module):
         if mode == "fp":
             y = torch.matmul(x.to(cd), self.w.to(cd))
         elif mode == "qat":
-            q, gamma = Q.act_quant_absmax_int8(x.to(cd))
-            xq = (q.to(torch.float32) * Q.div(gamma, 127.0)).to(cd)
-            wq, delta = Q.weight_quant_absmean(self.w.to(torch.float32))
-            y = torch.matmul(xq, (wq.to(torch.float32) * delta).to(cd))
+            if self.quant.low_precision_quant:
+                raise NotImplementedError("low_precision_quant "
+                                          "(fake_quant_weight_lp) is not ported")
+            if self.quant.use_kernel:
+                from repro_torch.kernels.bitlinear import ops as kops
+                y = kops.bitlinear_matmul(x.to(cd), self.w.to(torch.float32),
+                                          scheme=self.quant.scheme)
+            else:
+                xq = Q.fake_quant_act(x.to(cd))
+                wq = Q.fake_quant_weight(self.w.to(torch.float32),
+                                         scheme=self.quant.scheme)
+                y = torch.matmul(xq, wq.to(cd))
         elif mode == "packed":
             y = packed_matmul(x.to(cd), self.w_packed, self.delta, self.in_dim,
                               use_kernel=self.quant.use_kernel)
@@ -92,8 +102,7 @@ class SubLN(nn.Module):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones((dim,), dtype=policy.param_dtype,
-                                             device=device),
-                                  requires_grad=False)
+                                             device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)

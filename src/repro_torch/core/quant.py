@@ -5,10 +5,11 @@
   activations:  Q_i8(X)  = (gamma/127) * RoundClip(127/(gamma+eps) * X, -128, 127),
                 gamma    = max(|X|)  per token            (per-token absmax)
 
-plus 2-bit packing of ternary weights.  ``torch.round`` rounds half to even,
-like ``jnp.round``, so ternary and int8 codes match the JAX package bitwise
-for the same scale.  The Table-4 schemes (blockwise / AWQ / GPTQ) and the
-STE are training code and come with the training slice.
+plus the Straight-Through Estimator (STE) and the QAT fake-quantizers of
+the absmean scheme, and 2-bit packing of ternary weights.  ``torch.round``
+rounds half to even, like ``jnp.round``, so ternary and int8 codes match the
+JAX package bitwise for the same scale.  The Table-4 schemes (blockwise /
+AWQ / GPTQ) and ``fake_quant_weight_lp`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +27,24 @@ WeightScheme = Literal["absmean", "blockwise", "gptq", "awq"]
 def round_clip(x: torch.Tensor, a: float, b: float) -> torch.Tensor:
     """RoundClip(Y, a, b) = min(max(round(Y), a), b)  (Eq. 2); half to even."""
     return torch.clamp(torch.round(x), a, b)
+
+
+class _STE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, qx):
+        return qx
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ste(x: torch.Tensor, qx: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the forward returns ``qx`` exactly, the
+    backward passes the gradient to ``x`` unchanged and none to ``qx`` (the
+    JAX ``custom_vjp``).  ``x + (qx - x).detach()`` would not do: it rounds
+    and can differ from ``qx`` in the last bit."""
+    return _STE.apply(x, qx)
 
 
 def absmean_scale(w: torch.Tensor) -> torch.Tensor:
@@ -51,6 +70,25 @@ def act_quant_absmax_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     gamma = xf.abs().amax(dim=-1, keepdim=True)
     q = round_clip(div(127.0, gamma + EPS) * xf, -128.0, 127.0)
     return q.to(x.dtype), gamma
+
+
+def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
+    """QAT activation path: dequantized int8 with STE gradient."""
+    q, gamma = act_quant_absmax_int8(x)
+    deq = (q.to(torch.float32) * div(gamma, 127.0)).to(x.dtype)
+    return ste(x, deq)
+
+
+def fake_quant_weight(w: torch.Tensor, scheme: WeightScheme = "absmean"
+                      ) -> torch.Tensor:
+    """QAT weight path: dequantized ternary with STE gradient (absmean; the
+    other Table-4 schemes are not ported and raise)."""
+    if scheme != "absmean":
+        raise NotImplementedError(f"weight scheme {scheme!r} is not ported; "
+                                  "only 'absmean' is")
+    q, delta = weight_quant_absmean(w)
+    deq = q.to(torch.float32) * delta
+    return ste(w, deq.to(w.dtype))
 
 
 def div(a, b) -> torch.Tensor:
@@ -95,10 +133,11 @@ class QuantConfig:
 
     mode:
       fp      -- full precision
-      qat     -- fake-quant forward (the forward of training-time 1.58-bit)
+      qat     -- fake-quant forward + STE backward (training-time 1.58-bit)
       packed  -- true ternary with 2-bit packed weights (inference)
     use_kernel: packed projections run the hand-written w2a8 CUDA kernel
-      (kernels/w2a8_gemv) instead of the plain unpack + matmul.
+      (kernels/w2a8_gemv), qat projections the bitlinear kernel
+      (kernels/bitlinear), instead of the plain PyTorch paths.
     The remaining fields mirror the JAX config so configs compare equal;
     only ``scheme="absmean"`` is ported in this slice.
     """

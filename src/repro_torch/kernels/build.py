@@ -35,6 +35,8 @@ _SIGNATURES = {
     "w2a8_gemv_launch": [_vp] * 4 + [_i] * 4 + [_vp],
     "paged_attention_decode_launch": [_vp] * 8 + [_i] * 6 + [_f] * 2 + [_i] * 2 + [_vp],
     "paged_prefill_chunk_launch": [_vp] * 9 + [_i] * 7 + [_f] * 2 + [_i] * 2 + [_vp],
+    "bitlinear_launch": [_vp] * 5 + [_i] * 4 + [_vp],
+    "relation_kd_launch": [_vp] * 3 + [_i] * 3 + [_f] + [_vp],
 }
 
 

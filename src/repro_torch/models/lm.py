@@ -1,6 +1,8 @@
 """CausalLM: decoder-only language model over the layer stack — port of
 ``repro/models/lm.py`` (apply, decode_step, decode_chunk, init_cache and the
-padded-vocab logits mask)."""
+padded-vocab logits mask).  ``apply`` is the JAX training contract
+``(logits, qkv_states | None, moe_loss)``; ``forward`` returns the logits
+alone, for the serving engine."""
 from __future__ import annotations
 
 import math
@@ -25,7 +27,8 @@ class CausalLM(nn.Module):
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, pol, gen=gen,
                                device=device)
         self.stack = Stack(cfg.block_config(), cfg.resolved_pattern(),
-                           cfg.repeats, gen=gen, device=device)
+                           cfg.repeats, remat=cfg.remat,
+                           remat_policy=cfg.remat_policy, gen=gen, device=device)
         self.final_norm = RMSNorm(cfg.d_model, policy=pol, device=device)
         self.head = None
         if not cfg.tie_embeddings:
@@ -50,11 +53,23 @@ class CausalLM(nn.Module):
                                  torch.full_like(logits, -1e30))
         return logits
 
+    def apply(self, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
+              memory: Optional[torch.Tensor] = None,
+              distill_layer: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        """tokens [B, S] -> (logits [B, S, V] in the compute dtype, fp32 qkv
+        states [3, B, H, S, Dh] of ``distill_layer`` or None, moe loss)."""
+        if memory is not None:
+            raise NotImplementedError("cross-attention memory (VLM) is not ported")
+        x, states, moe_loss = self.stack(self._embed_tokens(tokens), positions,
+                                         distill_layer=distill_layer)
+        return self._logits(self.final_norm(x)), states, moe_loss
+
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, V] (the JAX ``apply``)."""
-        x = self.stack(self._embed_tokens(tokens), positions)
-        return self._logits(self.final_norm(x))
+        """tokens [B, S] -> logits [B, S, V]."""
+        return self.apply(tokens, positions)[0]
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> List[LayerCache]:

@@ -5,8 +5,7 @@ Layouts: activations [B, S, D]; per-head tensors [B, S, H, Dh]; paged pools
 ``{"k","v"}`` [num_blocks, Hkv, block_size, Dh], updated in place (the JAX
 module returns new pools; here the step's K/V are stored into the caller's
 tensors).  All softmax math in fp32.  Contiguous-cache ``decode``, the
-blocked (flash-style) forward, cross-attention and ``collect_states`` come
-with later slices.
+blocked (flash-style) forward and cross-attention come with later slices.
 """
 from __future__ import annotations
 
@@ -110,8 +109,13 @@ class Attention(nn.Module):
     # -- full-sequence forward ------------------------------------------------
 
     def forward(self, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Causal self-attention over x [B, S, D] (the JAX ``apply``)."""
+                positions: Optional[torch.Tensor] = None,
+                collect_states: bool = False):
+        """Causal self-attention over x [B, S, D] (the JAX ``apply``).
+
+        With ``collect_states`` returns ``(y, {"q","k","v"})``, each
+        [B, H, S, Dh] with the kv heads repeated to n_heads: the layout
+        Algorithm 1 distills."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -119,7 +123,14 @@ class Attention(nn.Module):
         k, v = self._project_kv(x, positions)
         ar = torch.arange(s, device=x.device)
         mask = (ar[None, :] <= ar[:, None])[None, None].expand(b, 1, s, s)
-        return self._out(self._attend(q, k, v, mask))
+        y = self._out(self._attend(q, k, v, mask))
+        if not collect_states:
+            return y
+        g = self.n_heads // self.n_kv_heads
+        rep = (lambda a: torch.repeat_interleave(a, g, dim=2)) if g > 1 else (lambda a: a)
+        return y, {"q": q.permute(0, 2, 1, 3),
+                   "k": rep(k).permute(0, 2, 1, 3),
+                   "v": rep(v).permute(0, 2, 1, 3)}
 
     # -- decode over the paged pools ---------------------------------------------
 

@@ -20,8 +20,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones((dim,), dtype=policy.param_dtype,
-                                             device=device),
-                                  requires_grad=False)
+                                             device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
@@ -30,9 +29,11 @@ class RMSNorm(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Token table ``[V, D]``.  A compute-dtype copy is kept beside the
-    parameter (refreshed by :meth:`refresh`) so neither the lookup nor the
-    tied head re-casts the whole table every step."""
+    """Token table ``[V, D]``.  Where no gradient is taken (serving, eval) a
+    compute-dtype copy kept beside the parameter serves the lookup and the
+    tied head, so they do not re-cast the whole table every step; it is
+    rebuilt when the table has changed since (an optimizer step, a load).
+    Training casts the parameter itself, so the gradient reaches it."""
 
     def __init__(self, vocab: int, dim: int,
                  policy: DTypePolicy = DEFAULT_POLICY,
@@ -45,21 +46,29 @@ class Embedding(nn.Module):
                                       0.02, device)
         else:
             t = torch.zeros((vocab, dim), dtype=policy.param_dtype, device=device)
-        self.table = nn.Parameter(t, requires_grad=False)
-        self.refresh()
+        self.table = nn.Parameter(t)
+        self._refresh()
 
-    def refresh(self) -> None:
-        """Rebuild the compute-dtype copy after ``table`` changes."""
+    def _refresh(self) -> None:
+        """Rebuild the compute-dtype copy from ``table``."""
         cd = self.policy.compute_dtype
-        self._table_cd = (self.table.data if self.table.dtype == cd
-                          else self.table.data.to(cd))
+        self._table_cd = (self.table.detach() if self.table.dtype == cd
+                          else self.table.detach().to(cd))
+        self._table_version = self.table._version
+
+    def _table(self) -> torch.Tensor:
+        if torch.is_grad_enabled() and self.table.requires_grad:
+            return self.table.to(self.policy.compute_dtype)
+        if self._table_version != self.table._version:
+            self._refresh()
+        return self._table_cd
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self._table_cd)
+        return F.embedding(ids, self._table())
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied LM head: logits in compute dtype (fp32 accumulation)."""
-        return torch.matmul(x.to(self.policy.compute_dtype), self._table_cd.t())
+        return torch.matmul(x.to(self.policy.compute_dtype), self._table().t())
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,

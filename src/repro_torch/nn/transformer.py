@@ -4,7 +4,10 @@
 The JAX ``Stack`` keeps each pattern position's params stacked over repeats
 and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
 ``n_layers`` blocks (layer ``l`` is repeat ``l // len(pattern)``, position
-``l % len(pattern)``) run by a Python loop.  The paged cache is a per-layer
+``l % len(pattern)``) run by a Python loop.  Rematerialization
+(``remat=True``, ``remat_policy="nothing"``: the JAX ``jax.checkpoint`` of
+the scan body) recomputes each block in the backward with
+``torch.utils.checkpoint`` (non-reentrant).  The paged cache is a per-layer
 list of ``{"k","v"}`` pools [N, Hkv, bs, Dh] that the attention layers
 update in place.
 """
@@ -14,6 +17,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core import quant as Q
@@ -75,9 +79,18 @@ class Block(nn.Module):
                             gen=gen, device=device)
 
     def forward(self, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), positions)
-        return x + self.mlp(self.norm2(x))
+                positions: Optional[torch.Tensor] = None,
+                collect_states: bool = False):
+        """-> x, or (x, qkv states [3, B, H, S, Dh]) with ``collect_states``."""
+        if collect_states:
+            h, aux = self.attn(self.norm1(x), positions, collect_states=True)
+        else:
+            h = self.attn(self.norm1(x), positions)
+        x = x + h
+        x = x + self.mlp(self.norm2(x))
+        if not collect_states:
+            return x
+        return x, torch.stack([aux["q"], aux["k"], aux["v"]])
 
     def decode(self, x: torch.Tensor, cache: LayerCache,
                cache_index: torch.Tensor, block_tables: torch.Tensor,
@@ -101,19 +114,44 @@ class Stack(nn.Module):
     """``repeats`` x ``pattern`` transformer stack as a flat list of layers."""
 
     def __init__(self, cfg: BlockConfig, pattern: Tuple[LayerSpec, ...],
-                 repeats: int, gen: Optional[torch.Generator] = None,
+                 repeats: int, remat: bool = True, remat_policy: str = "nothing",
+                 gen: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
+        if remat_policy not in ("nothing", "none"):
+            raise NotImplementedError(f"remat_policy {remat_policy!r} is not "
+                                      "ported ('nothing' and 'none' are)")
         self.pattern = pattern
+        self.remat = remat and remat_policy != "none"
         self.layers = nn.ModuleList(
             Block(cfg, pattern[i % len(pattern)], gen=gen, device=device)
             for i in range(len(pattern) * repeats))
 
-    def forward(self, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for blk in self.layers:
-            x = blk(x, positions)
-        return x
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                distill_layer: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        """Returns (x, fp32 qkv states [3, B, H, S, Dh] of ``distill_layer``
+        or None, moe loss).  The moe loss is 0: the MoE layers are not
+        ported, so every block is dense."""
+        n = len(self.layers)
+        if distill_layer is not None and not 0 <= distill_layer < n:
+            raise ValueError(f"distill_layer {distill_layer} outside the "
+                             f"stack's {n} layers")
+        remat = self.remat and torch.is_grad_enabled()
+        states = None
+        for li, blk in enumerate(self.layers):
+            want = li == distill_layer
+            if remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    blk, x, positions, want, use_reentrant=False)
+            else:
+                out = blk(x, positions, want)
+            if want:
+                x, st = out
+                states = st.to(torch.float32)
+            else:
+                x = out
+        return x, states, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> List[LayerCache]:

@@ -630,5 +630,4 @@ def convert_to_packed(cfg: ModelConfig, qat_model: CausalLM
                 t.copy_(convert_linear_params_fp_to_packed(w)[key.rsplit(".", 1)[1]])
             else:
                 t.copy_(src[key])
-    model.embed.refresh()
     return packed_cfg, model

@@ -1,0 +1,185 @@
+"""Train-step factories: plain CE (stages 1-2 / SFT baselines) and the
+distillation step (stage 3), with gradient accumulation — port of
+``repro/training/trainer.py``.
+
+The JAX steps are pure functions ``(state, batch) -> (state, metrics)``;
+here the parameters live in the ``nn.Module`` and ``TrainState.params`` is
+that module's ``{name: Parameter}`` dict, so a step updates the module and
+the optimizer state in place and returns the same state object with the
+JAX metrics dict (``loss``, ``loss_ce``, [``loss_ld``, ``loss_ad``,]
+``grad_norm``, ``lr``; values are 0-d tensors, read with ``float``).  The
+teacher of the distill step is a module holding its own weights; it runs
+under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.distill import (DistillConfig, bitdistill_loss,
+                                      softmax_cross_entropy)
+from repro_torch.models.base import ModelConfig
+from repro_torch.training.optimizer import AdamW, AdamWState
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Dict[str, nn.Parameter]
+    opt_state: AdamWState
+    step: int
+
+
+def init_train_state(model: nn.Module, optimizer: AdamW) -> TrainState:
+    params = dict(model.named_parameters())
+    return TrainState(params, optimizer.init(params, jax_ranks(params)), 0)
+
+
+def jax_ranks(params: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """Rank of each tensor in the JAX param tree, where the blocks' tensors
+    (``stack.layers.<l>.*``) are stacked over repeats: one axis more.  So,
+    as in the JAX package, the blocks' norm scales are weight-decayed and
+    the final norm's scale is not."""
+    return {k: p.dim() + (1 if k.startswith("stack.layers.") else 0)
+            for k, p in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# forward adapters
+# ---------------------------------------------------------------------------
+
+def forward(model, batch: Batch, distill_layer: Optional[int] = None):
+    """-> (logits, qkv_states|None, moe_loss) for the ported (decoder-only)
+    families."""
+    return model.apply(batch["tokens"], memory=batch.get("image_embeds"),
+                       distill_layer=distill_layer)
+
+
+def default_distill_layer(cfg: ModelConfig) -> int:
+    """Fig. 3b: late layers distill best -> last attention-bearing layer."""
+    pat = cfg.resolved_pattern()
+    for li in range(cfg.n_layers - 1, -1, -1):
+        if pat[li % len(pat)].mixer in ("attn", "attn_cross"):
+            return li
+    raise ValueError(f"{cfg.name}: no attention layers; AD inapplicable")
+
+
+def _microbatches(batch: Batch, accum: int):
+    for k, v in batch.items():
+        if v.shape[0] % accum:
+            raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not a "
+                             f"multiple of accum={accum}")
+    chunks = {k: torch.chunk(v, accum, dim=0) for k, v in batch.items()}
+    return [{k: c[i] for k, c in chunks.items()} for i in range(accum)]
+
+
+def _accumulate(state: TrainState, batch: Batch, accum: int,
+                loss_fn: Callable[[Batch], Tuple[torch.Tensor, Metrics]]
+                ) -> Tuple[torch.Tensor, Metrics, Dict[str, torch.Tensor]]:
+    """Mean loss, mean metrics and mean gradients over ``accum`` equal
+    micro-batches (one backward each; the gradients sum in ``.grad``)."""
+    for p in state.params.values():
+        p.grad = None
+    losses, per_mb = [], []
+    for mb in (_microbatches(batch, accum) if accum > 1 else [batch]):
+        loss, metrics = loss_fn(mb)
+        loss.backward()
+        losses.append(loss.detach())
+        per_mb.append({k: v.detach() for k, v in metrics.items()})
+    grads = {}
+    for name, p in state.params.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads[name] = g / accum if accum > 1 else g
+        p.grad = None
+    loss = torch.stack(losses).sum() / accum if accum > 1 else losses[0]
+    metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+    return loss, metrics, grads
+
+
+# ---------------------------------------------------------------------------
+# plain CE step (stage 2 continual pre-training, SFT baselines)
+# ---------------------------------------------------------------------------
+
+def make_train_step(model, optimizer: AdamW, lr_fn: Callable,
+                    accum: int = 1) -> Callable:
+    """step(state, batch) -> (state, metrics); ``state.params`` must be
+    ``model``'s parameters (``init_train_state(model, ...)``)."""
+    def loss_fn(mb):
+        logits, _, moe = forward(model, mb)
+        ce = softmax_cross_entropy(logits, mb["labels"], mb.get("loss_mask"))
+        return ce + moe, {"loss_ce": ce, "loss_moe": moe}
+
+    def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
+        loss, metrics, grads = _accumulate(state, batch, accum, loss_fn)
+        lr = lr_fn(state.step)
+        _, state.opt_state, opt_metrics = optimizer.update(
+            grads, state.opt_state, state.params, lr)
+        state.step += 1
+        return state, dict(metrics, loss=loss, **opt_metrics)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# stage-3 distillation step
+# ---------------------------------------------------------------------------
+
+def make_distill_step(student_model, teacher_model, optimizer: AdamW,
+                      lr_fn: Callable, dcfg: DistillConfig,
+                      accum: int = 1) -> Callable:
+    """step(state, batch) -> (state, metrics): teacher frozen (its module
+    holds its weights), student QAT."""
+    want_states = dcfg.use_ad
+    dl = dcfg.distill_layer if want_states else None
+    if dl is not None and dl < 0:
+        raise ValueError("resolve DistillConfig.distill_layer=-1 first "
+                         "(default_distill_layer), as the pipeline does")
+
+    def loss_fn(mb):
+        with torch.no_grad():
+            t_logits, t_states, _ = forward(teacher_model, mb, distill_layer=dl)
+        logits, states, moe = forward(student_model, mb, distill_layer=dl)
+        loss, metrics = bitdistill_loss(
+            logits, t_logits if dcfg.use_ld else None,
+            states, t_states, mb["labels"], mb.get("loss_mask"), dcfg)
+        return loss + moe, metrics
+
+    def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
+        _, metrics, grads = _accumulate(state, batch, accum, loss_fn)
+        lr = lr_fn(state.step)
+        _, state.opt_state, opt_metrics = optimizer.update(
+            grads, state.opt_state, state.params, lr)
+        state.step += 1
+        return state, dict(metrics, **opt_metrics)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# eval steps
+# ---------------------------------------------------------------------------
+
+def make_eval_loss(model) -> Callable:
+    """eval_step(batch) -> token-mean CE of ``model`` (no gradient)."""
+    @torch.no_grad()
+    def eval_step(batch: Batch) -> torch.Tensor:
+        logits, _, _ = forward(model, batch)
+        return softmax_cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    return eval_step
+
+
+def make_eval_classify(model, label_base: int, n_labels: int) -> Callable:
+    """eval_step(batch) -> accuracy of the answer-position label-token argmax."""
+    @torch.no_grad()
+    def eval_step(batch: Batch) -> torch.Tensor:
+        logits, _, _ = forward(model, batch)                   # [B, S, V]
+        pos = batch["answer_pos"].long()                       # [B]
+        rows = logits[torch.arange(logits.shape[0], device=logits.device), pos]
+        pred = torch.argmax(rows[:, label_base:label_base + n_labels], dim=-1)
+        return torch.mean((pred == batch["class_label"].long()).to(torch.float32))
+    return eval_step
