@@ -7,10 +7,10 @@ result line):
   1. card name and power limit; build the CUDA kernels from ``src/repro_torch/
      csrc`` and report the build time;
   2. every kernel against its plain PyTorch version at its path's shapes
-     (the serving kernels and bitlinear in bf16 and fp32, relation_kd in
-     fp32), with its time, the plain version's time, a library yardstick
-     where one PyTorch call computes the same function, and the card's
-     lower bound for the work;
+     (the serving kernels and bitlinear in bf16 and fp32, relation_kd and
+     ssd_scan in fp32), with its time, the plain version's time, a library
+     yardstick where one PyTorch call computes the same function, and the
+     card's lower bound for the work;
   3. the port's ``Engine`` serving ``qwen3-0.6b`` at full width (packed
      ternary weights from a seeded init, w2a8 + paged kernels), with the
      serving kernels' launch counters read around that run;
@@ -23,6 +23,13 @@ result line):
      them, and a profile of one distillation step;
   6. on-card parity: the first distillation step with the kernels and with
      the plain paths, from the same weights (full width, depth 2, fp32);
+  7. the BitDistill training path on ``mamba2-780m`` at full width and depth
+     (48 layers, the same recipe at batch 8 x seq 512, CE + logits KD since
+     the family has no attention): every SSD through the ssd_scan kernel,
+     every projection through bitlinear, launch counters read around the
+     steps, and a profile of one distillation step;
+  8. on-card parity: one full-width ``Mamba2Block`` forward and backward
+     through the ssd_scan kernel and through the sequential oracle;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -30,6 +37,8 @@ without the rest of the repository beside it, it exits non-zero.
 """
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import math
 import statistics
@@ -319,19 +328,22 @@ def check_paged_prefill(dev, flush, results):
 
 
 def check_bitlinear(dev, flush, results):
-    """bitlinear at the training path's shapes: M = 8 x 256 tokens and every
-    projection's (K, N) of qwen3-0.6b; fp32 must equal the plain version
-    bitwise, bf16 within one bf16 ulp (both round the same fp32 value)."""
+    """bitlinear at the training paths' shapes: M = 8 x 256 tokens and every
+    projection's (K, N) of qwen3-0.6b; M = 8 x 512 and mamba2-780m's in_proj
+    (1536, 6448) and out_proj (3072, 1536).  fp32 must equal the plain
+    version bitwise, bf16 within one bf16 ulp (both round the same fp32
+    value)."""
     import torch
     from repro_torch.core import quant as Q
     from repro_torch.kernels.bitlinear.kernel import bitlinear_kernel
     from repro_torch.kernels.bitlinear.ref import bitlinear_ref
     gen = torch.Generator(device=dev).manual_seed(3)
-    m = 2048
-    shapes = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+    shapes = [(2048, 1024, 2048), (2048, 1024, 1024), (2048, 2048, 1024),
+              (2048, 1024, 3072), (2048, 3072, 1024),
+              (4096, 1536, 6448), (4096, 3072, 1536)]
     worst = 0.0
     rows = []
-    for (k, n) in shapes:
+    for (m, k, n) in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         qw, delta = Q.weight_quant_absmean(w)
         wq = qw.to(torch.int8)
@@ -374,7 +386,7 @@ def check_bitlinear(dev, flush, results):
             print(f"  bitlinear M={m} K={k} N={n} bf16: {ms:.4f} ms (plain "
                   f"{plain:.4f}, _int_mm {lib if lib is None else round(lib, 4)}, "
                   f"bound {bd:.4f} by {by})", flush=True)
-    head = next(r for r in rows if (r["k"], r["n"]) == (1024, 3072))
+    head = next(r for r in rows if (r["m"], r["k"], r["n"]) == (2048, 1024, 3072))
     results["bitlinear"] = dict(
         name="bitlinear", route="cuda", source="src/repro_torch/csrc/bitlinear.cu",
         replaces="src/repro/kernels/bitlinear/kernel.py:57", max_abs_err=worst,
@@ -421,6 +433,79 @@ def check_relation_kd(dev, flush, results):
         name="relation_kd", route="cuda", source="src/repro_torch/csrc/relation_kd.cu",
         replaces="src/repro/kernels/relation_kd/kernel.py:96", max_abs_err=worst,
         shape="BH=32 L=256 D=512 fp32", **row)
+
+
+def check_ssd_scan(dev, flush, results):
+    """ssd_scan at the mamba2-780m training shape: batch 8 x seq 512, 48
+    heads of 64, state 128, chunk 256 (BH = 384, two chunks), fp32, inputs
+    as Mamba2Block feeds them (A in [-8, -1] per head, dt = softplus(N(-2,
+    1)), so a chunk's summed dt·|A| passes the ~88 where an unmasked
+    exponential overflows).  y and the final state against ssd_chunked and
+    the sequential ssd_scan_ref ([BH] layout, B and C per head), rtol 1e-4
+    atol 1e-4; the gradient of all five operands through the
+    autograd.Function against autograd through ssd_chunked, rtol 1e-3 atol
+    1e-3.  That backward is itself a recompute through ssd_chunked, so the
+    gradient check shows the Function is wired up; phase 8 holds the
+    kernel path's gradients against the sequential oracle."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ref import chunk_len, ssd_chunked, ssd_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, h, p, n, chunk = 8, 512, 48, 64, 128, 256
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    A = -(1.0 + 7.0 * torch.rand((h,), generator=gen, device=dev))
+    dt = torch.nn.functional.softplus(r(b, s, h) - 2.0)
+    x, a, B, C = r(b, s, h, p), torch.exp(dt * A), r(b, s, n), r(b, s, n)
+    ins = (x, a, dt, B, C)
+    y, hT = ssd_scan_kernel(*ins, chunk)
+    torch.cuda.synchronize()
+    yc, hc = ssd_chunked(*ins, chunk=chunk)
+    hc = hc.transpose(-1, -2).reshape(b * h, n, p)
+    flat = lambda t: t.transpose(1, 2).reshape(b * h, s, *t.shape[3:])
+    yr, hr = ssd_scan_ref(flat(x), flat(a), flat(dt), B.repeat_interleave(h, 0),
+                          C.repeat_interleave(h, 0))
+    worst = 0.0
+    for what, got, want in (("y vs ssd_chunked", y, yc), ("h vs ssd_chunked", hT, hc),
+                            ("y vs ssd_scan_ref", flat(y), yr),
+                            ("h vs ssd_scan_ref", hT, hr)):
+        err = (got - want).abs()
+        if not (bool(torch.isfinite(got).all())
+                and bool((err <= 1e-4 + 1e-4 * want.abs()).all())):
+            fail(f"ssd_scan {what}: max err {err.max().item()}")
+        worst = max(worst, err.max().item())
+    g = r(b, s, h, p)
+    ins1 = [t.clone().requires_grad_() for t in ins]
+    (ssd_ops.ssd_scan(*ins1, chunk=chunk) * g).sum().backward()
+    ins2 = [t.clone().requires_grad_() for t in ins]
+    (ssd_chunked(*ins2, chunk=chunk)[0] * g).sum().backward()
+    for name, t1, t2 in zip("x a dt B C".split(), ins1, ins2):
+        err = (t1.grad - t2.grad).abs()
+        if not (bool(torch.isfinite(t1.grad).all())
+                and bool((err <= 1e-3 + 1e-3 * t2.grad.abs()).all())):
+            fail(f"ssd_scan gradient of {name}: max err {err.max().item()}")
+    del ins1, ins2, yr, hr
+    ms = time_ms(lambda: ssd_scan_kernel(*ins, chunk), flush=flush)
+    plain = time_ms(lambda: ssd_chunked(*ins, chunk=chunk), flush=flush)
+    # the work the function needs: per (bh, chunk) the causal half of M·x,
+    # Q(Q+1)·P, and C·h and the state update, 2·Q·N·P each; per (b, chunk)
+    # the causal half of C·Bᵀ, Q(Q+1)·N, which the heads share.  Bytes: the
+    # operands read once (B and C once per batch row), y and the state
+    # written once
+    q = chunk_len(s, chunk)
+    nc = s // q
+    ops = (b * h * nc * (q * (q + 1) * p + 4.0 * q * n * p)
+           + b * nc * q * (q + 1) * n)
+    nbytes = 4 * (2 * x.numel() + 2 * a.numel() + 2 * B.numel() + hT.numel())
+    bd, by = bound_ms(nbytes, ops, "float32")
+    print(f"  ssd_scan b={b} S={s} H={h} P={p} N={n} Q={q} fp32: {ms:.4f} ms "
+          f"(plain ssd_chunked {plain:.4f}, bound {bd:.4f} by {by}); max err "
+          f"{worst:.3g}", flush=True)
+    results["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:74", max_abs_err=worst,
+        ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=None,
+        shape=f"BH={b * h} S={s} P={p} N={n} Q={q} fp32")
 
 
 # -- phases 3 and 4: the port's Engine ----------------------------------------
@@ -631,19 +716,25 @@ def kernel_vs_plain_parity(dev):
           flush=True)
 
 
-# -- phases 5 and 6: the BitDistill training path ------------------------------
+# -- phases 5 to 8: the BitDistill training path -------------------------------
 
-TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_BATCH = 8
+QWEN_SEQ, MAMBA_SEQ = 256, 512     # MAMBA_SEQ: two chunks of 256 per row
+# each kernel of the training paths, by counter name: its package and the
+# name its CUDA function carries in a profiler trace
+TRAIN_KERNELS = {"bitlinear": ("bitlinear", "bitlinear_kernel"),
+                 "relation_kd": ("relation_kd", "relation_kl_rows_kernel"),
+                 "ssd_scan": ("ssd_scan", "ssd_scan_kernel")}
 
 
-def _train_batches(task: str, seed: int, n: int, dev):
+def _train_batches(task: str, seed: int, n: int, dev, seq: int):
     """``n`` batches of the port's synthetic ``task`` from the port's loader,
     on the card (the pipeline's loader seeds: task data seed 0, loader seed
     0 for the task, 17 for the corpus)."""
     import torch
     from repro_torch.data.loader import DataLoader
     from repro_torch.data.synth import get_task
-    loader = DataLoader(get_task(task, seed=0), TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    loader = DataLoader(get_task(task, seed=0), TRAIN_BATCH, seq, seed=seed)
     keys = ("tokens", "labels", "loss_mask")
     return [{k: torch.from_numpy(v).to(dev) for k, v in loader.next().items()
              if k in keys} for _ in range(n)]
@@ -659,25 +750,32 @@ def _student_from(teacher, cfg, use_kernel: bool, dev):
     return scfg, _copy_matching(teacher, build_model(scfg, device=dev))
 
 
-def train_full_width(dev, out_dir):
-    """Phase 5: qwen3-0.6b at full width and depth, bf16 compute with fp32
-    master weights and remat; an FP teacher from a seeded init (no teacher
-    training: the path is what is checked), refine, 3 CE steps on the corpus
-    and 5 distillation steps on mnli-syn with DistillConfig defaults, both
-    kernel knobs on.  Returns the training kernels' launch counts."""
+def train_full_width(dev, out_dir, name, layers, seq, expect, tag):
+    """Phases 5 and 7: ``name`` at full width and depth (``layers``), bf16
+    compute with fp32 master weights and remat; an FP teacher from a seeded
+    init (no teacher training: the path is what is checked), refine, 3 CE
+    steps on the corpus and 5 distillation steps on mnli-syn at batch 8 x
+    ``seq``, DistillConfig defaults with every kernel knob on (relation KD
+    off for the attention-free ssm family, as the pipeline does).
+    ``expect[kind]`` is each counted kernel's launches per step of that
+    kind; a step that launches another number fails.  Each step also
+    reports its host costs (cudaMalloc / cudaFree calls, allocator retries,
+    garbage-collector time), the heap the collector walks is counted and
+    fully collected once before the steps, and the card's clock and power
+    are sampled into ``clocks_<tag>.csv``.  Returns the launch counts of
+    the steps."""
+    import importlib
     import torch
     from repro_torch.core.distill import DistillConfig
-    from repro_torch.kernels.bitlinear import kernel as bl_k
-    from repro_torch.kernels.relation_kd import kernel as rk_k
     from repro_torch.models import build_model, get_config
     from repro_torch.training.optimizer import AdamW, AdamWConfig
     from repro_torch.training.schedule import warmup_cosine
     from repro_torch.training.trainer import (default_distill_layer, init_train_state,
                                               make_distill_step, make_train_step)
 
-    cfg = get_config("qwen3-0.6b").replace(compute_dtype="bfloat16")
-    if not (cfg.remat and cfg.param_dtype == "float32" and cfg.n_layers == 28):
-        fail(f"unexpected qwen3-0.6b training config: {cfg}")
+    cfg = get_config(name).replace(compute_dtype="bfloat16")
+    if not (cfg.remat and cfg.param_dtype == "float32" and cfg.n_layers == layers):
+        fail(f"unexpected {name} training config: {cfg}")
     t0 = time.perf_counter()
     teacher = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
                           device=dev)
@@ -686,81 +784,142 @@ def train_full_width(dev, out_dir):
     print(f"  teacher + refined student {cfg.name}: {cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    dcfg = DistillConfig(use_kernel=True, distill_layer=default_distill_layer(scfg))
-    corpus = _train_batches("corpus", 17, 3, dev)
-    task = _train_batches("mnli-syn", 0, 6, dev)
+    if cfg.family == "ssm":
+        dcfg = DistillConfig(use_kernel=True, use_ad=False)
+    else:
+        dcfg = DistillConfig(use_kernel=True,
+                             distill_layer=default_distill_layer(scfg))
+    corpus = _train_batches("corpus", 17, 3, dev, seq)
+    task = _train_batches("mnli-syn", 0, 6, dev, seq)
     opt = AdamW(AdamWConfig(weight_decay=0.01))
     ct_step = make_train_step(student, opt, lambda s: warmup_cosine(s, 3e-4, 1, 3))
     state = init_train_state(student, opt)
-    per_fwd = 7 * cfg.n_layers                       # BitLinear projections
-    counters = (bl_k.launches, rk_k.launches)
+    counters = {k: importlib.import_module(
+        f"repro_torch.kernels.{TRAIN_KERNELS[k][0]}.kernel").launches
+        for k in expect["train"]}
     log = []
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
+    # what each step costs besides its device work: the caching allocator's
+    # cudaMalloc / cudaFree calls and retries, the host's garbage collector,
+    # and (sampled every 200 ms into a file) the card's clock and power
+    gc_ms = [0.0, 0.0]
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_ms[1] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_ms[1]) * 1e3
+
+    def census():
+        heap = gc.get_objects()
+        return len(heap), collections.Counter(
+            type(o).__name__ for o in heap).most_common(5)
+
+    # the earlier phases' profiler events hold reference cycles (parent and
+    # child events) that only a full collection frees; that collection,
+    # seconds long over millions of objects, is taken here and not inside
+    # a counted step
+    n_heap, kinds = census()
+    tc = time.perf_counter()
+    gc.collect()
+    gc_full_ms = (time.perf_counter() - tc) * 1e3
+    n_left, kinds_left = census()
+    print(f"  host heap: {n_heap} objects tracked by the garbage collector, "
+          f"most common {kinds}; a full collection took {gc_full_ms:.1f} ms "
+          f"and left {n_left}, most common {kinds_left}", flush=True)
+    gc.callbacks.append(gc_timer)
+    clocks = open(out_dir / f"clocks_{tag}.csv", "w")
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active", "--format=csv,noheader",
+         "-lms", "200"], stdout=clocks, stderr=subprocess.STDOUT)
+    for c in counters.values():
         c.reset()
 
     def run(kind, step_fn, batch):
         nonlocal state
-        before = (bl_k.launches.count, rk_k.launches.count)
+        before = {k: c.count for k, c in counters.items()}
         torch.cuda.synchronize()
+        mem0, gc_ms[0], t_wall = torch.cuda.memory_stats(), 0.0, time.time()
         ts = time.perf_counter()
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - ts) * 1e3
+        mem1 = torch.cuda.memory_stats()
+        host = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in
+                ("num_device_alloc", "num_device_free", "num_alloc_retries")}
+        host.update(gc_ms=gc_ms[0], reserved_gib=mem1["reserved_bytes.all.current"]
+                    / 2 ** 30, start_unix=t_wall)
         vals = {k: float(v) for k, v in m.items()}
         bad = [k for k, v in vals.items() if not math.isfinite(v)]
         if bad:
-            fail(f"{kind} step {len(log)}: non-finite {bad}: {vals}")
-        got = (bl_k.launches.count - before[0], rk_k.launches.count - before[1])
-        want = (2 * per_fwd, 3 if kind == "distill" else 0)
-        if got != want:
-            fail(f"{kind} step {len(log)}: launches (bitlinear, relation_kd) "
-                 f"{got}, expected {want} (remat recomputes each forward)")
-        log.append(dict(kind=kind, ms=ms, **vals))
+            fail(f"{name} {kind} step {len(log)}: non-finite {bad}: {vals}")
+        got = {k: c.count - before[k] for k, c in counters.items()}
+        if got != expect[kind]:
+            fail(f"{name} {kind} step {len(log)}: launches {got}, expected "
+                 f"{expect[kind]} (remat recomputes each student forward)")
+        log.append(dict(kind=kind, ms=ms, host=host, **vals))
         parts = " ".join(f"{k} {vals[k]:.5g}" for k in
                          ("loss", "loss_ce", "loss_ld", "loss_ad", "grad_norm", "lr")
                          if k in vals)
-        print(f"  {kind} step {len(log) - 1}: {parts}; {ms:.1f} ms", flush=True)
+        print(f"  {kind} step {len(log) - 1}: {parts}; {ms:.1f} ms (cudaMalloc "
+              f"{host['num_device_alloc']}, cudaFree {host['num_device_free']}, "
+              f"alloc retries {host['num_alloc_retries']}, gc {host['gc_ms']:.1f} "
+              f"ms, reserved {host['reserved_gib']:.2f} GiB)", flush=True)
 
-    for b in corpus:
-        run("train", ct_step, b)
-    state = init_train_state(student, opt)
-    kd_step = make_distill_step(student, teacher, opt,
-                                lambda s: warmup_cosine(s, 1e-4, 1, 5), dcfg)
-    for b in task[:5]:
-        run("distill", kd_step, b)
-    launches = {c.name: c.count for c in counters}
+    try:
+        for b in corpus:
+            run("train", ct_step, b)
+        state = init_train_state(student, opt)
+        kd_step = make_distill_step(student, teacher, opt,
+                                    lambda s: warmup_cosine(s, 1e-4, 1, 5), dcfg)
+        for b in task[:5]:
+            run("distill", kd_step, b)
+    finally:
+        gc.callbacks.remove(gc_timer)
+        smi.terminate()
+        smi.wait()
+        clocks.close()
+    launches = {k: c.count for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name, p in student.named_parameters():
+    for pname, p in student.named_parameters():
         if not bool(torch.isfinite(p).all()):
-            fail(f"student parameter {name} holds non-finite values")
-    tok = TRAIN_BATCH * TRAIN_SEQ
-    kd_ms = statistics.median(r["ms"] for r in log if r["kind"] == "distill")
-    ct_ms = statistics.median(r["ms"] for r in log if r["kind"] == "train")
+            fail(f"student parameter {pname} holds non-finite values")
+    tok = TRAIN_BATCH * seq
+    kd = [r["ms"] for r in log if r["kind"] == "distill"]
+    ct = [r["ms"] for r in log if r["kind"] == "train"]
+    kd_ms, ct_ms = statistics.median(kd), statistics.median(ct)
     summary = dict(model=cfg.name, layers=cfg.n_layers, batch=TRAIN_BATCH,
-                   seq=TRAIN_SEQ, steps=log, launches=launches,
+                   seq=seq, steps=log, launches=launches,
                    distill_step_ms_median=kd_ms, train_step_ms_median=ct_ms,
+                   distill_step_ms_mean=statistics.mean(kd),
+                   train_step_ms_mean=statistics.mean(ct),
                    distill_tok_per_s=tok / kd_ms * 1e3,
-                   train_tok_per_s=tok / ct_ms * 1e3, peak_mem_gib=peak)
-    print(f"  median step: CE {ct_ms:.1f} ms ({tok / ct_ms * 1e3:.0f} tok/s), "
-          f"distill {kd_ms:.1f} ms ({tok / kd_ms * 1e3:.0f} tok/s); peak memory "
-          f"{peak:.2f} GiB; launches {launches}", flush=True)
+                   train_tok_per_s=tok / ct_ms * 1e3, peak_mem_gib=peak,
+                   heap_objects=n_heap, heap_most_common=kinds,
+                   full_gc_ms=gc_full_ms, heap_objects_after_gc=n_left)
+    print(f"  median step: CE {ct_ms:.1f} ms ({tok / ct_ms * 1e3:.0f} tok/s; "
+          f"mean {statistics.mean(ct):.1f} ms), distill {kd_ms:.1f} ms "
+          f"({tok / kd_ms * 1e3:.0f} tok/s; mean {statistics.mean(kd):.1f} ms); "
+          f"peak memory {peak:.2f} GiB; launches {launches}", flush=True)
     summary["profile"] = profile_distill_step(kd_step, state, task[5], kd_ms,
-                                              cfg.padded_vocab, out_dir)
-    (out_dir / "smoke_train.json").write_text(json.dumps(summary, indent=1))
+                                              cfg.padded_vocab, list(counters),
+                                              out_dir / f"profile_{tag}.txt")
+    (out_dir / f"smoke_{tag}.json").write_text(json.dumps(summary, indent=1))
     del teacher, student, state, kd_step, ct_step
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_distill_step(step_fn, state, batch, wall_ms, vocab, out_dir):
+def profile_distill_step(step_fn, state, batch, wall_ms, vocab, kernels, path):
     """Where the device time of one distillation step goes, from
     ``torch.profiler`` (after the counted steps, so they carry no profiler
-    cost): the two training kernels by name; the matmuls by the PyTorch op
+    cost): the path's ``kernels`` by name; the matmuls by the PyTorch op
     that launched them: the tied LM head (an operand with the vocabulary's
     width, forward and backward), the backward's (ops under an autograd
-    engine node, the remat recompute included) and the forward's (teacher
-    and student projections, attention); everything else is glue.  The idle share is 1 - busy / wall,
+    engine node, the remat recompute and the SSD's recomputed backward
+    included) and the forward's (teacher and student projections,
+    attention); everything else is glue.  The idle share is 1 - busy / wall,
     with the wall the unprofiled median distillation step."""
     import torch
     from torch.autograd import DeviceType
@@ -777,15 +936,14 @@ def profile_distill_step(step_fn, state, batch, wall_ms, vocab, out_dir):
     if busy == 0:
         print("  profile: the trace holds no device time (not measured)", flush=True)
         return None
-    kern = {"bitlinear": 0.0, "relation_kd": 0.0}
+    kern = {k: 0.0 for k in kernels}
     by_name = {}
     for e in device:
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        if "bitlinear_kernel" in e.name:
-            kern["bitlinear"] += us
-        elif "relation_kl_rows_kernel" in e.name:
-            kern["relation_kd"] += us
+        for k in kernels:
+            if TRAIN_KERNELS[k][1] in e.name:
+                kern[k] += us
     mm_ops = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
     head = bwd_mm = fwd_mm = 0.0
     for e in events:
@@ -805,14 +963,12 @@ def profile_distill_step(step_fn, state, batch, wall_ms, vocab, out_dir):
             bwd_mm += us
         else:
             fwd_mm += us
-    glue = busy - kern["bitlinear"] - kern["relation_kd"] - head - bwd_mm - fwd_mm
-    shares = {"bitlinear": kern["bitlinear"] / busy,
-              "relation_kd": kern["relation_kd"] / busy,
-              "lm_head_matmuls": head / busy,
-              "backward_matmuls": bwd_mm / busy,
-              "forward_matmuls": fwd_mm / busy, "glue": glue / busy}
+    glue = busy - sum(kern.values()) - head - bwd_mm - fwd_mm
+    shares = {k: v / busy for k, v in kern.items()}
+    shares.update(lm_head_matmuls=head / busy, backward_matmuls=bwd_mm / busy,
+                  forward_matmuls=fwd_mm / busy, glue=glue / busy)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
-    (out_dir / "profile_train.txt").write_text(
+    path.write_text(
         f"one distill step: wall (unprofiled median) {wall_ms:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms\n" + "\n".join(
             f"{us / 1e3:10.3f} ms  {us / busy:6.1%}  {n[:110]}" for n, us in top)
@@ -861,7 +1017,7 @@ def train_kernel_vs_plain_parity(dev):
     cfg = get_config("qwen3-0.6b").replace(n_layers=2, compute_dtype="float32")
     teacher = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(1),
                           device=dev)
-    batch = _train_batches("mnli-syn", 0, 1, dev)[0]
+    batch = _train_batches("mnli-syn", 0, 1, dev, QWEN_SEQ)[0]
     out, codes = {}, {}
     for tag, use_kernel in (("kernels", True), ("plain", False)):
         _, student = _student_from(teacher, cfg, use_kernel, dev)
@@ -893,6 +1049,56 @@ def train_kernel_vs_plain_parity(dev):
     del teacher
     torch.cuda.empty_cache()
     return out
+
+
+def mamba_block_parity(dev):
+    """Phase 8: one Mamba2Block of mamba2-780m at full width (d_model 1536,
+    48 heads of 64, state 128, chunk 256; FP projections, fp32, seeded init)
+    on batch 2 x seq 512, forward and backward through the ssd_scan kernel
+    (``sequential=False``) and through the sequential oracle
+    (``sequential=True``, JAX's other core).  The two sum in another order:
+    output rtol 1e-4 atol 1e-4, every parameter's gradient rtol 1e-3 with
+    atol 1e-3 of its largest entry."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.nn.module import DTypePolicy
+    from repro_torch.nn.ssm import Mamba2Block
+
+    cfg = get_config("mamba2-780m")
+    f32 = torch.float32
+    blk = Mamba2Block(cfg.d_model, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                      chunk=cfg.ssm_chunk, policy=DTypePolicy(f32, f32),
+                      gen=torch.Generator(device=dev).manual_seed(2), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = torch.randn((2, MAMBA_SEQ, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((2, MAMBA_SEQ, cfg.d_model), generator=gen, device=dev)
+    out, grads = {}, {}
+    for sequential in (False, True):
+        blk.zero_grad(set_to_none=True)
+        y = blk(u, sequential=sequential)
+        (y * w).sum().backward()
+        out[sequential] = y.detach()
+        grads[sequential] = {k: p.grad.detach().clone()
+                             for k, p in blk.named_parameters()}
+    err = (out[False] - out[True]).abs()
+    if not (bool(torch.isfinite(out[False]).all())
+            and bool((err <= 1e-4 + 1e-4 * out[True].abs()).all())):
+        fail(f"Mamba2Block kernel vs sequential: output max err {err.max().item()}")
+    worst = {}
+    for k, g in grads[True].items():
+        e = (grads[False][k] - g).abs()
+        scale = g.abs().max().item()
+        if not (bool(torch.isfinite(grads[False][k]).all())
+                and bool((e <= 1e-3 * scale + 1e-3 * g.abs()).all())):
+            fail(f"Mamba2Block kernel vs sequential: gradient of {k} max err "
+                 f"{e.max().item()} (largest entry {scale})")
+        worst[k] = e.max().item() / max(scale, 1e-30)
+    print(f"  Mamba2Block full width, 2 x {MAMBA_SEQ}: output max err "
+          f"{err.max().item():.3g} (max |y| {out[True].abs().max().item():.3g}); "
+          "gradient max err / largest entry: "
+          + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()), flush=True)
+    del blk
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -927,26 +1133,51 @@ def main() -> None:
     check_paged_prefill(dev, flush, results)
     check_bitlinear(dev, flush, results)
     check_relation_kd(dev, flush, results)
+    check_ssd_scan(dev, flush, results)
     del scratch
     # 3. the main path, launch counters reset just before it
     print("phase 3: engine, qwen3-0.6b full width", flush=True)
-    launches = serve_full_width(dev, out_dir)
+    by_path = {"serve qwen3-0.6b": serve_full_width(dev, out_dir)}
     # 4. kernels vs plain paths through the engine
     print("phase 4: on-card parity, kernel vs plain paths", flush=True)
     kernel_vs_plain_parity(dev)
     # 5. the training path, its launch counters reset just before it
     print("phase 5: BitDistill training, qwen3-0.6b full width", flush=True)
-    launches.update(train_full_width(dev, out_dir))
+    per_fwd = 7 * 28                       # BitLinear projections, 28 layers
+    by_path["train qwen3-0.6b"] = train_full_width(
+        dev, out_dir, "qwen3-0.6b", 28, QWEN_SEQ,
+        {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
+         "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train")
     # 6. kernels vs plain paths through the distillation step
     print("phase 6: on-card parity, distill step kernel vs plain paths", flush=True)
     train_kernel_vs_plain_parity(dev)
+    # 7. the mamba2-780m training path, its counters reset just before it:
+    # the student's in_proj + out_proj per layer and one SSD per layer, each
+    # forward recomputed once under remat; the FP teacher adds 48 SSDs
+    print("phase 7: BitDistill training, mamba2-780m full width", flush=True)
+    by_path["train mamba2-780m"] = train_full_width(
+        dev, out_dir, "mamba2-780m", 48, MAMBA_SEQ,
+        {"train": {"bitlinear": 2 * 2 * 48, "ssd_scan": 2 * 48},
+         "distill": {"bitlinear": 2 * 2 * 48, "ssd_scan": 3 * 48}}, "train_mamba")
+    # 8. the SSD kernel vs the sequential oracle through a full-width block
+    print("phase 8: on-card parity, Mamba2Block kernel vs sequential", flush=True)
+    mamba_block_parity(dev)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # every parity check above is fatal, so reaching here means "ok"
+    # every parity check above is fatal, so reaching here means "ok";
+    # launches: the sum over the paths' counted runs, each path's own beside
+    launches, where = {}, {}
+    for path, counts in by_path.items():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+            where.setdefault(name, {})[path] = n
+    missing = sorted(set(results) - set(launches))
+    if missing:
+        fail(f"kernels checked but never counted on a path: {missing}")
     line = {"kernels": [dict({k: dict(v, launches=launches[name])[k] for k in keys},
-                             parity="ok")
+                             launches_by_path=where[name], parity="ok")
                         for name, v in results.items()]}
     (out_dir / "smoke_kernels.json").write_text(json.dumps(results, indent=1))
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)

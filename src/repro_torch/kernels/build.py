@@ -37,6 +37,7 @@ _SIGNATURES = {
     "paged_prefill_chunk_launch": [_vp] * 9 + [_i] * 7 + [_f] * 2 + [_i] * 2 + [_vp],
     "bitlinear_launch": [_vp] * 5 + [_i] * 4 + [_vp],
     "relation_kd_launch": [_vp] * 3 + [_i] * 3 + [_f] + [_vp],
+    "ssd_scan_launch": [_vp] * 7 + [_i] * 6 + [_vp],
 }
 
 

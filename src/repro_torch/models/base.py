@@ -1,9 +1,10 @@
 """ModelConfig: one dataclass describing an architecture — port of
 ``repro/models/base.py``.  The fields are the JAX config's, so a config
 compares field for field with its JAX counterpart; ``policy()`` returns
-torch dtypes.  This slice ports the dense attention families (the
-``attn`` + ``dense`` pattern) and registers ``qwen3-0.6b`` and
-``qwen1.5-0.5b``; the other families come with later slices.
+torch dtypes.  The port runs the dense attention families (the ``attn`` +
+``dense`` pattern; ``qwen3-*``, ``qwen1.5-0.5b``) and the SSM family (the
+``mamba`` + ``none`` pattern; ``mamba2-780m``); the other families come
+with later slices.
 """
 from __future__ import annotations
 
@@ -97,7 +98,8 @@ class ModelConfig:
             activation=self.activation, mlp_gated=self.mlp_gated,
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, logit_softcap=self.logit_softcap,
-            subln=self.subln, quant=self.quant,
+            ssm_state=self.ssm_state, ssm_head_dim=self.ssm_head_dim,
+            ssm_chunk=self.ssm_chunk, subln=self.subln, quant=self.quant,
             attn_scores_dtype=self.attn_scores_dtype, policy=self.policy())
 
     # -- config surgery ---------------------------------------------------------

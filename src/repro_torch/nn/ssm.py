@@ -1,0 +1,121 @@
+"""Mamba2 (SSD — state-space duality) block — port of ``repro/nn/ssm.py``.
+
+The two SSD cores, ``ssd_chunked`` (blocked, what the JAX model computes)
+and ``ssd_sequential`` (the oracle), are the ssd_scan kernel's plain
+versions and live with it in ``kernels/ssd_scan/ref.py``; they are
+re-exported here under the JAX module's names.  ``Mamba2Block.forward``
+runs the SSD through ``kernels/ssd_scan/ops.ssd_scan``: the hand-written
+kernel on the card, ``ssd_chunked`` on the CPU.  BitLinear applies to
+``in_proj`` / ``out_proj``; the gated RMSNorm before ``out_proj`` is the
+paper's SubLN placement.  ``init_cache`` / ``decode`` (SSM serving) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core import quant as Q
+from repro_torch.core.bitlinear import BitLinear, SubLN
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import chunk_len, ssd_chunked, ssd_sequential
+from repro_torch.nn.layers import silu
+from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+
+__all__ = ["Mamba2Block", "chunk_len", "ssd_chunked", "ssd_sequential"]
+
+
+class Mamba2Block(nn.Module):
+    def __init__(self, d_model: int, d_state: int = 128, head_dim: int = 64,
+                 expand: int = 2, conv_kernel: int = 4, chunk: int = 256,
+                 subln: bool = True, quant: Q.QuantConfig = Q.FP,
+                 policy: DTypePolicy = DEFAULT_POLICY,
+                 gen: Optional[torch.Generator] = None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.d_model, self.d_state, self.head_dim = d_model, d_state, head_dim
+        self.conv_kernel, self.chunk = conv_kernel, chunk
+        self.d_inner = expand * d_model
+        if self.d_inner % head_dim:
+            raise ValueError(f"d_inner={self.d_inner} is not a multiple of "
+                             f"head_dim={head_dim}")
+        self.n_heads = self.d_inner // head_dim
+        self.conv_dim = self.d_inner + 2 * d_state
+        in_dim = 2 * self.d_inner + 2 * d_state + self.n_heads   # z, x, B, C, dt
+        lin = dict(quant=quant, policy=policy, gen=gen, device=device)
+        self.in_proj = BitLinear(d_model, in_dim, False, **lin)
+        self.out_proj = BitLinear(self.d_inner, d_model, False, **lin)
+        h, pd, f32 = self.n_heads, policy.param_dtype, torch.float32
+        if gen is not None:
+            conv_w = torch.randn((conv_kernel, self.conv_dim), generator=gen,
+                                 dtype=f32, device=device) * 0.1
+            # A = -exp(A_log) in [-8, -1]; dt = softplus(dt_bias) in [1e-3, 0.1]
+            u_a = torch.rand((h,), generator=gen, dtype=f32, device=device)
+            u_dt = torch.rand((h,), generator=gen, dtype=f32, device=device)
+            a_log = torch.log(1.0 + 7.0 * u_a)
+            dt0 = torch.exp(u_dt * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+            dt_bias = torch.log(torch.expm1(dt0))
+        else:
+            conv_w = torch.zeros((conv_kernel, self.conv_dim), dtype=f32,
+                                 device=device)
+            a_log = torch.zeros((h,), dtype=f32, device=device)
+            dt_bias = torch.zeros((h,), dtype=f32, device=device)
+        self.conv_w = nn.Parameter(conv_w.to(pd))
+        self.conv_b = nn.Parameter(torch.zeros((self.conv_dim,), dtype=pd,
+                                               device=device))
+        # A_log, D and dt_bias stay fp32 whatever the policy, as in JAX
+        self.A_log = nn.Parameter(a_log)
+        self.D = nn.Parameter(torch.ones((h,), dtype=f32, device=device))
+        self.dt_bias = nn.Parameter(dt_bias)
+        self.norm = SubLN(self.d_inner, policy=policy, device=device) if subln else None
+
+    # -- pieces ----------------------------------------------------------------
+
+    def _split(self, zxbcdt: torch.Tensor):
+        di = self.d_inner
+        return (zxbcdt[..., :di], zxbcdt[..., di:di + self.conv_dim],
+                zxbcdt[..., di + self.conv_dim:])
+
+    def _conv(self, xbc: torch.Tensor) -> torch.Tensor:
+        """Causal depthwise conv over [B, S, conv_dim] in fp32, then SiLU,
+        back in the input dtype."""
+        k, s = self.conv_kernel, xbc.shape[1]
+        w = self.conv_w.to(torch.float32)                            # [k, c]
+        pad = torch.nn.functional.pad(xbc.to(torch.float32), (0, 0, k - 1, 0))
+        out = pad[:, 0:s, :] * w[0]
+        for i in range(1, k):
+            out = out + pad[:, i:i + s, :] * w[i]
+        return silu(out + self.conv_b.to(torch.float32)).to(xbc.dtype)
+
+    def _gates(self, dt_raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """dt_raw [B, S, H] -> (a = exp(dt·A) in (0, 1), dt), both fp32."""
+        v = dt_raw.to(torch.float32) + self.dt_bias
+        dt = torch.logaddexp(v, torch.zeros_like(v))                 # softplus
+        a = torch.exp(dt * -torch.exp(self.A_log))
+        return a, dt
+
+    # -- full-sequence forward ---------------------------------------------------
+
+    def forward(self, u: torch.Tensor, sequential: bool = False) -> torch.Tensor:
+        """u [B, S, D] -> [B, S, D]; ``sequential`` runs the oracle core."""
+        b, s, _ = u.shape
+        di, n, h, p = self.d_inner, self.d_state, self.n_heads, self.head_dim
+        z, xbc, dt_raw = self._split(self.in_proj(u))
+        xbc = self._conv(xbc)
+        x = xbc[..., :di].reshape(b, s, h, p).to(torch.float32)
+        B = xbc[..., di:di + n].to(torch.float32)
+        C = xbc[..., di + n:].to(torch.float32)
+        a, dt = self._gates(dt_raw)
+        if sequential:
+            y, _ = ssd_sequential(x, a, dt, B, C)
+        else:
+            y = ssd_scan(x, a, dt, B, C, self.chunk)
+        y = y + self.D[:, None] * x
+        y = y.reshape(b, s, di).to(u.dtype)
+        y = y * silu(z)
+        if self.norm is not None:
+            y = self.norm(y)
+        return self.out_proj(y)

@@ -1,5 +1,5 @@
 """Transformer blocks and stacks — port of ``repro/nn/transformer.py`` for the
-``attn`` + ``dense`` pattern.
+``attn`` + ``dense`` and ``mamba`` + ``none`` patterns.
 
 The JAX ``Stack`` keeps each pattern position's params stacked over repeats
 and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
@@ -9,7 +9,7 @@ and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
 the scan body) recomputes each block in the backward with
 ``torch.utils.checkpoint`` (non-reentrant).  The paged cache is a per-layer
 list of ``{"k","v"}`` pools [N, Hkv, bs, Dh] that the attention layers
-update in place.
+update in place; mamba layers have no decode path yet.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from repro_torch.nn.attention import Attention
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+from repro_torch.nn.ssm import Mamba2Block
 
 LayerCache = Dict[str, torch.Tensor]
 
@@ -49,6 +50,10 @@ class BlockConfig:
     rope_theta: float = 10000.0
     logit_softcap: float = 0.0
     attn_scores_dtype: str = "float32"
+    # SSM
+    ssm_state: int = 128
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
     subln: bool = False
     rms_eps: float = 1e-6
     quant: Q.QuantConfig = Q.FP
@@ -56,38 +61,56 @@ class BlockConfig:
 
 
 class Block(nn.Module):
-    """One residual block: pre-norm self-attention + pre-norm gated MLP."""
+    """One residual block: pre-norm self-attention + pre-norm gated MLP, or
+    pre-norm Mamba2 alone."""
 
     def __init__(self, cfg: BlockConfig, spec: LayerSpec,
                  gen: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if spec != LayerSpec("attn", "dense"):
+        if spec not in (LayerSpec("attn", "dense"), LayerSpec("mamba", "none")):
             raise NotImplementedError(
-                f"layer {spec}: only the attn + dense pattern is ported")
+                f"layer {spec}: only the attn + dense and mamba + none "
+                "patterns are ported")
         c = cfg
+        self.spec = spec
         self.norm1 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
-        self.attn = Attention(
-            c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
-            qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope_theta=c.rope_theta,
-            logit_softcap=c.logit_softcap, subln=c.subln,
-            scores_dtype=c.attn_scores_dtype, quant=c.quant, policy=c.policy,
-            gen=gen, device=device)
-        self.norm2 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
-        self.mlp = GatedMLP(c.d_model, c.d_ff, c.activation, gated=c.mlp_gated,
-                            subln=c.subln, quant=c.quant, policy=c.policy,
-                            gen=gen, device=device)
+        self.attn = self.mamba = self.norm2 = self.mlp = None
+        if spec.mixer == "attn":
+            self.attn = Attention(
+                c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+                qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope_theta=c.rope_theta,
+                logit_softcap=c.logit_softcap, subln=c.subln,
+                scores_dtype=c.attn_scores_dtype, quant=c.quant, policy=c.policy,
+                gen=gen, device=device)
+        else:
+            self.mamba = Mamba2Block(
+                c.d_model, d_state=c.ssm_state, head_dim=c.ssm_head_dim,
+                chunk=c.ssm_chunk, subln=True, quant=c.quant, policy=c.policy,
+                gen=gen, device=device)
+        if spec.ffn == "dense":
+            self.norm2 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
+            self.mlp = GatedMLP(c.d_model, c.d_ff, c.activation, gated=c.mlp_gated,
+                                subln=c.subln, quant=c.quant, policy=c.policy,
+                                gen=gen, device=device)
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.mlp is None else x + self.mlp(self.norm2(x))
 
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 collect_states: bool = False):
-        """-> x, or (x, qkv states [3, B, H, S, Dh]) with ``collect_states``."""
+        """-> x, or (x, qkv states [3, B, H, S, Dh]) with ``collect_states``
+        (attention blocks only)."""
+        if self.mamba is not None:
+            if collect_states:
+                raise ValueError("a mamba block has no qkv states")
+            return self._ffn(x + self.mamba(self.norm1(x)))
         if collect_states:
             h, aux = self.attn(self.norm1(x), positions, collect_states=True)
         else:
             h = self.attn(self.norm1(x), positions)
-        x = x + h
-        x = x + self.mlp(self.norm2(x))
+        x = self._ffn(x + h)
         if not collect_states:
             return x
         return x, torch.stack([aux["q"], aux["k"], aux["v"]])
@@ -95,19 +118,24 @@ class Block(nn.Module):
     def decode(self, x: torch.Tensor, cache: LayerCache,
                cache_index: torch.Tensor, block_tables: torch.Tensor,
                attn_impl: str = "gather") -> torch.Tensor:
-        h, _ = self.attn.decode(self.norm1(x), cache, cache_index,
-                                block_tables, attn_impl=attn_impl)
-        x = x + h
-        return x + self.mlp(self.norm2(x))
+        h, _ = self._decode_attn().decode(self.norm1(x), cache, cache_index,
+                                          block_tables, attn_impl=attn_impl)
+        return self._ffn(x + h)
 
     def decode_chunk(self, x: torch.Tensor, cache: LayerCache,
                      start: torch.Tensor, lens: torch.Tensor,
                      block_tables: torch.Tensor,
                      attn_impl: str = "gather") -> torch.Tensor:
-        h, _ = self.attn.decode_chunk(self.norm1(x), cache, start, lens,
-                                      block_tables, attn_impl=attn_impl)
-        x = x + h
-        return x + self.mlp(self.norm2(x))
+        h, _ = self._decode_attn().decode_chunk(self.norm1(x), cache, start,
+                                                lens, block_tables,
+                                                attn_impl=attn_impl)
+        return self._ffn(x + h)
+
+    def _decode_attn(self) -> Attention:
+        if self.attn is None:
+            raise NotImplementedError("decode of a mamba layer (Mamba2Block."
+                                      "init_cache/decode) is not ported yet")
+        return self.attn
 
 
 class Stack(nn.Module):
@@ -132,11 +160,17 @@ class Stack(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """Returns (x, fp32 qkv states [3, B, H, S, Dh] of ``distill_layer``
         or None, moe loss).  The moe loss is 0: the MoE layers are not
-        ported, so every block is dense."""
+        ported, so no block has an MoE FFN."""
         n = len(self.layers)
-        if distill_layer is not None and not 0 <= distill_layer < n:
-            raise ValueError(f"distill_layer {distill_layer} outside the "
-                             f"stack's {n} layers")
+        if distill_layer is not None:
+            if not 0 <= distill_layer < n:
+                raise ValueError(f"distill_layer {distill_layer} outside the "
+                                 f"stack's {n} layers")
+            mixer = self.layers[distill_layer].spec.mixer
+            if mixer != "attn":
+                raise ValueError(
+                    f"distill layer {distill_layer} is a {mixer!r} layer; "
+                    "attention-relation distillation needs an attention layer")
         remat = self.remat and torch.is_grad_enabled()
         states = None
         for li, blk in enumerate(self.layers):
@@ -155,7 +189,7 @@ class Stack(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> List[LayerCache]:
-        return [blk.attn.init_cache(batch, max_len, dtype, device)
+        return [blk._decode_attn().init_cache(batch, max_len, dtype, device)
                 for blk in self.layers]
 
     def decode(self, x: torch.Tensor, cache: List[LayerCache],

@@ -11,6 +11,11 @@ the plain versions, so fp32 outputs are held to 1e-5 and bf16 outputs to one
 bf16 ulp at |x| < 2; the pools after the call equal bitwise outside the
 trash block.  The relation-KD rows are held to rtol 1e-5, atol 1e-6 (fp32
 dot products and an online softmax against the materialized log-softmax).
+The SSD scan's y and final state are held to rtol 1e-4, atol 1e-4 against
+``ssd_chunked`` and the sequential ``ssd_scan_ref`` (fp32 sums in another
+order; the JAX package's own tolerance for this kernel), its gradient to
+1e-3 (the backward recomputes through ``ssd_chunked``, so that case shows
+the ``autograd.Function`` is wired up).
 """
 import numpy as np
 import pytest
@@ -27,6 +32,10 @@ from repro_torch.kernels.paged_prefill import ref as pp_ref
 from repro_torch.kernels.relation_kd import kernel as rk_kernel
 from repro_torch.kernels.relation_kd import ops as rk_ops
 from repro_torch.kernels.relation_kd import ref as rk_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.kernels.w2a8_gemv import kernel as w2_kernel
 from repro_torch.kernels.w2a8_gemv import ops as w2_ops
 from repro_torch.kernels.w2a8_gemv import ref as w2_ref
@@ -159,6 +168,48 @@ def test_relation_kd_kernel_matches_plain(cuda, bh, l, d):
     torch.testing.assert_close(s1.grad, s2.grad, rtol=1e-4, atol=1e-9)
 
 
+def _ssd_problem(dev, b, s, h, p, n, seed):
+    """As Mamba2Block feeds the core: A = -exp(A_log) in [-8, -1] per head,
+    dt = softplus(N(-2, 1)), a = exp(dt·A); x, B, C standard normal.  A
+    chunk of 256 then sums dt·|A| far past 88, where exp of an unmasked
+    segment sum overflows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    A = -(1.0 + 7.0 * torch.rand((h,), generator=gen, device=dev))
+    dt = torch.nn.functional.softplus(r(b, s, h) - 2.0)
+    return r(b, s, h, p), torch.exp(dt * A), dt, r(b, s, n), r(b, s, n)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 512, 48, 64, 128, 256), (1, 100, 3, 16, 16, 64),
+    (2, 96, 2, 64, 128, 32), (1, 37, 2, 64, 128, 256)])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, a, dt, B, C = _ssd_problem(cuda, b, s, h, p, n, b + s + h)
+    before = ssd_kernel.launches.count
+    y, hT = ssd_kernel.ssd_scan_kernel(x, a, dt, B, C, chunk)
+    assert ssd_kernel.launches.count == before + 1
+    yc, hc = ssd_chunked(x, a, dt, B, C, chunk=chunk)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, yc, **tol)
+    torch.testing.assert_close(hT, hc.transpose(-1, -2).reshape(b * h, n, p), **tol)
+    # the sequential oracle in the TPU kernel's [BH, ...] layout
+    flat = lambda t: t.transpose(1, 2).reshape(b * h, s, *t.shape[3:])
+    rep = lambda t: t.repeat_interleave(h, dim=0)
+    yr, hr = ssd_ref.ssd_scan_ref(flat(x), flat(a), flat(dt), rep(B), rep(C))
+    torch.testing.assert_close(flat(y), yr, **tol)
+    torch.testing.assert_close(hT, hr, **tol)
+    # the autograd.Function against autograd through ssd_chunked
+    g = torch.randn_like(y)
+    ins1 = [t.clone().requires_grad_() for t in (x, a, dt, B, C)]
+    (ssd_ops.ssd_scan(*ins1, chunk=chunk) * g).sum().backward()
+    ins2 = [t.clone().requires_grad_() for t in (x, a, dt, B, C)]
+    (ssd_chunked(*ins2, chunk=chunk)[0] * g).sum().backward()
+    for t1, t2 in zip(ins1, ins2):
+        assert bool(torch.isfinite(t1.grad).all())
+        torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-3, atol=1e-3)
+
+
 def test_kernels_raise_on_a_bad_operand(cuda):
     """The wrappers check what the kernels take and raise, never fall back."""
     x = torch.zeros((2, 128), device=cuda)
@@ -178,3 +229,21 @@ def test_kernels_raise_on_a_bad_operand(cuda):
         bl_kernel.bitlinear_kernel(x, wq.float(), gamma, delta)
     with pytest.raises(TypeError, match="fp32"):
         rk_kernel.relation_kl_rows_kernel(x[None].double(), x[None].double())
+    xs = torch.zeros((1, 16, 2, 32), device=cuda)
+    ab = torch.zeros((1, 16, 2), device=cuda)
+    bc = torch.zeros((1, 16, 128), device=cuda)
+    with pytest.raises(ValueError, match="not built"):
+        ssd_kernel.ssd_scan_kernel(xs, ab, ab, bc, bc)
+    with pytest.raises(TypeError, match="fp32"):
+        ssd_kernel.ssd_scan_kernel(xs.double(), ab, ab, bc, bc)
+    # a chunk whose shared memory exceeds a CTA's: the launcher refuses it,
+    # and the refusal is not left behind for the next launch
+    s = 20000
+    big = (torch.zeros((1, s, 1, 64), device=cuda), torch.ones((1, s, 1), device=cuda),
+           torch.zeros((1, s, 1), device=cuda), torch.zeros((1, s, 128), device=cuda),
+           torch.zeros((1, s, 128), device=cuda))
+    with pytest.raises(ValueError, match="does not fit"):
+        ssd_kernel.ssd_scan_kernel(*big, chunk=s)
+    y, _ = ssd_kernel.ssd_scan_kernel(*big, chunk=256)
+    torch.cuda.synchronize()
+    assert bool((y == 0).all())
