@@ -10,12 +10,17 @@ result line):
      (the serving kernels and bitlinear in bf16 and fp32, relation_kd and
      ssd_scan in fp32), with its time, the plain version's time, a library
      yardstick where one PyTorch call computes the same function, and the
-     card's lower bound for the work;
+     card's lower bound for the work; the paged prefill kernel at two
+     shapes (the original one, and a mixed step of one prefilling and
+     seven decode rows), each paged launch with its split and CTA counts,
+     its device time alone beside the time a caller sees, and its host
+     time per call;
   3. the port's ``Engine`` serving ``qwen3-0.6b`` at full width (packed
      ternary weights from a seeded init, w2a8 + paged kernels), with the
      serving kernels' launch counters read around that run;
   4. on-card parity: the kernel path and the plain path (``attn_impl=
-     "gather"``, ``use_kernel=False``) give identical greedy tokens;
+     "gather"``, ``use_kernel=False``) give identical greedy tokens (the
+     smallest top-2 logit gaps of those tokens printed beside);
   5. the BitDistill training path on ``qwen3-0.6b`` at full width and depth
      (bf16 compute, fp32 master weights, remat): an FP teacher from a seeded
      init, stage-1 refine, 3 CE steps and 5 distillation steps with both
@@ -34,6 +39,10 @@ result line):
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero.
+
+``python3 chip_smoke.py --paged-kernels-of DIR`` runs only phase 2's paged
+checks and timings, against the package of the checkout at DIR (to time two
+versions in one call), and prints their numbers, not a result line.
 """
 from __future__ import annotations
 
@@ -48,7 +57,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s and
 # the per-type operation rates used for each kernel's lower bound.
@@ -70,10 +78,21 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
-    """Median device time of ``fn`` over ``iters`` launches, CUDA events
-    around each one; ``flush`` (a 64 MB write) runs between launches so every
-    call meets a cold L2, as the serving loop's layer-by-layer weights do."""
+# ~0.5 ms of device spin (SM clock ~1.98 GHz), queued before a timed call
+# when the device time alone is wanted
+HEAD_START_CYCLES = 1_000_000
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None,
+            head_start: bool = False) -> float:
+    """Median time of ``fn`` over ``iters`` launches, CUDA events around each
+    one; ``flush`` (a 64 MB write) runs between launches so every call meets
+    a cold L2, as the serving loop's layer-by-layer weights do.  The events
+    bracket the call as a caller sees it: a call whose host enqueue outlasts
+    the flush shows that time too (the kernel table's yardstick).
+    ``head_start`` queues a ~0.5 ms device spin before the first event, so
+    that the events bracket the device work alone (``host_us`` measures the
+    enqueue)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -82,6 +101,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+        if head_start:
+            torch.cuda._sleep(HEAD_START_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -89,6 +110,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def both_ms(fn, flush):
+    """(time as a caller sees it, device time alone) of ``fn``: ``time_ms``
+    without and with the head start."""
+    return time_ms(fn, flush=flush), time_ms(fn, flush=flush, head_start=True)
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Median host time of one call of ``fn`` (its enqueue: checks,
+    allocations, launches), the device drained before each."""
+    import torch
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -190,6 +232,29 @@ def _compare_paged(name, out, kp, vp, ro, rkp, rvp, live, dt, rows_valid=None):
     return err.max().item()
 
 
+def _launch_plan(*shape):
+    """The paged kernels' launch plan (``kernels/paged_attention/kernel.py::
+    plan``), or None for a checkout whose kernels have none (one CTA per
+    row and kv-head, timed with ``--paged-kernels-of``)."""
+    from repro_torch.kernels.paged_attention import kernel
+    return kernel.plan(*shape) if hasattr(kernel, "plan") else None
+
+
+def _paged_row(what, ms, plain, lib, bd, by, grid, host):
+    """Print one paged timing line and return its numbers: ``ms``, ``plain``
+    and ``lib`` are (as a caller sees it, device alone) pairs."""
+    launch = ("one CTA per (row, kv-head)" if grid is None else
+              f"{grid['splits']} splits of {grid['split_keys']} keys, "
+              f"{grid['ctas']} CTAs + {grid['merge_ctas']} merge CTAs")
+    print(f"  {what}: {ms[0]:.4f} ms (plain {plain[0]:.4f}, sdpa {lib[0]:.4f}, "
+          f"bound {bd:.4f} by {by}); device alone {ms[1]:.4f} ms (plain "
+          f"{plain[1]:.4f}, sdpa {lib[1]:.4f}); host {host:.1f} us per call; "
+          f"{launch}", flush=True)
+    return dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0], bound_ms=bd,
+                bound_by=by, device_ms=ms[1], plain_device_ms=plain[1],
+                library_device_ms=lib[1], host_us=host, launch=grid)
+
+
 def check_paged_decode(dev, flush, results):
     import torch
     import torch.nn.functional as F
@@ -217,10 +282,10 @@ def check_paged_decode(dev, flush, results):
             worst = max(worst, _compare_paged("paged decode", out, k1, v1, ro, k2,
                                               v2, live, dt))
         if dt == torch.bfloat16:
-            ms = time_ms(lambda: paged_attention_decode_kernel(
-                q, kn, vn, k1, v1, bt, idx, scale, 0.0), flush=flush)
-            plain = time_ms(lambda: paged_attention_decode_ref(
-                q, kn, vn, k2, v2, bt, idx, scale, 0.0), flush=flush)
+            ms = both_ms(lambda: paged_attention_decode_kernel(
+                q, kn, vn, k1, v1, bt, idx, scale, 0.0), flush)
+            plain = both_ms(lambda: paged_attention_decode_ref(
+                q, kn, vn, k2, v2, bt, idx, scale, 0.0), flush)
             # yardstick: SDPA over the dense window gathered beforehand
             kw = k2[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, L * bs, dh)
             vw = v2[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, L * bs, dh)
@@ -229,8 +294,8 @@ def check_paged_decode(dev, flush, results):
             qs = q.reshape(b, hkv * g, 1, dh)
             mask = (torch.arange(L * bs, device=dev)[None] <= idx[:, None].long())
             mask = mask[:, None, None, :]
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, kw, vw, attn_mask=mask), flush=flush)
+            lib = both_ms(lambda: F.scaled_dot_product_attention(
+                qs, kw, vw, attn_mask=mask), flush)
             # the least work: the live rows only (the idle row's output is
             # don't-care); each reads its stored positions < idx once
             positions = sum(depths[r] for r in live)
@@ -240,11 +305,11 @@ def check_paged_decode(dev, flush, results):
                       + n * hkv * (g + 2) * dh * item)            # out, K/V write
             ops = 4.0 * g * dh * hkv * (positions + n)
             bd, by = bound_ms(nbytes, ops, "bfloat16")
-            print(f"  paged decode B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} bf16: "
-                  f"{ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound "
-                  f"{bd:.4f} by {by})", flush=True)
-            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd,
-                       bound_by=by)
+            grid = _launch_plan(b, hkv, g, 1, dh, bs, L)
+            host = host_us(lambda: paged_attention_decode_kernel(
+                q, kn, vn, k1, v1, bt, idx, scale, 0.0))
+            row = _paged_row(f"paged decode B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} "
+                             f"L={L} bf16", ms, plain, lib, bd, by, grid, host)
     results["paged_attention_decode"] = dict(
         name="paged_attention_decode", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
@@ -254,16 +319,38 @@ def check_paged_decode(dev, flush, results):
 
 
 def check_paged_prefill(dev, flush, results):
+    """Two T = 32 launches: the original shape (cold starts, mid-prompt chunks
+    straddling blocks, decode rows, pad rows, an idle row) and a mixed step
+    as the engine launches it (one row prefilling 32 tokens at start 256,
+    seven decode rows at depths 17..990).  The first is the headline row."""
+    starts = [0, 256, 700, 31, 990, 16, 500, None]
+    lens = [32, 32, 20, 1, 1, 7, 32, 1]
+    row = _paged_prefill_shape(dev, flush, starts, lens, 2, "paged prefill")
+    mixed = _paged_prefill_shape(
+        dev, flush, [256, 17, 130, 300, 511, 640, 800, 990],
+        [32, 1, 1, 1, 1, 1, 1, 1], 6, "paged prefill mixed step")
+    results["paged_prefill_chunk"] = dict(
+        name="paged_prefill_chunk", route="cuda",
+        source="src/repro_torch/csrc/paged_prefill.cu",
+        replaces="src/repro/kernels/paged_prefill/kernel.py:136",
+        max_abs_err=max(row.pop("max_abs_err"), mixed["max_abs_err"]),
+        shape="B=8 Hkv=8 g=2 Dh=128 bs=16 T=32 start<=990 bf16", **row,
+        mixed_step=dict(mixed, shape="B=8 T=32: one row 32 tokens at 256, seven "
+                        "decode rows at depths 17..990, bf16"))
+
+
+def _paged_prefill_shape(dev, flush, starts, lens, seed, tag):
+    """One prefill launch shape, rows with start None idle: the kernel
+    against its plain version in bf16 and fp32 with and without softcap
+    (valid rows of live rows; pools bitwise outside the trash block), then
+    in bf16 its time, the plain version's, SDPA's over the pre-gathered
+    window, and the bound.  Returns the numbers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_prefill.kernel import paged_prefill_chunk_kernel
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_chunk_ref
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     b, hkv, g, dh, bs, t = 8, 8, 2, 128, 16, 32
-    # chunk starts (resident depth) and valid lengths: cold starts, mid-prompt
-    # chunks straddling blocks, decode rows (lens 1), pad rows, one idle row
-    starts = [0, 256, 700, 31, 990, 16, 500, None]
-    lens = [32, 32, 20, 1, 1, 7, 32, 1]
     live = [i for i, s in enumerate(starts) if s is not None]
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -283,13 +370,13 @@ def check_paged_prefill(dev, flush, results):
             torch.cuda.synchronize()
             ro, _, _ = paged_prefill_chunk_ref(q, kc, vc, k2, v2, bt, start, ln,
                                                scale, softcap)
-            worst = max(worst, _compare_paged("paged prefill", out, k1, v1, ro, k2,
-                                              v2, live, dt, rows_valid=valid))
+            worst = max(worst, _compare_paged(tag, out, k1, v1, ro, k2, v2, live,
+                                              dt, rows_valid=valid))
         if dt == torch.bfloat16:
-            ms = time_ms(lambda: paged_prefill_chunk_kernel(
-                q, kc, vc, k1, v1, bt, start, ln, scale, 0.0), flush=flush)
-            plain = time_ms(lambda: paged_prefill_chunk_ref(
-                q, kc, vc, k2, v2, bt, start, ln, scale, 0.0), flush=flush)
+            ms = both_ms(lambda: paged_prefill_chunk_kernel(
+                q, kc, vc, k1, v1, bt, start, ln, scale, 0.0), flush)
+            plain = both_ms(lambda: paged_prefill_chunk_ref(
+                q, kc, vc, k2, v2, bt, start, ln, scale, 0.0), flush)
             kw = k2[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, L * bs, dh)
             vw = v2[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, L * bs, dh)
             kw = kw.repeat_interleave(g, dim=1)
@@ -299,8 +386,8 @@ def check_paged_prefill(dev, flush, results):
             pos = start.long()[:, None] + torch.arange(t, device=dev)[None]
             mask = (torch.arange(L * bs, device=dev)[None, None] <= pos[:, :, None])
             mask = mask[:, None]
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, kw, vw, attn_mask=mask), flush=flush)
+            lib = both_ms(lambda: F.scaled_dot_product_attention(
+                qs, kw, vw, attn_mask=mask), flush)
             # the least work: the valid tokens of the live rows only (pad
             # tokens and the idle row are don't-care); each row reads its
             # resident positions < start once, token j attends start + j + 1
@@ -314,17 +401,12 @@ def check_paged_prefill(dev, flush, results):
                        for r in live)
             ops = 4.0 * g * dh * hkv * keys
             bd, by = bound_ms(nbytes, ops, "bfloat16")
-            print(f"  paged prefill B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} T={t} "
-                  f"bf16: {ms:.4f} ms (plain {plain:.4f}, sdpa {lib:.4f}, bound "
-                  f"{bd:.4f} by {by})", flush=True)
-            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bd,
-                       bound_by=by)
-    results["paged_prefill_chunk"] = dict(
-        name="paged_prefill_chunk", route="cuda",
-        source="src/repro_torch/csrc/paged_prefill.cu",
-        replaces="src/repro/kernels/paged_prefill/kernel.py:136",
-        max_abs_err=worst,
-        shape="B=8 Hkv=8 g=2 Dh=128 bs=16 T=32 start<=990 bf16", **row)
+            grid = _launch_plan(b, hkv, t * g, t, dh, bs, L)
+            host = host_us(lambda: paged_prefill_chunk_kernel(
+                q, kc, vc, k1, v1, bt, start, ln, scale, 0.0))
+            row = _paged_row(f"{tag} B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} T={t} "
+                             f"L={L} bf16", ms, plain, lib, bd, by, grid, host)
+    return dict(row, max_abs_err=worst)
 
 
 def check_bitlinear(dev, flush, results):
@@ -676,11 +758,12 @@ def profile_steps(dev, cfg, model, scfg, prompts, out_dir):
                 idle_share=1 - busy / wall_us, device_time_share=shares)
 
 
-def kernel_vs_plain_parity(dev):
+def kernel_vs_plain_parity(dev, out_dir):
     """Phase 4: qwen3-0.6b at full width, depth 2, fp32 — the engine with the
     kernels and with the plain paths (attn_impl="gather", use_kernel=False,
     the JAX package's own non-kernel knobs) must give the same greedy
-    tokens."""
+    tokens.  Both paths' tokens and the plain path's top-2 logit gap at each
+    token go to ``parity_gaps.json``: how near each choice was to a tie."""
     import torch
     from repro_torch.core import quant as Q
     from repro_torch.models import build_model, get_config
@@ -708,12 +791,36 @@ def kernel_vs_plain_parity(dev):
         for _ in eng.stream():
             pass
         outs[tag] = [r.output_tokens for r in reqs]
+        if tag == "plain":
+            gaps = [_top2_gaps(model, p, o, dev) for p, o in zip(prompts, outs[tag])]
         del eng, model
+    (out_dir / "parity_gaps.json").write_text(json.dumps(dict(outs, gaps=gaps)))
+    near = sorted((g, r, j) for r, row in enumerate(gaps) for j, g in enumerate(row))
+    print("  smallest top-2 logit gaps of the plain path's greedy tokens: "
+          + ", ".join(f"request {r} token {j}: {g:.4g}" for g, r, j in near[:3]),
+          flush=True)
     if outs["kernels"] != outs["plain"]:
+        first = [(r, next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                          min(len(a), len(b))))
+                 for r, (a, b) in enumerate(zip(outs["kernels"], outs["plain"]))
+                 if a != b]
         fail(f"greedy tokens differ between the kernel and plain paths: "
-             f"{outs['kernels']} vs {outs['plain']}")
+             f"{outs['kernels']} vs {outs['plain']}; first differences (request, "
+             f"token, top-2 logit gap of the plain path there): "
+             f"{[(r, j, gaps[r][j] if j < len(gaps[r]) else None) for r, j in first]}")
     print(f"  greedy tokens identical over {len(prompts)} requests x 16 tokens",
           flush=True)
+
+
+def _top2_gaps(model, prompt, tokens, dev):
+    """The top-2 logit gap at each greedy token of ``tokens`` (the
+    continuation of ``prompt``), from one forward of ``model`` over both:
+    how far each choice was from a tie."""
+    import torch
+    seq = torch.tensor([list(prompt) + list(tokens[:-1])], device=dev)
+    with torch.no_grad():
+        top = model(seq)[0, len(prompt) - 1:].float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
 
 
 # -- phases 5 to 8: the BitDistill training path -------------------------------
@@ -1101,13 +1208,43 @@ def mamba_block_parity(dev):
     torch.cuda.empty_cache()
 
 
+def paged_kernels_of(root: Path) -> None:
+    """``python3 chip_smoke.py --paged-kernels-of DIR``: phase 2's paged
+    checks and timings against the package of the checkout at DIR (e.g. an
+    older commit unpacked from ``git archive``, so that two versions are
+    timed in one call on one card), then their numbers as one JSON line.
+    Prints no result line: it is not the smoke test."""
+    import torch
+    card = card_info()
+    print(f"card: {card}", flush=True)
+    from repro_torch.kernels import build
+    info = build.build()
+    print(f"build: {info.seconds:.1f} s -> {info.path}", flush=True)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    results = {}
+    check_paged_decode(torch.device("cuda"), scratch.zero_, results)
+    check_paged_prefill(torch.device("cuda"), scratch.zero_, results)
+    print(json.dumps({"paged_kernels_of": str(root), "card": card,
+                      "kernels": results}), flush=True)
+
+
 def main() -> None:
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
-    sys.path.insert(0, str(SRC))
+    args = sys.argv[1:]
+    root = ROOT
+    if args:
+        if len(args) != 2 or args[0] != "--paged-kernels-of":
+            fail(f"unknown arguments {args}: run with none, or with "
+                 "--paged-kernels-of DIR")
+        root = Path(args[1]).resolve()
+    src = root / "src"
+    if not (src / "repro_torch").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout of the repo")
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a card")
+    if args:
+        return paged_kernels_of(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1140,7 +1277,7 @@ def main() -> None:
     by_path = {"serve qwen3-0.6b": serve_full_width(dev, out_dir)}
     # 4. kernels vs plain paths through the engine
     print("phase 4: on-card parity, kernel vs plain paths", flush=True)
-    kernel_vs_plain_parity(dev)
+    kernel_vs_plain_parity(dev, out_dir)
     # 5. the training path, its launch counters reset just before it
     print("phase 5: BitDistill training, qwen3-0.6b full width", flush=True)
     per_fwd = 7 * 28                       # BitLinear projections, 28 layers

@@ -30,11 +30,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "w2a8_gemv_launch": [_vp] * 4 + [_i] * 4 + [_vp],
-    "paged_attention_decode_launch": [_vp] * 8 + [_i] * 6 + [_f] * 2 + [_i] * 2 + [_vp],
-    "paged_prefill_chunk_launch": [_vp] * 9 + [_i] * 7 + [_f] * 2 + [_i] * 2 + [_vp],
+    "paged_plan_query": [_i] * 7 + [ctypes.POINTER(_ll)],
+    "paged_attention_decode_launch": [_vp] * 9 + [_ll] + [_i] * 6 + [_f] * 2 + [_i] * 2 + [_vp],
+    "paged_prefill_chunk_launch": [_vp] * 10 + [_ll] + [_i] * 7 + [_f] * 2 + [_i] * 2 + [_vp],
     "bitlinear_launch": [_vp] * 5 + [_i] * 4 + [_vp],
     "relation_kd_launch": [_vp] * 3 + [_i] * 3 + [_f] + [_vp],
     "ssd_scan_launch": [_vp] * 7 + [_i] * 6 + [_vp],
@@ -149,7 +150,11 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle on ``device``, read the way PyTorch's own
+    generated kernels read it: no ``torch.cuda.Stream`` object is built on
+    the way (the wrappers run once per layer and projection, host-bound)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:
@@ -161,9 +166,9 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device and contiguous, or raise."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()
     for i, t in enumerate(tensors):
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: operand {i} is on {t.device}; every "
                              "operand must be on one CUDA device")
         if not t.is_contiguous():

@@ -8,8 +8,9 @@ the marker is registered on the command line:
 w2a8 and bitlinear must equal their plain versions exactly (integer
 products, same op order); the attention kernels sum in another order than
 the plain versions, so fp32 outputs are held to 1e-5 and bf16 outputs to one
-bf16 ulp at |x| < 2; the pools after the call equal bitwise outside the
-trash block.  The relation-KD rows are held to rtol 1e-5, atol 1e-6 (fp32
+bf16 ulp at |x| < 2, over the valid query rows of live rows only (pad rows
+must be zeros, idle rows finite); the pools after the call equal bitwise
+outside the trash block.  The relation-KD rows are held to rtol 1e-5, atol 1e-6 (fp32
 dot products and an online softmax against the materialized log-softmax).
 The SSD scan's y and final state are held to rtol 1e-4, atol 1e-4 against
 ``ssd_chunked`` and the sequential ``ssd_scan_ref`` (fp32 sums in another
@@ -117,6 +118,153 @@ def test_paged_prefill_kernel_matches_plain(cuda, dtype):
                                    ref[b, :, :lens[b] * g].float(),
                                    rtol=0, atol=_atol(dtype))
     assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+
+
+def _paged_pools(rng, hkv, dh, bs, L, depths, shared=None):
+    """Pools and tables with owned blocks covering each row's ``depth``
+    positions; rows whose depth is None are idle (table all trash) and
+    ``shared = (a, b, n)`` maps row b's first n blocks to row a's (a prefix
+    both only read)."""
+    B = len(depths)
+    bt = np.zeros((B, L), np.int32)
+    nxt = 1
+    for r, d in enumerate(depths):
+        if d is None:
+            continue
+        for j in range(min((d - 1) // bs, L - 1) + 1):
+            bt[r, j] = nxt
+            nxt += 1
+    if shared is not None:
+        a, b, n = shared
+        bt[b, :n] = bt[a, :n]
+    kp = rng.standard_normal((nxt, hkv, bs, dh)).astype(np.float32)
+    vp = rng.standard_normal((nxt, hkv, bs, dh)).astype(np.float32)
+    return bt, kp, vp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_prefill_split_walk(cuda, dtype, dh, softcap):
+    """A T = 32 launch over a 1024-position table (four 256-key splits): a
+    full chunk starting on a split boundary, a short chunk (lens < T), and
+    mostly decode rows (lens 1) at depths 990 and 0, one sharing the first
+    row's prefix blocks, one idle with an all-trash table.  Only the valid
+    query rows are compared; pools bitwise outside the trash block."""
+    rng = np.random.default_rng(dh + int(softcap))
+    Hkv, g, bs, L, T = 2, 2, 16, 64, 32
+    starts = [256, 700, 990, 300, L * bs - 1, 0]
+    lens = [32, 20, 1, 1, 1, 1]
+    depths = [s + n for s, n in zip(starts, lens)]
+    depths[4] = None
+    bt, kp, vp = _paged_pools(rng, Hkv, dh, bs, L, depths, shared=(0, 3, 16))
+    B = len(starts)
+    assert pa_kernel.plan(B, Hkv, T * g, T, dh, bs, L)["splits"] == 4
+    q = rng.standard_normal((B, Hkv, T * g, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Hkv, T, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Hkv, T, dh)).astype(np.float32)
+    dev = lambda a: torch.from_numpy(a).to(cuda, dtype)
+    k1, v1 = dev(kp), dev(vp)
+    k2, v2 = k1.clone(), v1.clone()
+    args = (torch.from_numpy(bt).to(cuda),
+            torch.tensor(starts, dtype=torch.int32, device=cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda), dh ** -0.5, softcap)
+    before = pp_kernel.launches.count
+    out, _, _ = pp_kernel.paged_prefill_chunk_kernel(dev(q), dev(kc), dev(vc),
+                                                     k1, v1, *args)
+    assert pp_kernel.launches.count == before + 1
+    ref, _, _ = pp_ref.paged_prefill_chunk_ref(dev(q), dev(kc), dev(vc), k2, v2,
+                                               *args)
+    for b in range(B):
+        if depths[b] is None:
+            assert bool(torch.isfinite(out[b, :, :g].float()).all())
+            continue
+        torch.testing.assert_close(out[b, :, :lens[b] * g].float(),
+                                   ref[b, :, :lens[b] * g].float(),
+                                   rtol=0, atol=_atol(dtype))
+        assert not bool(out[b, :, lens[b] * g:].float().any())   # pad rows zero
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        pp_kernel.paged_prefill_chunk_kernel(
+            z(B, Hkv, T * g, 96), z(B, Hkv, T, 96), z(B, Hkv, T, 96),
+            z(2, Hkv, bs, 96), z(2, Hkv, bs, 96), *args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_decode_split_walk(cuda, dtype, dh, softcap):
+    """Decode over a 1024-position table (eight 128-key splits): depths
+    1023 and 700, idx 256 and 128 on split boundaries, a row sharing the
+    first row's prefix blocks, idx 0, and an idle row."""
+    rng = np.random.default_rng(10 + dh + int(softcap))
+    Hkv, g, bs, L = 2, 4, 16, 64
+    idx = [1023, 700, 256, 300, 0, L * bs - 1, 128]
+    depths = [i + 1 for i in idx]
+    depths[5] = None
+    bt, kp, vp = _paged_pools(rng, Hkv, dh, bs, L, depths, shared=(1, 3, 18))
+    B = len(idx)
+    assert pa_kernel.plan(B, Hkv, g, 1, dh, bs, L)["splits"] == 8
+    q = rng.standard_normal((B, Hkv, g, dh)).astype(np.float32)
+    kn = rng.standard_normal((B, Hkv, dh)).astype(np.float32)
+    vn = rng.standard_normal((B, Hkv, dh)).astype(np.float32)
+    dev = lambda a: torch.from_numpy(a).to(cuda, dtype)
+    k1, v1 = dev(kp), dev(vp)
+    k2, v2 = k1.clone(), v1.clone()
+    args = (torch.from_numpy(bt).to(cuda),
+            torch.tensor(idx, dtype=torch.int32, device=cuda), dh ** -0.5, softcap)
+    before = pa_kernel.launches.count
+    out, _, _ = pa_kernel.paged_attention_decode_kernel(dev(q), dev(kn), dev(vn),
+                                                        k1, v1, *args)
+    assert pa_kernel.launches.count == before + 1
+    ref, _, _ = pa_ref.paged_attention_decode_ref(dev(q), dev(kn), dev(vn), k2, v2,
+                                                  *args)
+    live = [b for b in range(B) if depths[b] is not None]
+    torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=0,
+                               atol=_atol(dtype))
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        pa_kernel.paged_attention_decode_kernel(
+            z(B, Hkv, g, 96), z(B, Hkv, 96), z(B, Hkv, 96), z(2, Hkv, bs, 96),
+            z(2, Hkv, bs, 96), *args)
+    with pytest.raises(ValueError, match="float16"):
+        pa_kernel.paged_attention_decode_kernel(
+            dev(q).half(), dev(kn).half(), dev(vn).half(), k1.half(), v1.half(),
+            *args)
+
+
+def test_paged_plan_caps_the_splits(cuda):
+    """The launch plan is the .cu's (``paged_core.cuh::paged_plan``): 128-key
+    splits for decode, 256 for a chunk, grown so there are at most 16, a
+    workspace of 64 rows x (Dh + 2) floats per split and row group, none
+    with one split, and merge CTAs of 8 query rows; a launcher given a
+    smaller workspace refuses."""
+    from repro_torch.kernels import build
+    assert pa_kernel.plan(8, 8, 2, 1, 128, 16, 64) == dict(
+        split_keys=128, splits=8, row_groups=1,
+        workspace_floats=8 * 8 * 8 * 64 * 130, ctas=512, merge_ctas=512)
+    p = pa_kernel.plan(8, 8, 64, 32, 128, 16, 64)
+    assert (p["split_keys"], p["splits"], p["ctas"], p["merge_ctas"]) == (256, 4, 256, 512)
+    p = pa_kernel.plan(1, 1, 2, 1, 64, 16, 4096)
+    assert p["split_keys"] % 64 == 0 and p["splits"] <= 16
+    assert p["split_keys"] * p["splits"] >= 4096 * 16
+    p = pa_kernel.plan(2, 2, 2, 1, 64, 16, 8)
+    assert (p["splits"], p["workspace_floats"], p["merge_ctas"]) == (1, 0, 0)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        pa_kernel.plan(2, 2, 2, 1, 96, 16, 8)
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=cuda)
+    q, kv, pool = z(1, 1, 2, 64), z(1, 1, 64), z(2, 1, 16, 64)
+    bt, idx = z(1, 64, dt=torch.int32), z(1, dt=torch.int32)
+    ws, out = z(16), z(1, 1, 2, 64)
+    err = build.library().paged_attention_decode_launch(
+        q.data_ptr(), kv.data_ptr(), kv.data_ptr(), pool.data_ptr(),
+        pool.data_ptr(), bt.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), ws.numel(), 1, 1, 2, 64, 16, 64, 0.125, 0.0, 0, 0,
+        build.stream_ptr(cuda))
+    assert err != 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

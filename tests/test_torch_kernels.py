@@ -21,7 +21,7 @@ from repro.kernels.paged_attention import ops as jpa_ops, ref as jpa_ref
 from repro.kernels.paged_prefill import ops as jpp_ops, ref as jpp_ref
 from repro.kernels.w2a8_gemv import ops as jw_ops, ref as jw_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel, ops as pa_ops
-from repro_torch.kernels.paged_prefill import ops as pp_ops
+from repro_torch.kernels.paged_prefill import ops as pp_ops, ref as pp_ref
 from repro_torch.kernels.w2a8_gemv import kernel as w2_kernel, ops as w2_ops
 
 ATOL = 1e-5
@@ -244,3 +244,113 @@ class TestPagedPrefillChunk:
                                             [4, 4], softcap=30.0)
         _assert_prefill(got, ref, live, [4, 4])
         _assert_prefill(got, pal, live, [4, 4])
+
+
+# -- the split KV walk of the paged kernels, modelled on the CPU ----------------
+
+def _split_case(B, Hkv, g, Dh, bs, L, T, starts, lens, split_keys, softcap=0.0,
+                trash_rows=(), shared=False, seed=0):
+    """Kernel-layout operands (q [B, Hkv, T*g, Dh]) through the split model,
+    the port's plain version and the JAX ref.  ``shared`` maps the first two
+    rows' leading blocks to the same pool blocks (a trie-shared prefix that
+    both rows only read)."""
+    rng = np.random.default_rng(seed)
+    n_blocks = 1 + B * L
+    kp = rng.standard_normal((n_blocks, Hkv, bs, Dh)).astype(np.float32)
+    vp = rng.standard_normal((n_blocks, Hkv, bs, Dh)).astype(np.float32)
+    q = rng.standard_normal((B, Hkv, T * g, Dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Hkv, T, Dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Hkv, T, Dh)).astype(np.float32)
+    bt = np.zeros((B, L), np.int32)
+    nxt = 1
+    for b in range(B):
+        if b in trash_rows:
+            continue
+        for j in range(min((starts[b] + lens[b] - 1) // bs, L - 1) + 1):
+            bt[b, j] = nxt
+            nxt += 1
+    if shared:
+        n_pre = min(starts[0], starts[1]) // bs
+        bt[1, :n_pre] = bt[0, :n_pre]
+    st, ln = np.asarray(starts, np.int32), np.asarray(lens, np.int32)
+    scale = 1.0 / (Dh ** 0.5)
+    ops = (_t(q), _t(kc), _t(vc))
+    idx = (_t(bt), _t(st), _t(ln))
+    k1, v1 = _t(kp), _t(vp)
+    got = pp_ref.paged_prefill_chunk_split_ref(*ops, k1, v1, *idx, scale,
+                                               softcap, split_keys)[0]
+    k2, v2 = _t(kp), _t(vp)
+    plain = pp_ref.paged_prefill_chunk_ref(*ops, k2, v2, *idx, scale, softcap)[0]
+    jref = jpp_ref.paged_prefill_chunk_ref(
+        *map(jnp.asarray, (q, kc, vc, kp, vp, bt, st, ln)), scale, softcap)
+    live = [b for b in range(B) if b not in trash_rows]
+    return (got.numpy(), k1.numpy(), v1.numpy()), \
+        (plain.numpy(), k2.numpy(), v2.numpy()), \
+        tuple(np.asarray(a) for a in jref), live
+
+
+def _assert_split(got, want, live, lens, g):
+    for b in live:    # only the valid query rows r < lens*g
+        np.testing.assert_allclose(got[0][b, :, :lens[b] * g],
+                                   want[0][b, :, :lens[b] * g],
+                                   rtol=SPLIT_RTOL, atol=SPLIT_ATOL)
+    np.testing.assert_array_equal(got[1][1:], want[1][1:])
+    np.testing.assert_array_equal(got[2][1:], want[2][1:])
+
+
+# fp32 on both sides, summed in another order (per split, then merged)
+SPLIT_RTOL, SPLIT_ATOL = 1e-5, 1e-6
+
+
+class TestPagedSplitWalkModel:
+    """``paged_prefill_chunk_split_ref`` (the kernels' split walk and merge)
+    against the plain version and JAX's ref, rtol 1e-5 with atol 1e-6."""
+
+    @pytest.mark.parametrize("args", [
+        # splits of 6 positions cut inside blocks of 4
+        (3, 2, 2, 32, 4, 8, 4, [13, 22, 5], [4, 2, 1], 6),
+        # splits of 8 on block boundaries; row 1 starts exactly on one
+        (3, 2, 2, 32, 4, 8, 4, [13, 16, 5], [4, 3, 1], 8),
+        # the chunk crosses a split boundary (start 14, 6 tokens, splits of 16)
+        (2, 2, 2, 32, 4, 8, 8, [14, 3], [6, 8], 16),
+        # GQA 4, a T = 8 launch of mostly decode rows
+        (4, 1, 4, 32, 4, 8, 8, [20, 9, 21, 2], [1, 1, 8, 1], 8),
+        # T = 1: decode rows
+        (3, 2, 2, 32, 4, 8, 1, [0, 17, 31], [1, 1, 1], 8),
+        # sixteen splits of 4 positions, the most the kernels take
+        (2, 2, 2, 32, 4, 16, 4, [50, 59], [4, 2], 4),
+    ])
+    def test_split_model_matches_plain_and_jax(self, args):
+        got, plain, jref, live = _split_case(*args)
+        g, lens = args[2], args[-2]
+        _assert_split(got, plain, live, lens, g)
+        _assert_split(got, jref, live, lens, g)
+        for b in live:    # pad rows are zeros
+            assert not got[0][b, :, lens[b] * g:].any()
+
+    def test_kernel_split_plan_three_splits(self):
+        """The kernels' own plan for a chunk (``paged_core.cuh::paged_plan``,
+        held on the card by ``tests/test_torch_cuda.py``): 256-key splits over
+        a 768-position table (three splits), one start on a split boundary,
+        one in the last."""
+        sk = 256
+        got, plain, jref, live = _split_case(
+            3, 1, 2, 64, 16, 48, 32, [256, 700, 0], [32, 5, 32], sk, seed=1)
+        _assert_split(got, plain, live, [32, 5, 32], 2)
+        _assert_split(got, jref, live, [32, 5, 32], 2)
+
+    def test_idle_rows_and_shared_prefix(self):
+        """An idle row (table all trash) skips its resident walk; two rows
+        read the same prefix blocks in one launch."""
+        got, plain, jref, live = _split_case(
+            3, 2, 2, 32, 4, 8, 4, [12, 16, 30], [4, 2, 1], 8, trash_rows=(2,),
+            shared=True)
+        _assert_split(got, plain, live, [4, 2, 1], 2)
+        _assert_split(got, jref, live, [4, 2, 1], 2)
+        assert np.isfinite(got[0]).all()
+
+    def test_logit_softcap(self):
+        got, plain, jref, live = _split_case(
+            2, 2, 2, 32, 4, 8, 4, [13, 6], [4, 4], 8, softcap=30.0)
+        _assert_split(got, plain, live, [4, 4], 2)
+        _assert_split(got, jref, live, [4, 4], 2)
