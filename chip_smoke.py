@@ -5,7 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card name and power limit; build the CUDA kernels from ``src/repro_torch/
-     csrc`` and report the build time;
+     csrc`` and report the build time, the bitlinear GEMM's registers,
+     spills and shared memory, and its SASS, which must hold the int8
+     ``wgmma`` (IGMMA) and the TMA loads (UTMALDG);
   2. every kernel against its plain PyTorch version at its path's shapes
      (the serving kernels and bitlinear in bf16 and fp32, relation_kd and
      ssd_scan in fp32), with its time, the plain version's time, a library
@@ -14,7 +16,9 @@ result line):
      shapes (the original one, and a mixed step of one prefilling and
      seven decode rows), each paged launch with its split and CTA counts,
      its device time alone beside the time a caller sees, and its host
-     time per call;
+     time per call; bitlinear bitwise in both dtypes at seven shapes, timed
+     the same way, with its three device kernels (quantizing pass, K-major
+     weight, GEMM) alone;
   3. the port's ``Engine`` serving ``qwen3-0.6b`` at full width (packed
      ternary weights from a seeded init, w2a8 + paged kernels), with the
      serving kernels' launch counters read around that run;
@@ -40,8 +44,8 @@ result line):
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero.
 
-``python3 chip_smoke.py --paged-kernels-of DIR`` runs only phase 2's paged
-checks and timings, against the package of the checkout at DIR (to time two
+``python3 chip_smoke.py --kernels-of DIR`` runs only phase 2's paged and
+bitlinear checks and timings, against the package of the checkout at DIR (to time two
 versions in one call), and prints their numbers, not a result line.
 """
 from __future__ import annotations
@@ -235,7 +239,7 @@ def _compare_paged(name, out, kp, vp, ro, rkp, rvp, live, dt, rows_valid=None):
 def _launch_plan(*shape):
     """The paged kernels' launch plan (``kernels/paged_attention/kernel.py::
     plan``), or None for a checkout whose kernels have none (one CTA per
-    row and kv-head, timed with ``--paged-kernels-of``)."""
+    row and kv-head, timed with ``--kernels-of``)."""
     from repro_torch.kernels.paged_attention import kernel
     return kernel.plan(*shape) if hasattr(kernel, "plan") else None
 
@@ -412,13 +416,32 @@ def _paged_prefill_shape(dev, flush, starts, lens, seed, tag):
 def check_bitlinear(dev, flush, results):
     """bitlinear at the training paths' shapes: M = 8 x 256 tokens and every
     projection's (K, N) of qwen3-0.6b; M = 8 x 512 and mamba2-780m's in_proj
-    (1536, 6448) and out_proj (3072, 1536).  fp32 must equal the plain
-    version bitwise, bf16 within one bf16 ulp (both round the same fp32
-    value)."""
+    (1536, 6448) and out_proj (3072, 1536).  fp32 and bf16 must equal the
+    plain version bitwise (integer sums, the same scale in the same order).
+    In bf16 each shape is timed as a caller sees it and device alone, with
+    the wrapper's host time per call, beside the plain version, the
+    ``_int_mm`` yardstick and, where the package has them (not a parent's
+    checkout timed with ``--kernels-of``), the call's three device kernels
+    alone: the quantizing pass, the int8 weight's K-major copy and the GEMM,
+    and the training op's weight step (ternarize + K-major copy from the
+    fp32 master weight).  Where it has them, at every shape and dtype the
+    training op's forward (``bitlinear_forward``, what phases 5 and 7 run)
+    and each part must equal its plain version bitwise: y, the codes and γ
+    it computes, and the ternary codes it makes from the master weight."""
     import torch
     from repro_torch.core import quant as Q
-    from repro_torch.kernels.bitlinear.kernel import bitlinear_kernel
+    from repro_torch.kernels.bitlinear import kernel as bk
     from repro_torch.kernels.bitlinear.ref import bitlinear_ref
+    parts = hasattr(bk, "quantize_rows")
+    if parts:
+        from repro_torch.kernels.bitlinear.ref import (
+            bitlinear_codes_ref, quantize_rows_ref, weight_kmajor_ref)
+
+    def same(what, got, want, m, k, n, dt):
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            fail(f"bitlinear {what} M={m} K={k} N={n} {dt}: max err {err} "
+                 "(must be bitwise)")
     gen = torch.Generator(device=dev).manual_seed(3)
     shapes = [(2048, 1024, 2048), (2048, 1024, 1024), (2048, 2048, 1024),
               (2048, 1024, 3072), (2048, 3072, 1024),
@@ -432,25 +455,45 @@ def check_bitlinear(dev, flush, results):
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn((m, k), generator=gen, device=dev).to(dt)
             gamma = x.float().abs().amax(-1, keepdim=True)
-            y = bitlinear_kernel(x, wq, gamma, delta)
+            y = bk.bitlinear_kernel(x, wq, gamma, delta)
             torch.cuda.synchronize()
             r = bitlinear_ref(x, wq, gamma, delta)
             err = (y.float() - r.float()).abs()
-            ok = torch.equal(y, r) if dt == torch.float32 else bool(
-                (err <= ulp(r).float()).all())
-            if not ok:
-                fail(f"bitlinear M={m} K={k} N={n} {dt}: max err "
-                     f"{err.max().item()} (fp32 must be bitwise, bf16 1 ulp)")
+            same("bitlinear_kernel", y, r, m, k, n, dt)
             worst = max(worst, err.max().item())
+            if parts:
+                d = Q.absmean_scale(w)
+                codes_r, gamma_r = quantize_rows_ref(x)
+                wt_r, wq_r = weight_kmajor_ref(w, d)
+                fwd = bk.bitlinear_forward(x, w, d)
+                quant = bk.quantize_rows(x)
+                ternary = bk.weight_kmajor(w, d)
+                for what, got, want in (
+                        ("forward y", fwd[0], bitlinear_ref(x, wq_r, gamma_r, d)),
+                        ("forward codes", fwd[1], codes_r),
+                        ("forward gamma", fwd[2], gamma_r),
+                        ("forward wq", fwd[3], wq_r), ("forward wq", fwd[3], wq),
+                        ("quantize_rows codes", quant[0], codes_r),
+                        ("quantize_rows gamma", quant[1], gamma_r),
+                        ("quantize_rows(gamma) codes", bk.quantize_rows(x, gamma)[0],
+                         quantize_rows_ref(x, gamma)[0]),
+                        ("weight_kmajor(wq)", bk.weight_kmajor(wq)[0],
+                         weight_kmajor_ref(wq)[0]),
+                        ("weight_kmajor(w, d) wt", ternary[0], wt_r),
+                        ("weight_kmajor(w, d) wq", ternary[1], wq_r),
+                        ("gemm", bk.gemm(codes_r, wt_r, gamma_r, d, dt),
+                         bitlinear_codes_ref(codes_r, wt_r, gamma_r, d, dt))):
+                    same(what, got, want, m, k, n, dt)
             if dt != torch.bfloat16:
                 continue
-            ms = time_ms(lambda: bitlinear_kernel(x, wq, gamma, delta), flush=flush)
-            plain = time_ms(lambda: bitlinear_ref(x, wq, gamma, delta), flush=flush)
+            ms = both_ms(lambda: bk.bitlinear_kernel(x, wq, gamma, delta), flush)
+            host = host_us(lambda: bk.bitlinear_kernel(x, wq, gamma, delta))
+            plain = both_ms(lambda: bitlinear_ref(x, wq, gamma, delta), flush)
             # yardstick: cuBLAS int8 GEMM on the int8 codes, plus the scale
             xq = Q.round_clip(x.float() * Q.div(127.0, gamma + 1e-5),
                               -128.0, 127.0).to(torch.int8)
             scale = Q.div(gamma, 127.0) * delta
-            lib = None
+            lib = (None, None)
             for b in (wq, wq.t().contiguous().t()):
                 try:
                     torch._int_mm(xq, b)
@@ -458,23 +501,104 @@ def check_bitlinear(dev, flush, results):
                     print(f"  torch._int_mm refused a layout: {str(e)[:120]}",
                           flush=True)
                     continue
-                lib = time_ms(lambda: (torch._int_mm(xq, b).float() * scale).to(dt),
-                              flush=flush)
+                lib = both_ms(lambda: (torch._int_mm(xq, b).float() * scale).to(dt),
+                              flush)
                 break
             nbytes = x.numel() * 2 + wq.numel() + 4 * m + 4 + m * n * 2
             bd, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
-            rows.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bd, bound_by=by))
-            print(f"  bitlinear M={m} K={k} N={n} bf16: {ms:.4f} ms (plain "
-                  f"{plain:.4f}, _int_mm {lib if lib is None else round(lib, 4)}, "
-                  f"bound {bd:.4f} by {by})", flush=True)
+            row = dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1], host_us=host,
+                       plain_ms=plain[0], plain_device_ms=plain[1],
+                       library_ms=lib[0], library_device_ms=lib[1], bound_ms=bd,
+                       bound_by=by)
+            line = (f"  bitlinear M={m} K={k} N={n} bf16: {ms[0]:.4f} ms, device "
+                    f"alone {ms[1]:.4f}, host {host:.1f} us per call (plain "
+                    f"{plain[0]:.4f} / {plain[1]:.4f}, _int_mm "
+                    f"{lib[0] if lib[0] is None else round(lib[0], 4)} / "
+                    f"{lib[1] if lib[1] is None else round(lib[1], 4)}, bound "
+                    f"{bd:.4f} by {by})")
+            if parts:
+                codes, _ = bk.quantize_rows(x, gamma)
+                wt, _ = bk.weight_kmajor(wq)
+                row.update(
+                    quant_ms=both_ms(lambda: bk.quantize_rows(x, gamma), flush),
+                    quant_gamma_ms=both_ms(lambda: bk.quantize_rows(x), flush),
+                    weight_copy_ms=both_ms(lambda: bk.weight_kmajor(wq), flush),
+                    weight_ternarize_ms=both_ms(lambda: bk.weight_kmajor(w, d), flush),
+                    gemm_ms=both_ms(lambda: bk.gemm(codes, wt, gamma, delta, dt),
+                                    flush))
+                line += "; device alone: " + ", ".join(
+                    f"{key[:-3]} {row[key][1]:.4f}" for key in
+                    ("quant_ms", "quant_gamma_ms", "weight_copy_ms",
+                     "weight_ternarize_ms", "gemm_ms"))
+            rows.append(row)
+            print(line, flush=True)
     head = next(r for r in rows if (r["m"], r["k"], r["n"]) == (2048, 1024, 3072))
+    extra = {}
+    if parts:
+        # the timer's floor: one launch of a one-element kernel, both timers
+        one = torch.zeros(1, device=dev)
+        extra.update(timer_floor_ms=both_ms(one.zero_, flush))
+        print("  bitlinear: the timers' floor (a one-element "
+              f"zero_): {extra['timer_floor_ms'][0]:.4f} ms, device alone "
+              f"{extra['timer_floor_ms'][1]:.4f}", flush=True)
     results["bitlinear"] = dict(
         name="bitlinear", route="cuda", source="src/repro_torch/csrc/bitlinear.cu",
         replaces="src/repro/kernels/bitlinear/kernel.py:57", max_abs_err=worst,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shape="M=2048 K=1024 N=3072 bf16", rows=rows)
+        device_ms=head["device_ms"], host_us=head["host_us"],
+        shape="M=2048 K=1024 N=3072 bf16", rows=rows, **extra)
+
+
+def _gemm_ptxas(log: str):
+    """(instance, ptxas's spill and register lines) of the bitlinear GEMM
+    in the build log."""
+    fn, out = None, []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line if "bitlinear_kernel_gemm" in line else None
+            spill = ""
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "Used" in line:
+            kind = "bf16" if "bfloat16" in fn else "fp32"
+            out.append((f"gemm<{kind}>", f"{spill}; {line.split(':', 1)[1].strip()}"))
+            fn = None
+    return out
+
+
+def bitlinear_sass(lib_path, out_dir):
+    """The bitlinear GEMM's SASS (``cuobjdump -sass``, written to
+    ``bitlinear_sass.txt``): it must hold the int8 ``wgmma`` (``IGMMA``) and
+    the TMA loads (``UTMALDG``) feeding it.  Returns one example line of
+    each and their counts per GEMM instance."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stdout[-2000:]}")
+    fn, found, kept = None, {}, []
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            if "bitlinear_kernel_gemm" in fn:
+                fn = "gemm<bf16>" if "bfloat16" in fn else "gemm<fp32>"
+                found[fn] = {"IGMMA": [], "UTMALDG": []}
+                kept.append(line)
+            continue
+        if fn in found:
+            kept.append(line)
+            for op in found[fn]:
+                if op in line:
+                    found[fn][op].append(line.split("*/", 1)[1].split(";")[0].strip())
+    (out_dir / "bitlinear_sass.txt").write_text("\n".join(kept) + "\n")
+    counts = {f: {op: len(v) for op, v in d.items()} for f, d in found.items()}
+    if not counts or not all(c["IGMMA"] and c["UTMALDG"] for c in counts.values()):
+        fail(f"the bitlinear GEMM's SASS lacks IGMMA or UTMALDG: {counts}")
+    first = next(iter(found.values()))
+    return dict(counts=counts, igmma=first["IGMMA"][0], utmaldg=first["UTMALDG"][0])
 
 
 def check_relation_kd(dev, flush, results):
@@ -1208,12 +1332,12 @@ def mamba_block_parity(dev):
     torch.cuda.empty_cache()
 
 
-def paged_kernels_of(root: Path) -> None:
-    """``python3 chip_smoke.py --paged-kernels-of DIR``: phase 2's paged
-    checks and timings against the package of the checkout at DIR (e.g. an
-    older commit unpacked from ``git archive``, so that two versions are
-    timed in one call on one card), then their numbers as one JSON line.
-    Prints no result line: it is not the smoke test."""
+def kernels_of(root: Path) -> None:
+    """``python3 chip_smoke.py --kernels-of DIR``: phase 2's paged and
+    bitlinear checks and timings against the package of the checkout at DIR
+    (e.g. an older commit unpacked from ``git archive``, so that two
+    versions are timed in one call on one card), then their numbers as one
+    JSON line.  Prints no result line: it is not the smoke test."""
     import torch
     card = card_info()
     print(f"card: {card}", flush=True)
@@ -1224,7 +1348,8 @@ def paged_kernels_of(root: Path) -> None:
     results = {}
     check_paged_decode(torch.device("cuda"), scratch.zero_, results)
     check_paged_prefill(torch.device("cuda"), scratch.zero_, results)
-    print(json.dumps({"paged_kernels_of": str(root), "card": card,
+    check_bitlinear(torch.device("cuda"), scratch.zero_, results)
+    print(json.dumps({"kernels_of": str(root), "card": card,
                       "kernels": results}), flush=True)
 
 
@@ -1232,9 +1357,9 @@ def main() -> None:
     args = sys.argv[1:]
     root = ROOT
     if args:
-        if len(args) != 2 or args[0] != "--paged-kernels-of":
+        if len(args) != 2 or args[0] != "--kernels-of":
             fail(f"unknown arguments {args}: run with none, or with "
-                 "--paged-kernels-of DIR")
+                 "--kernels-of DIR")
         root = Path(args[1]).resolve()
     src = root / "src"
     if not (src / "repro_torch").is_dir():
@@ -1244,7 +1369,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a card")
     if args:
-        return paged_kernels_of(root)
+        return kernels_of(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1258,7 +1383,15 @@ def main() -> None:
     print(f"build: {info.seconds:.1f} s -> {info.path}", flush=True)
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "ptxas.txt").write_text(info.log)
+    from repro_torch.kernels.bitlinear.kernel import gemm_info
+    gemm_line = (f"bitlinear GEMM: {gemm_info()} (smem_bytes: dynamic shared "
+                 "memory per CTA); ptxas: " + "; ".join(
+                     f"{fn}: {use}" for fn, use in _gemm_ptxas(info.log)))
+    (out_dir / "ptxas.txt").write_text(info.log + gemm_line + "\n")
+    print(gemm_line, flush=True)
+    sass = bitlinear_sass(info.path, out_dir)
+    print(f"bitlinear GEMM SASS: {sass['counts']}; e.g. {sass['igmma']} and "
+          f"{sass['utmaldg']}", flush=True)
 
     # 2. kernels against their plain versions
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

@@ -36,7 +36,11 @@ _SIGNATURES = {
     "paged_plan_query": [_i] * 7 + [ctypes.POINTER(_ll)],
     "paged_attention_decode_launch": [_vp] * 9 + [_ll] + [_i] * 6 + [_f] * 2 + [_i] * 2 + [_vp],
     "paged_prefill_chunk_launch": [_vp] * 10 + [_ll] + [_i] * 7 + [_f] * 2 + [_i] * 2 + [_vp],
-    "bitlinear_launch": [_vp] * 5 + [_i] * 4 + [_vp],
+    "bitlinear_quant_launch": [_vp] * 4 + [_i] * 4 + [_vp],
+    "bitlinear_weight_launch": [_vp] * 4 + [_i] * 4 + [_vp],
+    "bitlinear_gemm_launch": [_vp] * 5 + [_i] * 4 + [_vp],
+    "bitlinear_launch": [_vp] * 9 + [_i] * 6 + [_vp],
+    "bitlinear_gemm_info": [ctypes.POINTER(_ll)],
     "relation_kd_launch": [_vp] * 3 + [_i] * 3 + [_f] + [_vp],
     "ssd_scan_launch": [_vp] * 7 + [_i] * 6 + [_vp],
 }

@@ -5,7 +5,8 @@ imports neither JAX nor the JAX package, so it also runs on a machine with
 only PyTorch).  On the card, where ``tests/conftest.py`` cannot import JAX,
 the marker is registered on the command line:
 ``PYTHONPATH=src python -m pytest --noconftest -o markers=cuda tests/test_torch_cuda.py``.
-w2a8 and bitlinear must equal their plain versions exactly (integer
+w2a8 and bitlinear (and its quantizing pass, K-major weight and STE
+gradients) must equal their plain versions exactly (integer
 products, same op order); the attention kernels sum in another order than
 the plain versions, so fp32 outputs are held to 1e-5 and bf16 outputs to one
 bf16 ulp at |x| < 2, over the valid query rows of live rows only (pad rows
@@ -267,21 +268,172 @@ def test_paged_plan_caps_the_splits(cuda):
     assert err != 0
 
 
+def _bitlinear_operands(dev, m, k, n, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    return x, w
+
+
+# K = 520 is no multiple of 16 (and pads to 640), K = 130 no multiple of 8
+# (the quantizing pass's scalar path); N = 6448 and 36 leave ragged column
+# tiles, M = 1 and 300 ragged row tiles; (4096, 1536, 6448) and (4096, 3072,
+# 1536) are mamba2-780m's in_proj and out_proj at 8 x 512 tokens
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(2048, 1024, 3072), (300, 520, 200),
-                                   (1, 128, 36), (130, 3072, 1024)])
+                                   (1, 128, 36), (130, 3072, 1024),
+                                   (1, 520, 6448), (4096, 1536, 6448),
+                                   (4096, 3072, 1536), (5, 130, 40)])
 def test_bitlinear_kernel_matches_plain(cuda, dtype, m, k, n):
-    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
-    w = torch.randn((k, n), generator=gen, device=cuda) * 0.02
+    x, w = _bitlinear_operands(cuda, m, k, n, dtype, m + k + n)
     q, delta = Q.weight_quant_absmean(w)
     wq = q.to(torch.int8)
-    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
     gamma = x.float().abs().amax(-1, keepdim=True)
     before = bl_kernel.launches.count
     y = bl_kernel.bitlinear_kernel(x, wq, gamma, delta)
     assert bl_kernel.launches.count == before + 1
     torch.testing.assert_close(y, bl_ref.bitlinear_ref(x, wq, gamma, delta),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(2048, 1024, 3072), (300, 520, 200),
+                                   (1, 520, 6448), (4096, 1536, 6448),
+                                   (4096, 3072, 1536), (5, 130, 40)])
+def test_bitlinear_forward_matches_plain(cuda, dtype, m, k, n):
+    """The training op's forward (what ``bitlinear_matmul`` runs): y, the
+    codes and γ it computes and the ternary codes it makes from the master
+    weight, each bitwise its plain version; one launch count per call."""
+    x, w = _bitlinear_operands(cuda, m, k, n, dtype, 3 * m + k + n)
+    delta = Q.absmean_scale(w)
+    codes_r, gamma_r = bl_ref.quantize_rows_ref(x)
+    _, wq_r = bl_ref.weight_kmajor_ref(w, delta)
+    before = bl_kernel.launches.count
+    y, codes, gamma, wq = bl_kernel.bitlinear_forward(x, w, delta)
+    assert bl_kernel.launches.count == before + 1
+    assert torch.equal(codes, codes_r) and torch.equal(gamma, gamma_r)
+    assert torch.equal(wq, wq_r)
+    assert torch.equal(wq, Q.weight_quant_absmean(w)[0].to(torch.int8))
+    torch.testing.assert_close(y, bl_ref.bitlinear_ref(x, wq_r, gamma_r, delta),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitlinear_empty_batch(cuda, dtype):
+    """M = 0 gives an empty y and gradients of the right shapes, launching
+    nothing, as the plain version does."""
+    x, w = _bitlinear_operands(cuda, 0, 520, 200, dtype, 4)
+    before = bl_kernel.launches.count
+    y, codes, gamma, wq = bl_kernel.bitlinear_forward(x, w, Q.absmean_scale(w))
+    assert y.shape == (0, 200) and y.dtype == dtype
+    assert codes.shape == (0, bl_ref.padded_k(520)) and gamma.shape == (0, 1)
+    assert wq.shape == (520, 200)
+    xr = x.reshape(0, 1, 520).clone().requires_grad_()
+    wr = w.clone().requires_grad_()
+    out = bl_ops.bitlinear_matmul(xr, wr)
+    assert out.shape == (0, 1, 200)
+    out.float().sum().backward()
+    assert xr.grad.shape == xr.shape and torch.equal(wr.grad, torch.zeros_like(w))
+    assert bl_kernel.launches.count == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(300, 520), (4, 1024), (3, 130)])
+def test_bitlinear_quantize_rows_matches_plain(cuda, dtype, m, k):
+    """The quantizing pass: γ bitwise the row absmax, the codes bitwise
+    ``Q.round_clip``'s, the pad up to the K tile all zeros; with γ given, the
+    same codes."""
+    x, _ = _bitlinear_operands(cuda, m, k, 8, dtype, 7 * k + m)
+    x[0, 3] = 0.0
+    codes, gamma = bl_kernel.quantize_rows(x)
+    want_gamma = torch.amax(x.float().abs(), dim=-1, keepdim=True)
+    assert torch.equal(gamma, want_gamma)
+    kp = bl_ref.padded_k(k)
+    assert codes.shape == (m, kp) and codes.dtype == torch.int8
+    want = Q.round_clip(x.float() * Q.div(127.0, want_gamma + 1e-5), -128.0, 127.0)
+    assert torch.equal(codes[:, :k], want.to(torch.int8))
+    assert bool((codes[:, k:] == 0).all())
+    codes2, gamma2 = bl_kernel.quantize_rows(x, want_gamma)
+    assert gamma2 is want_gamma and torch.equal(codes2, codes)
+    assert torch.equal(codes, bl_ref.quantize_rows_ref(x)[0])
+
+
+@pytest.mark.parametrize("k,n", [(1024, 3072), (520, 6448), (130, 40)])
+def test_bitlinear_weight_kmajor_matches_plain(cuda, k, n):
+    """The K-major weight: from the int8 codes it is ``wq.t()`` with a zero
+    pad; from the master weight and Δ its codes are
+    ``Q.weight_quant_absmean``'s."""
+    _, w = _bitlinear_operands(cuda, 1, k, n, torch.float32, k + n)
+    q, delta = Q.weight_quant_absmean(w)
+    wq = q.to(torch.int8)
+    wt, same = bl_kernel.weight_kmajor(wq)
+    assert same is wq and wt.shape == (n, bl_ref.padded_k(k))
+    assert torch.equal(wt[:, :k], wq.t()) and bool((wt[:, k:] == 0).all())
+    wt2, wq2 = bl_kernel.weight_kmajor(w, Q.absmean_scale(w))
+    assert torch.equal(wq2, wq) and torch.equal(wt2, wt)
+
+
+def test_bitlinear_raises_on_what_it_does_not_take(cuda):
+    x, w = _bitlinear_operands(cuda, 4, 64, 32, torch.float32, 1)
+    q, delta = Q.weight_quant_absmean(w)
+    wq = q.to(torch.int8)
+    gamma = x.abs().amax(-1, keepdim=True)
+    with pytest.raises(TypeError, match="not supported"):
+        bl_kernel.bitlinear_kernel(x.half(), wq, gamma, delta)
+    with pytest.raises(TypeError, match="int8"):
+        bl_kernel.bitlinear_kernel(x, w, gamma, delta)
+    with pytest.raises(ValueError, match="rows"):
+        bl_kernel.bitlinear_kernel(x[:, :32].contiguous(), wq, gamma, delta)
+    with pytest.raises(ValueError, match="contiguous"):
+        bl_kernel.bitlinear_kernel(x.t().contiguous().t(), wq, gamma, delta)
+    with pytest.raises(ValueError, match="non-empty"):
+        bl_kernel.quantize_rows(x[:, :0].contiguous())
+    with pytest.raises(TypeError, match="fp32 with a delta"):
+        bl_kernel.weight_kmajor(w.double(), delta)
+    codes, _ = bl_kernel.quantize_rows(x)
+    wt, _ = bl_kernel.weight_kmajor(wq)
+    # ref.K_TILE is the CPU's copy of the .cu's K tile
+    assert bl_kernel.gemm_info()["k_tile"] == bl_ref.K_TILE == codes.shape[1]
+    assert bl_kernel.padded_k(520) == bl_ref.padded_k(520)
+    with pytest.raises(ValueError, match="K pitch"):
+        bl_kernel.gemm(codes[:, :64].contiguous(), wt[:, :64].contiguous(), gamma,
+                       delta, torch.float32)
+
+
+def test_bitlinear_counts_one_launch_per_call(cuda):
+    """One count per bitlinear call, though it runs three device kernels;
+    the backward counts none."""
+    x, w = _bitlinear_operands(cuda, 16, 256, 96, torch.bfloat16, 2)
+    q, delta = Q.weight_quant_absmean(w)
+    gamma = x.float().abs().amax(-1, keepdim=True)
+    before = bl_kernel.launches.count
+    bl_kernel.bitlinear_kernel(x, q.to(torch.int8), gamma, delta)
+    assert bl_kernel.launches.count == before + 1
+    xr = x.clone().requires_grad_()
+    y = bl_ops.bitlinear_matmul(xr, w.clone().requires_grad_())
+    assert bl_kernel.launches.count == before + 2
+    y.float().sum().backward()
+    assert bl_kernel.launches.count == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitlinear_ste_gradients_from_saved_codes(cuda, dtype):
+    """The backward from the forward's saved codes equals, bit for bit, the
+    one that recomputes the codes from x and γ (the JAX ``_vjp_bwd``)."""
+    x, w = _bitlinear_operands(cuda, 300, 520, 200, dtype, 9)
+    r = torch.randn((300, 200), generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda).to(dtype)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (bl_ops.bitlinear_matmul(xr, wr) * r).sum().backward()
+    q, delta = Q.weight_quant_absmean(w)
+    gamma = x.float().abs().amax(-1, keepdim=True)
+    xq = Q.round_clip(x.float() * Q.div(127.0, gamma + 1e-5), -128.0, 127.0)
+    x_deq = xq * Q.div(gamma, 127.0)
+    g2d = r.float()
+    dx = torch.matmul(g2d, (q.to(torch.int8).float() * delta).t())
+    dw = torch.matmul(x_deq.t(), g2d)
+    torch.testing.assert_close(xr.grad, dx.to(dtype), rtol=0, atol=0)
+    torch.testing.assert_close(wr.grad, dw, rtol=0, atol=0)
 
 
 def test_bitlinear_ste_gradients_on_the_card(cuda):
