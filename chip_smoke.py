@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card name and power limit; build the CUDA kernels from ``src/repro_torch/
-     csrc`` and report the build time, the bitlinear GEMM's registers,
-     spills and shared memory, and its SASS, which must hold the int8
-     ``wgmma`` (IGMMA) and the TMA loads (UTMALDG);
+     csrc`` and report the build time, the tensor-core kernels' registers,
+     spills and shared memory, and their SASS: bitlinear's GEMM and w2a8's
+     wgmma route must hold the int8 ``wgmma`` (IGMMA) and the TMA loads
+     (UTMALDG), ssd_scan's three product stages TF32 ``mma`` (HMMA);
   2. every kernel against its plain PyTorch version at its path's shapes
      (the serving kernels and bitlinear in bf16 and fp32, relation_kd and
      ssd_scan in fp32), with its time, the plain version's time, a library
@@ -18,7 +19,10 @@ result line):
      its device time alone beside the time a caller sees, and its host
      time per call; bitlinear bitwise in both dtypes at seven shapes, timed
      the same way, with its three device kernels (quantizing pass, K-major
-     weight, GEMM) alone;
+     weight, GEMM) alone; w2a8 bitwise at the five projection shapes on
+     both sides of its route threshold, timed the same way at the decode
+     rows (M=8) and a chunk step's (M=256) beside ``torch._int_mm``;
+     ssd_scan within 1e-4, timed on both timers;
   3. the port's ``Engine`` serving ``qwen3-0.6b`` at full width (packed
      ternary weights from a seeded init, w2a8 + paged kernels), with the
      serving kernels' launch counters read around that run;
@@ -44,9 +48,11 @@ result line):
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero.
 
-``python3 chip_smoke.py --kernels-of DIR`` runs only phase 2's paged and
-bitlinear checks and timings, against the package of the checkout at DIR (to time two
-versions in one call), and prints their numbers, not a result line.
+``python3 chip_smoke.py --kernels-of DIR`` runs only phase 2's checks and
+timings of w2a8, the paged kernels, bitlinear and ssd_scan, and
+``--serving-of DIR`` only phase 3, against the package of the checkout at
+DIR (to measure two versions in turns in one call), and prints their
+numbers, not a result line.
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ ROOT = Path(__file__).resolve().parent
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s and
 # the per-type operation rates used for each kernel's lower bound.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"int8": 1979e12, "bfloat16": 989e12, "tf32": 494.7e12,
+            "float32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -123,9 +130,10 @@ def both_ms(fn, flush):
     return time_ms(fn, flush=flush), time_ms(fn, flush=flush, head_start=True)
 
 
-def host_us(fn, iters: int = 20) -> float:
+def host_us(fn, iters: int = 100) -> float:
     """Median host time of one call of ``fn`` (its enqueue: checks,
-    allocations, launches), the device drained before each."""
+    allocations, launches), the device drained before each; 100 calls, since
+    the shared host moves single calls by ~10 us."""
     import torch
     fn()
     times = []
@@ -153,47 +161,115 @@ def ulp(t):
 
 # -- phase 2: kernels against their plain versions ------------------------------
 
+W2A8_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+
+
+def _int_mm_ms(xq, wq, scale, dt, flush):
+    """The yardstick of the int8 products: ``torch._int_mm`` on the int8
+    codes and the int8 weight (either layout it takes), then the scale, as
+    a caller sees it and device alone; (None, None) and the reason where it
+    refuses the shape (it wants more than 16 rows)."""
+    import torch
+    why = None
+    for b in (wq, wq.t().contiguous().t()):
+        try:
+            torch._int_mm(xq, b)
+        except RuntimeError as e:
+            why = str(e).splitlines()[0][:120]
+            continue
+        return both_ms(lambda: (torch._int_mm(xq, b).float() * scale).to(dt),
+                       flush), None
+    return (None, None), why
+
+
+def _fmt(v):
+    return "refused" if v is None else f"{v:.4f}"
+
+
 def check_w2a8(dev, flush, results):
+    """w2a8 at the serving path's five projection shapes (qwen3-0.6b: q/o,
+    k/v, gate/up, down) at the decode rows (M=8) and a chunk step's rows
+    (M = max_batch 8 x chunk 32 = 256), and, where the package routes by M,
+    on both sides of its threshold; fp32 and bf16 bitwise to ``w2a8_ref``
+    (integer sums, the same scale in the same order).  In bf16 at M=8 and
+    M=256 each shape is timed as a caller sees it and device alone, with
+    the wrapper's host time per call, beside the plain version and the
+    ``torch._int_mm`` yardstick (the int8 codes and the unpacked int8
+    weight given); and both routes device alone at the threshold M and at
+    twice it, the evidence for where the threshold sits."""
     import torch
     from repro_torch.core import quant as Q
-    from repro_torch.kernels.w2a8_gemv.kernel import w2a8_kernel
+    from repro_torch.kernels.w2a8_gemv import kernel as wk
     from repro_torch.kernels.w2a8_gemv.ref import w2a8_ref
+    # the route threshold, where the package routes by M (not a parent's
+    # checkout timed with --kernels-of)
+    thr = wk.split_k_max_m() if hasattr(wk, "split_k_max_m") else None
+    ms_checked = sorted({1, 8, 64, 256} | (set() if thr is None else {thr, thr + 1}))
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
-    worst = 0.0
     rows = []
-    for (k, n) in shapes:
+    for (k, n) in W2A8_SHAPES:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         qw, delta = Q.weight_quant_absmean(w)
-        wp = Q.pack_ternary(qw.to(torch.int8))
-        for m in (8, 256):
+        wq = qw.to(torch.int8)
+        wp = Q.pack_ternary(wq)
+        for m in ms_checked:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dt)
-                y = w2a8_kernel(x, wp, delta)
+                y = wk.w2a8_kernel(x, wp, delta)
                 torch.cuda.synchronize()
                 r = w2a8_ref(x, wp, delta)
-                err = (y.float() - r.float()).abs()
-                if not bool((err <= ulp(r).float()).all()):
-                    fail(f"w2a8 M={m} K={k} N={n} {dt}: max err "
-                         f"{err.max().item()} exceeds 1 ulp")
-                worst = max(worst, err.max().item())
-                if dt == torch.bfloat16:
-                    ms = time_ms(lambda: w2a8_kernel(x, wp, delta), flush=flush)
-                    plain = time_ms(lambda: w2a8_ref(x, wp, delta), flush=flush)
-                    nbytes = x.numel() * 2 + wp.numel() + 4 + m * n * 2
-                    b, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
-                    rows.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain,
-                                     bound_ms=b, bound_by=by))
-                    print(f"  w2a8 M={m:4d} K={k} N={n} bf16: {ms:.4f} ms "
-                          f"(plain {plain:.4f}, bound {b:.4f} by {by})", flush=True)
-    # the headline row: the decode step's largest projection (gate/up) at M=8
+                if not torch.equal(y, r):
+                    err = (y.float() - r.float()).abs().max().item()
+                    fail(f"w2a8 M={m} K={k} N={n} {dt}: max err {err} (must "
+                         "be bitwise)")
+                if dt != torch.bfloat16 or m not in (8, 256):
+                    continue
+                ms = both_ms(lambda: wk.w2a8_kernel(x, wp, delta), flush)
+                host = host_us(lambda: wk.w2a8_kernel(x, wp, delta))
+                plain = both_ms(lambda: w2a8_ref(x, wp, delta), flush)
+                xq, gamma = Q.act_quant_absmax_int8(x.float())
+                scale = Q.div(gamma, 127.0) * delta
+                lib, why = _int_mm_ms(xq.to(torch.int8), wq, scale, dt, flush)
+                nbytes = x.numel() * 2 + wp.numel() + 4 + m * n * 2
+                b, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
+                rows.append(dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1],
+                                 host_us=host, plain_ms=plain[0],
+                                 plain_device_ms=plain[1], library_ms=lib[0],
+                                 library_device_ms=lib[1], library_refused=why,
+                                 bound_ms=b, bound_by=by))
+                print(f"  w2a8 M={m:3d} K={k} N={n} bf16: {ms[0]:.4f} ms, device "
+                      f"alone {ms[1]:.4f}, host {host:.1f} us per call (plain "
+                      f"{plain[0]:.4f} / {plain[1]:.4f}, _int_mm {_fmt(lib[0])} / "
+                      f"{_fmt(lib[1])}, bound {b:.5f} by {by})"
+                      + ("" if why is None else f"; _int_mm refused: {why}"),
+                      flush=True)
+    routes = []
+    if thr is not None:
+        # the threshold's evidence: both routes device alone at M = thr and
+        # at the next chunk-step M (2 * thr), in bf16
+        for (k, n) in W2A8_SHAPES:
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            qw, delta = Q.weight_quant_absmean(w)
+            wp = Q.pack_ternary(qw.to(torch.int8))
+            for m in (thr, 2 * thr):
+                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                t = {r: both_ms(lambda: wk.w2a8_kernel(x, wp, delta, route=r), flush)[1]
+                     for r in ("splitk", "wgmma")}
+                routes.append(dict(m=m, k=k, n=n, **t))
+                print(f"  w2a8 routes M={m} K={k} N={n} bf16, device alone: split-K "
+                      f"{t['splitk']:.4f} ms, wgmma {t['wgmma']:.4f} ms", flush=True)
+    # the headline row: the decode step's largest projection (gate/up) at
+    # M=8, with the chunk step's (M=256) beside it
     head = next(r for r in rows if r["m"] == 8 and (r["k"], r["n"]) == (1024, 3072))
+    chunk = next(r for r in rows if r["m"] == 256 and (r["k"], r["n"]) == (1024, 3072))
     results["w2a8_gemv"] = dict(
         name="w2a8_gemv", route="cuda", source="src/repro_torch/csrc/w2a8_gemv.cu",
-        replaces="src/repro/kernels/w2a8_gemv/kernel.py:58", max_abs_err=worst,
+        replaces="src/repro/kernels/w2a8_gemv/kernel.py:58", max_abs_err=0.0,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None,
-        shape="M=8 K=1024 N=3072 bf16", rows=rows)
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        device_ms=head["device_ms"], host_us=head["host_us"],
+        shape="M=8 K=1024 N=3072 bf16", split_k_max_m=thr, chunk_step=chunk,
+        rows=rows, routes=routes)
 
 
 def _paged_problem(dev, dt, b, hkv, g, dh, bs, depths, t, gen):
@@ -493,17 +569,9 @@ def check_bitlinear(dev, flush, results):
             xq = Q.round_clip(x.float() * Q.div(127.0, gamma + 1e-5),
                               -128.0, 127.0).to(torch.int8)
             scale = Q.div(gamma, 127.0) * delta
-            lib = (None, None)
-            for b in (wq, wq.t().contiguous().t()):
-                try:
-                    torch._int_mm(xq, b)
-                except RuntimeError as e:
-                    print(f"  torch._int_mm refused a layout: {str(e)[:120]}",
-                          flush=True)
-                    continue
-                lib = both_ms(lambda: (torch._int_mm(xq, b).float() * scale).to(dt),
-                              flush)
-                break
+            lib, why = _int_mm_ms(xq, wq, scale, dt, flush)
+            if why is not None:
+                print(f"  torch._int_mm refused: {why}", flush=True)
             nbytes = x.numel() * 2 + wq.numel() + 4 * m + 4 + m * n * 2
             bd, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
             row = dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1], host_us=host,
@@ -550,28 +618,52 @@ def check_bitlinear(dev, flush, results):
         shape="M=2048 K=1024 N=3072 bf16", rows=rows, **extra)
 
 
-def _gemm_ptxas(log: str):
-    """(instance, ptxas's spill and register lines) of the bitlinear GEMM
-    in the build log."""
-    fn, out = None, []
+# The kernels whose SASS phase 1 inspects: (name in the SASS, the
+# instructions each instance must hold).  bitlinear's GEMM and w2a8's
+# tensor-core route run int8 wgmma (IGMMA) fed by TMA loads (UTMALDG);
+# ssd_scan's three kernels with products (C.B^T in the first) run mma.sync
+# on TF32 (HMMA ... TF32).
+SASS_CHECKS = {
+    "bitlinear_kernel_gemm": ("IGMMA", "UTMALDG"),
+    "w2a8_kernel_gemm": ("IGMMA", "UTMALDG"),
+    "ssd_kernel_prep": ("HMMA", "TF32"),
+    "ssd_kernel_state": ("HMMA", "TF32"),
+    "ssd_kernel_out": ("HMMA", "TF32"),
+}
+
+
+def _instance(fn: str):
+    """The SASS_CHECKS kernel a mangled function name instantiates, and a
+    short name for it (its output type or its (N, P)), or (None, None)."""
+    for kern in SASS_CHECKS:
+        if kern in fn:
+            if "gemm" in kern:
+                return kern, f"{kern}<{'bf16' if 'bfloat16' in fn else 'fp32'}>"
+            return kern, kern + ("<128,64>" if "Li128E" in fn else "<16,16>")
+    return None, None
+
+
+def _kernel_ptxas(log: str):
+    """(instance, ptxas's spill and register lines) of each SASS_CHECKS
+    kernel in the build log."""
+    fn, out, spill = None, [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            fn = line if "bitlinear_kernel_gemm" in line else None
+            fn = _instance(line)[1]
             spill = ""
         elif fn and "spill" in line:
             spill = line.strip()
         elif fn and "Used" in line:
-            kind = "bf16" if "bfloat16" in fn else "fp32"
-            out.append((f"gemm<{kind}>", f"{spill}; {line.split(':', 1)[1].strip()}"))
+            out.append((fn, f"{spill}; {line.split(':', 1)[1].strip()}"))
             fn = None
     return out
 
 
-def bitlinear_sass(lib_path, out_dir):
-    """The bitlinear GEMM's SASS (``cuobjdump -sass``, written to
-    ``bitlinear_sass.txt``): it must hold the int8 ``wgmma`` (``IGMMA``) and
-    the TMA loads (``UTMALDG``) feeding it.  Returns one example line of
-    each and their counts per GEMM instance."""
+def kernel_sass(lib_path, out_dir):
+    """The SASS of the SASS_CHECKS kernels (``cuobjdump -sass``, written to
+    ``kernel_sass.txt``): every instance must hold each of its kernel's
+    instructions.  Returns the counts per instance and one example line of
+    each instruction."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
@@ -582,10 +674,9 @@ def bitlinear_sass(lib_path, out_dir):
     fn, found, kept = None, {}, []
     for line in out.stdout.splitlines():
         if "Function : " in line:
-            fn = line.split("Function : ")[1].strip()
-            if "bitlinear_kernel_gemm" in fn:
-                fn = "gemm<bf16>" if "bfloat16" in fn else "gemm<fp32>"
-                found[fn] = {"IGMMA": [], "UTMALDG": []}
+            kern, fn = _instance(line.split("Function : ")[1].strip())
+            if kern is not None:
+                found[fn] = {op: [] for op in SASS_CHECKS[kern]}
                 kept.append(line)
             continue
         if fn in found:
@@ -593,12 +684,16 @@ def bitlinear_sass(lib_path, out_dir):
             for op in found[fn]:
                 if op in line:
                     found[fn][op].append(line.split("*/", 1)[1].split(";")[0].strip())
-    (out_dir / "bitlinear_sass.txt").write_text("\n".join(kept) + "\n")
+    (out_dir / "kernel_sass.txt").write_text("\n".join(kept) + "\n")
     counts = {f: {op: len(v) for op, v in d.items()} for f, d in found.items()}
-    if not counts or not all(c["IGMMA"] and c["UTMALDG"] for c in counts.values()):
-        fail(f"the bitlinear GEMM's SASS lacks IGMMA or UTMALDG: {counts}")
-    first = next(iter(found.values()))
-    return dict(counts=counts, igmma=first["IGMMA"][0], utmaldg=first["UTMALDG"][0])
+    kinds = {_instance(f)[0] for f in found}
+    if kinds != set(SASS_CHECKS) or not all(all(c.values()) for c in counts.values()):
+        fail(f"the tensor-core kernels' SASS lacks an instruction: {counts}")
+    examples = {}
+    for d in found.values():
+        for op, lines in d.items():
+            examples.setdefault(op, lines[0])
+    return dict(counts=counts, examples=examples)
 
 
 def check_relation_kd(dev, flush, results):
@@ -691,26 +786,30 @@ def check_ssd_scan(dev, flush, results):
                 and bool((err <= 1e-3 + 1e-3 * t2.grad.abs()).all())):
             fail(f"ssd_scan gradient of {name}: max err {err.max().item()}")
     del ins1, ins2, yr, hr
-    ms = time_ms(lambda: ssd_scan_kernel(*ins, chunk), flush=flush)
-    plain = time_ms(lambda: ssd_chunked(*ins, chunk=chunk), flush=flush)
+    ms = both_ms(lambda: ssd_scan_kernel(*ins, chunk), flush)
+    plain = both_ms(lambda: ssd_chunked(*ins, chunk=chunk), flush)
     # the work the function needs: per (bh, chunk) the causal half of M·x,
     # Q(Q+1)·P, and C·h and the state update, 2·Q·N·P each; per (b, chunk)
-    # the causal half of C·Bᵀ, Q(Q+1)·N, which the heads share.  Bytes: the
-    # operands read once (B and C once per batch row), y and the state
-    # written once
+    # the causal half of C·Bᵀ, Q(Q+1)·N, which the heads share.  The
+    # products run on the tensor cores as 3xTF32 (three TF32 products for
+    # each fp32 one), so the operations are three times those at the TF32
+    # rate.  Bytes: the operands read once (B and C once per batch row), y
+    # and the state written once
     q = chunk_len(s, chunk)
     nc = s // q
     ops = (b * h * nc * (q * (q + 1) * p + 4.0 * q * n * p)
            + b * nc * q * (q + 1) * n)
     nbytes = 4 * (2 * x.numel() + 2 * a.numel() + 2 * B.numel() + hT.numel())
-    bd, by = bound_ms(nbytes, ops, "float32")
-    print(f"  ssd_scan b={b} S={s} H={h} P={p} N={n} Q={q} fp32: {ms:.4f} ms "
-          f"(plain ssd_chunked {plain:.4f}, bound {bd:.4f} by {by}); max err "
-          f"{worst:.3g}", flush=True)
+    bd, by = bound_ms(nbytes, 3 * ops, "tf32")
+    print(f"  ssd_scan b={b} S={s} H={h} P={p} N={n} Q={q} fp32: {ms[0]:.4f} ms, "
+          f"device alone {ms[1]:.4f} (plain ssd_chunked {plain[0]:.4f} / "
+          f"{plain[1]:.4f}; bound {bd:.4f} by {by}: 3 x {ops / 1e9:.2f} GFLOP "
+          f"at the TF32 rate); max err {worst:.3g}", flush=True)
     results["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:74", max_abs_err=worst,
-        ms=ms, plain_ms=plain, bound_ms=bd, bound_by=by, library_ms=None,
+        ms=ms[0], plain_ms=plain[0], bound_ms=bd, bound_by=by, library_ms=None,
+        device_ms=ms[1], plain_device_ms=plain[1],
         shape=f"BH={b * h} S={s} P={p} N={n} Q={q} fp32")
 
 
@@ -820,6 +919,14 @@ def serve_full_width(dev, out_dir):
     return launches
 
 
+# each kernel of the serving path: the names its CUDA functions carry in a
+# profiler trace (w2a8's wgmma route quantizes with bitlinear's pass, which
+# serving runs for nothing else)
+SERVE_KERNELS = {"w2a8_kernel": ("w2a8_kernel", "bitlinear_kernel_quant_rows"),
+                 "paged_decode_kernel": ("paged_decode_kernel",),
+                 "paged_prefill_kernel": ("paged_prefill_kernel",)}
+
+
 def profile_steps(dev, cfg, model, scfg, prompts, out_dir):
     """Where the device time of the phase-3 workload goes: fresh engines on
     the same model serve four of its prompts twice, once timed on the host
@@ -860,8 +967,8 @@ def profile_steps(dev, cfg, model, scfg, prompts, out_dir):
         return None
 
     def group(name):
-        for key in ("w2a8_kernel", "paged_decode_kernel", "paged_prefill_kernel"):
-            if key in name:
+        for key, marks in SERVE_KERNELS.items():
+            if any(m in name for m in marks):
                 return key
         return "other (PyTorch ops)"
 
@@ -952,10 +1059,10 @@ def _top2_gaps(model, prompt, tokens, dev):
 TRAIN_BATCH = 8
 QWEN_SEQ, MAMBA_SEQ = 256, 512     # MAMBA_SEQ: two chunks of 256 per row
 # each kernel of the training paths, by counter name: its package and the
-# name its CUDA function carries in a profiler trace
+# name its CUDA functions carry in a profiler trace
 TRAIN_KERNELS = {"bitlinear": ("bitlinear", "bitlinear_kernel"),
                  "relation_kd": ("relation_kd", "relation_kl_rows_kernel"),
-                 "ssd_scan": ("ssd_scan", "ssd_scan_kernel")}
+                 "ssd_scan": ("ssd_scan", "ssd_kernel")}
 
 
 def _train_batches(task: str, seed: int, n: int, dev, seq: int):
@@ -1333,11 +1440,12 @@ def mamba_block_parity(dev):
 
 
 def kernels_of(root: Path) -> None:
-    """``python3 chip_smoke.py --kernels-of DIR``: phase 2's paged and
-    bitlinear checks and timings against the package of the checkout at DIR
-    (e.g. an older commit unpacked from ``git archive``, so that two
-    versions are timed in one call on one card), then their numbers as one
-    JSON line.  Prints no result line: it is not the smoke test."""
+    """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
+    bitlinear and ssd_scan checks and timings against the package of the
+    checkout at DIR (e.g. an older commit unpacked from ``git archive``, so
+    that two versions are timed in one call on one card), then their
+    numbers as one JSON line.  Prints no result line: it is not the smoke
+    test."""
     import torch
     card = card_info()
     print(f"card: {card}", flush=True)
@@ -1346,20 +1454,38 @@ def kernels_of(root: Path) -> None:
     print(f"build: {info.seconds:.1f} s -> {info.path}", flush=True)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     results = {}
-    check_paged_decode(torch.device("cuda"), scratch.zero_, results)
-    check_paged_prefill(torch.device("cuda"), scratch.zero_, results)
-    check_bitlinear(torch.device("cuda"), scratch.zero_, results)
+    dev = torch.device("cuda")
+    for check in (check_w2a8, check_paged_decode, check_paged_prefill,
+                  check_bitlinear, check_ssd_scan):
+        check(dev, scratch.zero_, results)
     print(json.dumps({"kernels_of": str(root), "card": card,
                       "kernels": results}), flush=True)
+
+
+def serving_of(root: Path) -> None:
+    """``python3 chip_smoke.py --serving-of DIR``: phase 3 alone (the
+    engine's run, its counters and its profile) with the package of the
+    checkout at DIR, then its summary as one JSON line: two versions served
+    in turns in one call.  Prints no result line."""
+    import torch
+    card = card_info()
+    print(f"card: {card}", flush=True)
+    out_dir = ROOT / "smoke_out" / "serving_of"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches = serve_full_width(torch.device("cuda"), out_dir)
+    summary = json.loads((out_dir / "smoke_engine.json").read_text())
+    print(json.dumps({"serving_of": str(root), "card": card, "launches": launches,
+                      "summary": summary}), flush=True)
 
 
 def main() -> None:
     args = sys.argv[1:]
     root = ROOT
+    modes = {"--kernels-of": kernels_of, "--serving-of": serving_of}
     if args:
-        if len(args) != 2 or args[0] != "--kernels-of":
+        if len(args) != 2 or args[0] not in modes:
             fail(f"unknown arguments {args}: run with none, or with "
-                 "--kernels-of DIR")
+                 "--kernels-of DIR or --serving-of DIR")
         root = Path(args[1]).resolve()
     src = root / "src"
     if not (src / "repro_torch").is_dir():
@@ -1369,7 +1495,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a card")
     if args:
-        return kernels_of(root)
+        return modes[args[0]](root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1384,14 +1510,15 @@ def main() -> None:
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
     from repro_torch.kernels.bitlinear.kernel import gemm_info
-    gemm_line = (f"bitlinear GEMM: {gemm_info()} (smem_bytes: dynamic shared "
-                 "memory per CTA); ptxas: " + "; ".join(
-                     f"{fn}: {use}" for fn, use in _gemm_ptxas(info.log)))
+    from repro_torch.kernels.w2a8_gemv.kernel import gemm_info as w2a8_info
+    gemm_line = (f"bitlinear GEMM: {gemm_info()}; w2a8: {w2a8_info()} (smem_bytes: "
+                 "dynamic shared memory per CTA); ptxas: " + "; ".join(
+                     f"{fn}: {use}" for fn, use in _kernel_ptxas(info.log)))
     (out_dir / "ptxas.txt").write_text(info.log + gemm_line + "\n")
     print(gemm_line, flush=True)
-    sass = bitlinear_sass(info.path, out_dir)
-    print(f"bitlinear GEMM SASS: {sass['counts']}; e.g. {sass['igmma']} and "
-          f"{sass['utmaldg']}", flush=True)
+    sass = kernel_sass(info.path, out_dir)
+    print(f"tensor-core SASS: {sass['counts']}; e.g. " + "; ".join(
+        sass["examples"].values()), flush=True)
 
     # 2. kernels against their plain versions
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

@@ -38,155 +38,31 @@
 //      scales by (gamma[m]/127)*delta, stages each warp's 16 rows in the
 //      drained ring and writes them in 16-byte pieces, masking the ragged M
 //      and N edges (TMA reads zeros beyond them).
-#include "common.cuh"
-
-#include <cuda.h>
+//
+// The PTX wrappers, the consumers' main loop and the epilogue live in
+// igemm_core.cuh, shared with w2a8_gemv.cu's tensor-core route; the
+// quantizing pass is that route's first kernel too (bitlinear_quant_launch).
+#include "igemm_core.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 128, STAGES = 3;
+using namespace igemm;
+
+constexpr int BM = 128, STAGES = 3;
 constexpr int CONSUMERS = 2;                       // warpgroups of 64 rows
 constexpr int THREADS = 128 * CONSUMERS + 32;      // + one producer warp
 constexpr int TILE_A = BM * BK, TILE_B = BN * BK;  // bytes per stage
-constexpr int LDO = BN + 8;                        // staged output row, elements
 constexpr int QUANT_THREADS = 128;
 constexpr int WT_TILE = 64;                        // weight transpose tile
 
 // the epilogue stages its output in the drained ring
-static_assert(CONSUMERS * 4 * 16 * LDO * 4 <= STAGES * (TILE_A + TILE_B), "");
+static_assert(staged_bytes<CONSUMERS>() <= STAGES * (TILE_A + TILE_B), "");
 
 // dynamic shared memory of a GEMM CTA: the ring, its barriers and the slack
 // that aligns the ring to 1024 bytes; two CTAs fit on an SM
 constexpr int GEMM_SMEM = 1024 + STAGES * (TILE_A + TILE_B) + 2 * STAGES * 8;
 
-// -- PTX wrappers -------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile written by TMA with the
-// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO),
-// leading offset unused, tile base 1024-aligned.  Stepping K by 32 bytes
-// inside the swizzle row advances the start address by 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint32_t a = smem_u32(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator accesses across the async MMAs
-__device__ __forceinline__ void fence_regs(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// D[64 x 128] += A[64 x 32] * B[128 x 32]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
-                                                    uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
-        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
-        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
-        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
-        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
-        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
-        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // -- 1. the quantizing pass -----------------------------------------------------
-
-// max that keeps a NaN, as torch.amax does
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ uint32_t q8(float v, float inv) {
-  float q = rintf(v * inv);
-  q = fminf(fmaxf(q, -128.0f), 127.0f);
-  return (uint32_t)((int)q & 0xff);
-}
-
-// 16 bytes of x as floats
-__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 
 // gamma_out != nullptr: take the row absmax into it; else read gamma_in.
 // vec: every row is a whole number of 16-byte pieces, x 16-byte aligned.
@@ -343,7 +219,7 @@ bitlinear_kernel_gemm(const __grid_constant__ CUtensorMap tma_a,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS * 4);   // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 
@@ -361,112 +237,14 @@ bitlinear_kernel_gemm(const __grid_constant__ CUtensorMap tma_a,
     return;
   }
 
-  // consumers: warpgroup wg owns rows wg*64 .. wg*64+63 of the tile; one
-  // stage's MMAs stay in flight while the next stage's are issued, and a
-  // stage goes back to the producer once its MMAs have completed
-  const int wg = warp >> 2;
+  // consumers: warpgroup wg owns rows wg*64 .. wg*64+63 of the tile
   int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % STAGES, ph = (kt / STAGES) & 1;
-    mbar_wait(&full[s], ph);
-    const uint8_t* a = sA + s * TILE_A + wg * 64 * BK;
-    const uint8_t* b = sB + s * TILE_B;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < BK / 32; ++k)
-      wgmma_m64n128k32_s8(acc, sw128_desc(a + 32 * k), sw128_desc(b + 32 * k));
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(acc);
-    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-
-  // epilogue: scale, stage the warp's 16 x 128 outputs in the drained ring
-  // (every load has landed and every MMA has read its stage once both
-  // warpgroups pass the barrier), then store 16 bytes a lane
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
-  const int wr = (warp & 3) * 16;                 // warp's first row in the WG
-  const int r0 = m0 + wg * 64 + wr + (lane >> 2); // and rows r0 + 8
-  const float d = delta[0];
-  const float sc0 = r0 < M ? (gamma[r0] / 127.0f) * d : 0.0f;
-  const float sc1 = r0 + 8 < M ? (gamma[r0 + 8] / 127.0f) * d : 0.0f;
-  T* so = reinterpret_cast<T*>(smem) + warp * 16 * LDO;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = j * 8 + 2 * (lane & 3);
-    T* p0 = so + (lane >> 2) * LDO + c;
-    T* p1 = p0 + 8 * LDO;
-    p0[0] = from_f32<T>((float)acc[4 * j] * sc0);
-    p0[1] = from_f32<T>((float)acc[4 * j + 1] * sc0);
-    p1[0] = from_f32<T>((float)acc[4 * j + 2] * sc1);
-    p1[1] = from_f32<T>((float)acc[4 * j + 3] * sc1);
-  }
-  __syncwarp();
-  constexpr int V = 16 / sizeof(T), PER_ROW = BN / V;
-  const bool vec_ok = (N % V) == 0;
-  const int rbase = m0 + wg * 64 + wr;
-#pragma unroll 4
-  for (int i = lane; i < 16 * PER_ROW; i += 32) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * V;
-    const int m = rbase + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const T* src = so + r * LDO + c;
-    T* dst = y + (size_t)m * N + n;
-    if (vec_ok && n + V <= N) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < V && n + e < N; ++e) dst[e] = src[e];
-    }
-  }
+  mainloop<STAGES, TILE_A, TILE_B>(acc, sA, sB, full, nullptr, empty, nk,
+                                   warp >> 2, lane);
+  epilogue<T, CONSUMERS>(acc, smem, gamma, delta, y, M, N, m0, n0, warp, lane);
 }
 
 // -- host side ------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver API function; the runtime hands out
-// its entry point, so the library needs no link against libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [rows, Kp] int8, row pitch Kp bytes, read in [box_rows, BK] boxes
-bool kmajor_map(CUtensorMap* map, const void* base, int rows, int Kp,
-                int box_rows) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)Kp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)Kp};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 int quant(const void* x, const void* gamma_in, void* gamma_out, void* codes, int M,
           int K, int Kp, int dtype, cudaStream_t s) {
@@ -507,7 +285,7 @@ int gemm_t(const void* codes, const void* wt, const void* gamma, const void* del
            void* y, int M, int N, int Kp, cudaStream_t stream) {
   static size_t allowed = 0;
   CUtensorMap ma, mb;
-  if (!kmajor_map(&ma, codes, M, Kp, BM) || !kmajor_map(&mb, wt, N, Kp, BN))
+  if (!swizzled_map(&ma, codes, M, Kp, BM) || !swizzled_map(&mb, wt, N, Kp, BN))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(bitlinear_kernel_gemm<T>, GEMM_SMEM, &allowed);
   if (err != cudaSuccess) return (int)err;

@@ -32,7 +32,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
 _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "w2a8_gemv_launch": [_vp] * 4 + [_i] * 4 + [_vp],
+    "w2a8_gemv_launch": [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _vp],
+    "w2a8_gemv_info": [ctypes.POINTER(_ll)],
     "paged_plan_query": [_i] * 7 + [ctypes.POINTER(_ll)],
     "paged_attention_decode_launch": [_vp] * 9 + [_ll] + [_i] * 6 + [_f] * 2 + [_i] * 2 + [_vp],
     "paged_prefill_chunk_launch": [_vp] * 10 + [_ll] + [_i] * 7 + [_f] * 2 + [_i] * 2 + [_vp],
@@ -42,8 +43,10 @@ _SIGNATURES = {
     "bitlinear_launch": [_vp] * 9 + [_i] * 6 + [_vp],
     "bitlinear_gemm_info": [ctypes.POINTER(_ll)],
     "relation_kd_launch": [_vp] * 3 + [_i] * 3 + [_f] + [_vp],
-    "ssd_scan_launch": [_vp] * 7 + [_i] * 6 + [_vp],
+    "ssd_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],
+    "ssd_scan_workspace": [_i] * 6,
 }
+_RESTYPES = {"ssd_scan_workspace": ctypes.c_longlong}
 
 
 class LaunchCounter:
@@ -133,7 +136,7 @@ def build(verbose: bool = False) -> BuildInfo:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.repro_torch_error_string.argtypes = [ctypes.c_int]
     lib.repro_torch_error_string.restype = ctypes.c_char_p
     _lib, _info = lib, BuildInfo(so, seconds, log)

@@ -12,14 +12,18 @@ returning y and the final state h.  The operands stay in the model's layout
 once per head instead of the TPU wrapper's per-head copies; the TPU
 kernel's [BH, S, P] layout is the case H = 1.
 
-Bound on the H100: the work the function needs, Q(Q+1)·P + 4·Q·N·P fp32
+Bound on the H100: the work the function needs, Q(Q+1)·P + 4·Q·N·P
 operations per (bh, chunk) (the causal half of M·x, C·h, the state update)
 plus Q(Q+1)·N per (b, chunk) (the causal half of C·Bᵀ, shared by the
-heads), at 67 TFLOP/s, outweighs the bytes.  Design: one CTA per (b, h)
-walks its chunks in order with h in shared memory; query rows in tiles of
-64, key rows streamed in tiles of 32; see the .cu.  The (d_state,
-head_dim) pairs it is built for, and the shared memory a chunk length
-needs, are the .cu's to decide: a launch it refuses raises here.
+heads), outweighs the bytes.  The products run on the tensor cores as
+3xTF32 (one TF32 product misses the 1e-4 tolerance), so the bound is three
+times those operations at the TF32 rate.  Design: the stages of
+``ref.ssd_stages`` as three kernels launched from one C entry (la and the
+per-step factors beside C·Bᵀ once per batch row and chunk; the chunk
+states and their carry; the output per 64 query rows), with their
+intermediates in a workspace the wrapper allocates; see the .cu.  The (d_state, head_dim)
+pairs it is built for, and the shared memory a chunk length needs, are the
+.cu's to decide: a launch it refuses raises here.
 """
 from __future__ import annotations
 
@@ -33,6 +37,12 @@ from repro_torch.kernels.ssd_scan.ref import chunk_len
 launches = build.LaunchCounter("ssd_scan")
 
 _REFUSED = 1   # cudaErrorInvalidValue: a size the launcher is not built for
+
+
+def _refused(n: int, p: int, q: int) -> ValueError:
+    return ValueError(f"ssd_scan_kernel: (d_state, head_dim) = ({n}, {p}) with "
+                      f"chunk length {q} is not built or does not fit in shared "
+                      "memory (csrc/ssd_scan.cu::ssd_scan_launch)")
 
 
 def ssd_scan_kernel(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
@@ -61,14 +71,16 @@ def ssd_scan_kernel(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
         return y, hout.zero_()
     q = chunk_len(s, chunk)
     lib = build.library()
+    floats = lib.ssd_scan_workspace(b, s, h, p, n, q)
+    if floats < 0:
+        raise _refused(n, p, q)
+    ws = torch.empty((floats,), dtype=torch.float32, device=x.device)
     err = lib.ssd_scan_launch(x.data_ptr(), a.data_ptr(), dt.data_ptr(),
                               B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                              hout.data_ptr(), b, s, h, p, n, q,
+                              hout.data_ptr(), ws.data_ptr(), b, s, h, p, n, q,
                               build.stream_ptr(x.device))
     if err == _REFUSED:
-        raise ValueError(f"ssd_scan_kernel: (d_state, head_dim) = ({n}, {p}) "
-                         f"with chunk length {q} is not built or does not fit "
-                         "in shared memory (csrc/ssd_scan.cu::ssd_scan_launch)")
+        raise _refused(n, p, q)
     build.check(err, "ssd_scan")
     launches.count += 1
     return y, hout

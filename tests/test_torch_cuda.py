@@ -56,19 +56,59 @@ def _atol(dtype):
     return 1e-5 if dtype == torch.float32 else 2 ** -7
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(8, 1024, 3072), (256, 3072, 1024),
-                                   (3, 128, 40)])
-def test_w2a8_kernel_matches_plain(cuda, dtype, m, k, n):
-    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
-    w = torch.randn((k, n), generator=gen, device=cuda) * 0.02
+# the serving path's five projection shapes (qwen3-0.6b: q/o, k/v, down's
+# input, gate/up, down) and M on both sides of the route threshold
+W2A8_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+SPLIT_K_MAX_M = 8     # held to the .cu's by test_w2a8_route_threshold
+
+
+def _w2a8_operands(dev, m, k, n, dtype):
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
     q, delta = Q.weight_quant_absmean(w)
     wp = Q.pack_ternary(q.to(torch.int8))
-    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    return x, wp, delta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 3072), (256, 3072, 1024),
+                                   (3, 128, 40)] + [
+    (m, k, n) for m in (1, SPLIT_K_MAX_M, SPLIT_K_MAX_M + 1, 64, 256, 2048)
+    for k, n in W2A8_SHAPES])
+def test_w2a8_kernel_matches_plain(cuda, dtype, m, k, n):
+    x, wp, delta = _w2a8_operands(cuda, m, k, n, dtype)
     before = w2_kernel.launches.count
     y = w2_ops.w2a8_matmul(x, wp, delta)
     assert w2_kernel.launches.count == before + 1
     torch.testing.assert_close(y, w2_ref.w2a8_ref(x, wp, delta), rtol=0, atol=0)
+
+
+def test_w2a8_route_threshold(cuda):
+    """The route by M: split-K up to the .cu's threshold, wgmma above it,
+    and split-K wherever TMA cannot read the packed weight (N % 16, or a
+    weight not 16-byte aligned)."""
+    assert w2_kernel.split_k_max_m() == SPLIT_K_MAX_M
+    wp = torch.zeros((256, 3072), dtype=torch.uint8, device=cuda).data_ptr()
+    assert w2_kernel.route_for(SPLIT_K_MAX_M, 3072, wp) == "splitk"
+    assert w2_kernel.route_for(SPLIT_K_MAX_M + 1, 3072, wp) == "wgmma"
+    assert w2_kernel.route_for(256, 40, wp) == "splitk"
+    assert w2_kernel.route_for(256, 3072, wp + 4) == "splitk"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["splitk", "wgmma"])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 3072), (8, 3072, 1024), (9, 520, 48),
+                                   (17, 1024, 2048), (300, 2048, 1024)])
+def test_w2a8_each_route_matches_plain(cuda, dtype, route, m, k, n):
+    """Either route at any M (split-K in row groups of 8; the wgmma route's
+    ragged M, N and K tiles masked or zero-padded), bitwise, twice in a row
+    (the split-K workspace and counters are left zero for the next call)."""
+    x, wp, delta = _w2a8_operands(cuda, m, k, n, dtype)
+    want = w2_ref.w2a8_ref(x, wp, delta)
+    for _ in range(2):
+        y = w2_kernel.w2a8_kernel(x, wp, delta, route=route)
+        torch.testing.assert_close(y, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -482,7 +522,8 @@ def _ssd_problem(dev, b, s, h, p, n, seed):
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (2, 512, 48, 64, 128, 256), (1, 100, 3, 16, 16, 64),
-    (2, 96, 2, 64, 128, 32), (1, 37, 2, 64, 128, 256)])
+    (2, 96, 2, 64, 128, 32), (1, 37, 2, 64, 128, 256),
+    (1, 320, 5, 64, 128, 128), (3, 130, 7, 16, 16, 64)])
 def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, a, dt, B, C = _ssd_problem(cuda, b, s, h, p, n, b + s + h)
