@@ -8,7 +8,8 @@ result line):
      csrc`` and report the build time, the tensor-core kernels' registers,
      spills and shared memory, and their SASS: bitlinear's GEMM and w2a8's
      wgmma route must hold the int8 ``wgmma`` (IGMMA) and the TMA loads
-     (UTMALDG), ssd_scan's three product stages TF32 ``mma`` (HMMA);
+     (UTMALDG), ssd_scan's three product stages TF32 ``mma`` (HMMA) and
+     relation_kd TF32 ``wgmma`` (HGMMA);
   2. every kernel against its plain PyTorch version at its path's shapes
      (the serving kernels and bitlinear in bf16 and fp32, relation_kd and
      ssd_scan in fp32), with its time, the plain version's time, a library
@@ -22,7 +23,10 @@ result line):
      weight, GEMM) alone; w2a8 bitwise at the five projection shapes on
      both sides of its route threshold, timed the same way at the decode
      rows (M=8) and a chunk step's (M=256) beside ``torch._int_mm``;
-     ssd_scan within 1e-4, timed on both timers;
+     relation_kd within rtol 1e-5 at L = 256, 300 and 4096 on two input
+     recipes and three temperatures, bitwise from run to run, with its
+     split plan, timed on both timers with its host time at L = 256 and
+     4096; ssd_scan within 1e-4, timed on both timers;
   3. the port's ``Engine`` serving ``qwen3-0.6b`` at full width (packed
      ternary weights from a seeded init, w2a8 + paged kernels), with the
      serving kernels' launch counters read around that run;
@@ -49,7 +53,7 @@ It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero.
 
 ``python3 chip_smoke.py --kernels-of DIR`` runs only phase 2's checks and
-timings of w2a8, the paged kernels, bitlinear and ssd_scan, and
+timings of w2a8, the paged kernels, bitlinear, relation_kd and ssd_scan, and
 ``--serving-of DIR`` only phase 3, against the package of the checkout at
 DIR (to measure two versions in turns in one call), and prints their
 numbers, not a result line.
@@ -622,13 +626,15 @@ def check_bitlinear(dev, flush, results):
 # instructions each instance must hold).  bitlinear's GEMM and w2a8's
 # tensor-core route run int8 wgmma (IGMMA) fed by TMA loads (UTMALDG);
 # ssd_scan's three kernels with products (C.B^T in the first) run mma.sync
-# on TF32 (HMMA ... TF32).
+# on TF32 (HMMA ... TF32); relation_kd's two instances (16-byte and 4-byte
+# copies) run wgmma on TF32 (HGMMA ... TF32).
 SASS_CHECKS = {
     "bitlinear_kernel_gemm": ("IGMMA", "UTMALDG"),
     "w2a8_kernel_gemm": ("IGMMA", "UTMALDG"),
     "ssd_kernel_prep": ("HMMA", "TF32"),
     "ssd_kernel_state": ("HMMA", "TF32"),
     "ssd_kernel_out": ("HMMA", "TF32"),
+    "relation_kl_tiles": ("GMMA", "TF32"),
 }
 
 
@@ -639,6 +645,8 @@ def _instance(fn: str):
         if kern in fn:
             if "gemm" in kern:
                 return kern, f"{kern}<{'bf16' if 'bfloat16' in fn else 'fp32'}>"
+            if kern == "relation_kl_tiles":
+                return kern, kern + ("<vec>" if "ILb1E" in fn else "<scalar>")
             return kern, kern + ("<128,64>" if "Li128E" in fn else "<16,16>")
     return None, None
 
@@ -696,44 +704,87 @@ def kernel_sass(lib_path, out_dir):
     return dict(counts=counts, examples=examples)
 
 
+def _relation_states(dev, bh, l, d, recipe, gen):
+    """Unit rows s, t [BH, L, D]: ``phase2`` t = normalize(s + 0.5·noise), or
+    ``clustered`` around 8 centres (s = centre + 0.6·noise, t = s +
+    0.3·noise), whose relation rows are far from uniform: the recipe on
+    which one TF32 product misses the gate (tests/test_torch_relation_tiles.py)."""
+    import torch
+    unit = lambda x: torch.nn.functional.normalize(x, dim=-1)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if recipe == "phase2":
+        s = unit(r(bh, l, d))
+        return s, unit(s + 0.5 * r(bh, l, d))
+    centres = r(bh, 8, d)
+    pick = torch.randint(0, 8, (l,), generator=gen, device=dev)
+    s = unit(centres[:, pick] + 0.6 * r(bh, l, d))
+    return s, unit(s + 0.3 * r(bh, l, d))
+
+
 def check_relation_kd(dev, flush, results):
     """relation_kd at the distillation shape (qwen3-0.6b, split_heads=4,
-    batch 8 x 256: BH=32, L=256, D=512) and at a ragged L=300; rtol 1e-5,
-    atol 1e-6 against the materialized plain version (fp32 both)."""
+    batch 8 x 256: BH=32, L=256, D=512), at a ragged L=300 and at the JAX
+    kernel's design point L=4096 (BH=32, D=512); the phase-2 recipe at
+    temp 1 and clustered rows at temp 1, 0.25 and 0.1; rtol 1e-5, atol 1e-6
+    against the materialized plain version (fp32 both), and bitwise from
+    run to run.  L=256 and L=4096 are timed as a caller sees them and device
+    alone, beside the plain version, with the wrapper's host time per call;
+    the bound is 3 x the relation products at the TF32 rate (3xTF32).  The
+    split plan is the package's (an older checkout timed with
+    ``--kernels-of`` may have none)."""
     import torch
-    from repro_torch.kernels.relation_kd.kernel import relation_kl_rows_kernel
+    from repro_torch.kernels.relation_kd import kernel as rk
     from repro_torch.kernels.relation_kd.ref import relation_kl_rows_ref
     gen = torch.Generator(device=dev).manual_seed(4)
     bh, d = 32, 512
     worst = 0.0
-    for l in (256, 300):
-        s = torch.nn.functional.normalize(
-            torch.randn((bh, l, d), generator=gen, device=dev), dim=-1)
-        t = torch.nn.functional.normalize(
-            s + 0.5 * torch.randn((bh, l, d), generator=gen, device=dev), dim=-1)
-        rows = relation_kl_rows_kernel(s, t, 1.0)
+    rows = []
+    cases = [(256, "phase2", 1.0), (300, "phase2", 1.0), (256, "clustered", 1.0),
+             (256, "clustered", 0.25), (256, "clustered", 0.1),
+             (300, "clustered", 0.25), (4096, "clustered", 0.25)]
+    for l, recipe, temp in cases:
+        s, t = _relation_states(dev, bh, l, d, recipe, gen)
+        got = rk.relation_kl_rows_kernel(s, t, temp)
+        again = rk.relation_kl_rows_kernel(s, t, temp)
         torch.cuda.synchronize()
-        ref = relation_kl_rows_ref(s, t, 1.0)
-        err = (rows - ref).abs()
+        ref = relation_kl_rows_ref(s, t, temp)
+        err = (got - ref).abs()
         if not bool((err <= 1e-6 + 1e-5 * ref.abs()).all()) or not bool(
-                torch.isfinite(rows).all()):
-            fail(f"relation_kd BH={bh} L={l} D={d}: max err {err.max().item()}")
+                torch.isfinite(got).all()):
+            fail(f"relation_kd BH={bh} L={l} D={d} {recipe} temp {temp}: max err "
+                 f"{err.max().item()}")
+        if not torch.equal(got, again):
+            fail(f"relation_kd BH={bh} L={l} D={d} {recipe} temp {temp}: two runs "
+                 "differ")
         worst = max(worst, err.max().item())
-        if l != 256:
-            continue
-        ms = time_ms(lambda: relation_kl_rows_kernel(s, t, 1.0), flush=flush)
-        plain = time_ms(lambda: relation_kl_rows_ref(s, t, 1.0), flush=flush)
-        nbytes = 2 * s.numel() * 4 + bh * l * 4
-        ops = 2 * 2.0 * bh * l * l * d        # the two relation products
-        bd, by = bound_ms(nbytes, ops, "float32")
-        row = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bd, bound_by=by)
-        print(f"  relation_kd BH={bh} L={l} D={d} fp32: {ms:.4f} ms (plain "
-              f"{plain:.4f}, bound {bd:.4f} by {by}); max err {worst:.3g}",
-              flush=True)
+        plan = rk.plan(bh, l, d) if hasattr(rk, "plan") else None
+        line = (f"  relation_kd BH={bh} L={l} D={d} fp32 {recipe} temp {temp}: "
+                f"max err {err.max().item():.3g}; plan {plan}")
+        if recipe == "phase2" and l == 256 or l == 4096:
+            del ref
+            fn = lambda: rk.relation_kl_rows_kernel(s, t, temp)
+            ms = both_ms(fn, flush)
+            plain = both_ms(lambda: relation_kl_rows_ref(s, t, temp), flush)
+            host = host_us(fn)
+            nbytes = 2 * s.numel() * 4 + bh * l * 4
+            ops = 2 * 2.0 * bh * l * l * d        # the two relation products
+            bd, by = bound_ms(nbytes, 3 * ops, "tf32")
+            rows.append(dict(l=l, ms=ms[0], device_ms=ms[1], plain_ms=plain[0],
+                             plain_device_ms=plain[1], host_us=host,
+                             library_ms=None, bound_ms=bd, bound_by=by, plan=plan))
+            line += (f"; {ms[0]:.4f} ms, device alone {ms[1]:.4f}, host "
+                     f"{host:.1f} us (plain {plain[0]:.4f} / {plain[1]:.4f}; bound "
+                     f"{bd:.4f} by {by}: 3 x {ops / 1e9:.2f} GFLOP at the TF32 "
+                     "rate)")
+        print(line, flush=True)
+    head = rows[0]
     results["relation_kd"] = dict(
         name="relation_kd", route="cuda", source="src/repro_torch/csrc/relation_kd.cu",
         replaces="src/repro/kernels/relation_kd/kernel.py:96", max_abs_err=worst,
-        shape="BH=32 L=256 D=512 fp32", **row)
+        shape="BH=32 L=256 D=512 fp32", rows=rows,
+        **{k: head[k] for k in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                "host_us", "library_ms", "bound_ms", "bound_by",
+                                "plan")})
 
 
 def check_ssd_scan(dev, flush, results):
@@ -1061,7 +1112,7 @@ QWEN_SEQ, MAMBA_SEQ = 256, 512     # MAMBA_SEQ: two chunks of 256 per row
 # each kernel of the training paths, by counter name: its package and the
 # name its CUDA functions carry in a profiler trace
 TRAIN_KERNELS = {"bitlinear": ("bitlinear", "bitlinear_kernel"),
-                 "relation_kd": ("relation_kd", "relation_kl_rows_kernel"),
+                 "relation_kd": ("relation_kd", "relation_kl_tiles"),
                  "ssd_scan": ("ssd_scan", "ssd_kernel")}
 
 
@@ -1441,7 +1492,7 @@ def mamba_block_parity(dev):
 
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
-    bitlinear and ssd_scan checks and timings against the package of the
+    bitlinear, relation_kd and ssd_scan checks and timings against the package of the
     checkout at DIR (e.g. an older commit unpacked from ``git archive``, so
     that two versions are timed in one call on one card), then their
     numbers as one JSON line.  Prints no result line: it is not the smoke
@@ -1456,7 +1507,7 @@ def kernels_of(root: Path) -> None:
     results = {}
     dev = torch.device("cuda")
     for check in (check_w2a8, check_paged_decode, check_paged_prefill,
-                  check_bitlinear, check_ssd_scan):
+                  check_bitlinear, check_relation_kd, check_ssd_scan):
         check(dev, scratch.zero_, results)
     print(json.dumps({"kernels_of": str(root), "card": card,
                       "kernels": results}), flush=True)

@@ -20,10 +20,11 @@
 // 256, N = 128, P = 64), against ~0.12 GB of operands.  fp32 FMAs (67
 // TFLOP/s) would take 0.146 ms; the tensor cores take fp32 only as TF32 (10
 // mantissa bits), which misses the 1e-4 tolerance, so every product here
-// is 3xTF32 on mma.sync m16n8k8: v = hi + lo with hi the top 10 mantissa
-// bits of v and lo those of v - hi (bit masks, no conversion instruction),
-// a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, about fp32's precision at three
-// TF32 products (3 x 9.8 GFLOP at 495 TFLOP/s: ~0.06 ms).
+// is 3xTF32 on mma.sync m16n8k8 (tf32_core.cuh): v = hi + lo with hi the
+// top 10 mantissa bits of v and lo those of v - hi (bit masks, no
+// conversion instruction), a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, about
+// fp32's precision at three TF32 products (3 x 9.8 GFLOP at 495 TFLOP/s:
+// ~0.06 ms).
 //
 // Design: the stages of kernels/ssd_scan/ref.py::ssd_stages in three
 // launches from one C entry, their intermediates in a workspace:
@@ -51,7 +52,7 @@
 // operand every warp of a CTA reads is split into its TF32 parts once, as
 // it is staged.  expf and logf are the accurate functions, not the fast
 // intrinsics.
-#include "common.cuh"
+#include "tf32_core.cuh"
 
 namespace {
 
@@ -60,53 +61,6 @@ constexpr int HG = 16;         // heads per stage-1 CTA
 constexpr int QT = 64;         // query rows per stage-2 and stage-5 tile
 constexpr int KT5 = 64;        // keys per stage-5 tile
 constexpr int KT3 = 32;        // keys per stage-3 tile
-
-// -- 3xTF32 on mma.sync -------------------------------------------------------------
-
-// v = hi + lo + (below 2^-21 |v|): hi keeps the top 10 mantissa bits of v
-// (the part a TF32 operand holds), lo the next 10 of the exact remainder
-// v - hi; two bit masks and a subtraction, no conversion instruction
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xFFFFE000u;
-  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;
-}
-
-// D[16 x 8] += A[16 x 8] B[8 x 8]; fragments as the PTX ISA gives them for
-// m16n8k8 .tf32 with g = lane / 4, t = lane % 4: a = A[g][t], A[g+8][t],
-// A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1]
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D += A B in 3xTF32 from split fragments, the small products first
-__device__ __forceinline__ void mma3s(float (&d)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], uint32_t bh0,
-                                      uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
-// D += A B in 3xTF32, the small products first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const float (&b)[2]) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b[0], bh0, bl0);
-  split(b[1], bh1, bl1);
-  mma3s(d, ah, al, bh0, bh1, bl0, bl1);
-}
-
-__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
-}
 
 // -- 1. la and the per-step factors ------------------------------------------------------
 

@@ -42,7 +42,8 @@ _SIGNATURES = {
     "bitlinear_gemm_launch": [_vp] * 5 + [_i] * 4 + [_vp],
     "bitlinear_launch": [_vp] * 9 + [_i] * 6 + [_vp],
     "bitlinear_gemm_info": [ctypes.POINTER(_ll)],
-    "relation_kd_launch": [_vp] * 3 + [_i] * 3 + [_f] + [_vp],
+    "relation_kd_plan_query": [_i] * 3 + [ctypes.POINTER(_ll)],
+    "relation_kd_launch": [_vp] * 4 + [_ll, _vp, _ll] + [_i] * 3 + [_f] + [_vp],
     "ssd_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],
     "ssd_scan_workspace": [_i] * 6,
 }

@@ -488,24 +488,95 @@ def test_bitlinear_ste_gradients_on_the_card(cuda):
     torch.testing.assert_close(w1.grad, w2.grad, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("bh,l,d", [(32, 256, 512), (3, 300, 40), (2, 17, 8)])
-def test_relation_kd_kernel_matches_plain(cuda, bh, l, d):
-    gen = torch.Generator(device=cuda).manual_seed(bh + l + d)
-    s = torch.nn.functional.normalize(
-        torch.randn((bh, l, d), generator=gen, device=cuda), dim=-1)
-    t = torch.nn.functional.normalize(
-        torch.randn((bh, l, d), generator=gen, device=cuda), dim=-1)
+def _relation_states(dev, bh, l, d, recipe, seed):
+    """Unit rows: ``independent`` s and t (the first cases' recipe), or
+    ``clustered`` around 8 centres (s = centre + 0.6·noise, t = s +
+    0.3·noise), whose relation rows are far from uniform."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    unit = lambda x: torch.nn.functional.normalize(x, dim=-1)
+    if recipe == "independent":
+        s = unit(r(bh, l, d))
+        return s, unit(r(bh, l, d))
+    centres = r(bh, 8, d)
+    pick = torch.randint(0, 8, (l,), generator=gen, device=dev)
+    s = unit(centres[:, pick] + 0.6 * r(bh, l, d))
+    return s, unit(s + 0.3 * r(bh, l, d))
+
+
+# (bh, l, d, recipe, temp): the distillation shape (qwen3-0.6b, 8 x 256,
+# split_heads 4), ragged L, tiny D; clustered rows at temperatures below 1;
+# the JAX kernel's design point L = 4096 (BH cut to 8); D = 5 (4-byte
+# copies); shapes whose j walk the plan splits (asserted below)
+RELATION_CASES = [
+    pytest.param(32, 256, 512, "independent", 1.0, id="32-256-512"),
+    pytest.param(3, 300, 40, "independent", 1.0, id="3-300-40"),
+    pytest.param(2, 17, 8, "independent", 1.0, id="2-17-8"),
+    pytest.param(32, 256, 512, "clustered", 1.0, id="clustered-32-256-512-temp1"),
+    pytest.param(32, 256, 512, "clustered", 0.25, id="clustered-32-256-512-temp0.25"),
+    pytest.param(32, 256, 512, "clustered", 0.1, id="clustered-32-256-512-temp0.1"),
+    pytest.param(3, 300, 40, "clustered", 0.25, id="clustered-3-300-40-temp0.25"),
+    pytest.param(8, 4096, 512, "clustered", 0.25, id="clustered-8-4096-512-temp0.25"),
+    pytest.param(3, 300, 5, "clustered", 0.5, id="clustered-3-300-5-temp0.5"),
+    pytest.param(2, 1000, 64, "clustered", 0.1, id="clustered-2-1000-64-temp0.1"),
+    pytest.param(1, 200, 512, "independent", 1.0, id="1-200-512"),
+]
+SPLIT_CASES = {(2, 1000, 64), (1, 200, 512), (3, 300, 40), (3, 300, 5)}
+
+
+@pytest.mark.parametrize("bh,l,d,recipe,temp", RELATION_CASES)
+def test_relation_kd_kernel_matches_plain(cuda, bh, l, d, recipe, temp):
+    s, t = _relation_states(cuda, bh, l, d, recipe, bh + l + d)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if (bh, l, d) in SPLIT_CASES:
+        assert rk_kernel.plan(bh, l, d)["splits"] > 1
     before = rk_kernel.launches.count
-    rows = rk_kernel.relation_kl_rows_kernel(s, t, 1.0)
+    rows = rk_kernel.relation_kl_rows_kernel(s, t, temp)
     assert rk_kernel.launches.count == before + 1
-    torch.testing.assert_close(rows, rk_ref.relation_kl_rows_ref(s, t, 1.0),
+    again = rk_kernel.relation_kl_rows_kernel(s, t, temp)
+    assert rk_kernel.launches.count == before + 2
+    assert torch.equal(rows, again)          # bitwise from run to run
+    torch.testing.assert_close(rows, rk_ref.relation_kl_rows_ref(s, t, temp),
                                rtol=1e-5, atol=1e-6)
+    if recipe != "independent":
+        return
     s1 = s.clone().requires_grad_()
     rk_ops._RelationMeanKL.apply(s1, t, 1.0, 128).backward()
     s2 = s.clone().requires_grad_()
     rk_ref.relation_kl_rows_ref(s2, t, 1.0).mean().backward()
     torch.testing.assert_close(s1.grad, s2.grad, rtol=1e-4, atol=1e-9)
+
+
+def test_relation_kd_workspace_serves_shapes_in_turn(cuda):
+    """The per-stream partials and counters kept across calls: a shape with
+    a large workspace, then smaller split shapes, then the first again,
+    each within the gate (a counter left non-zero, or one read from the
+    wrong place, would merge too early or never)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for bh, l, d in ((32, 300, 512), (3, 300, 40), (1, 200, 512), (32, 300, 512),
+                     (2, 1000, 64), (3, 300, 40)):
+        s, t = _relation_states(cuda, bh, l, d, "clustered", bh + l)
+        torch.testing.assert_close(rk_kernel.relation_kl_rows_kernel(s, t, 0.5),
+                                   rk_ref.relation_kl_rows_ref(s, t, 0.5),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_relation_plan_splits_only_short_walks(cuda):
+    """The .cu's plan: 64-row CTAs over 64-column j tiles, the j walk split
+    until there are about two CTAs per SM (at most 16 splits, never more
+    than the j tiles), the workspace sized for the splits' five values per
+    row, one counter per row tile, none with one split."""
+    p = rk_kernel.plan(32, 256, 512)
+    assert (p["block_rows"], p["block_cols"], p["splits"], p["ctas"]) == (64, 64, 2, 256)
+    assert (p["workspace_floats"], p["counters"]) == (32 * 4 * 2 * 5 * 64, 32 * 4)
+    p = rk_kernel.plan(32, 4096, 512)
+    assert (p["splits"], p["tiles_per_split"], p["ctas"]) == (1, 64, 2048)
+    assert p["workspace_floats"] == p["counters"] == 0
+    p = rk_kernel.plan(1, 4096, 8)
+    assert p["splits"] * p["tiles_per_split"] >= 64 and p["splits"] <= 16
+    assert rk_kernel.plan(2, 17, 8)["splits"] == 1
+    with pytest.raises(ValueError, match="not taken"):
+        rk_kernel.plan(70000, 16, 8)
 
 
 def _ssd_problem(dev, b, s, h, p, n, seed):
