@@ -47,6 +47,19 @@ result line):
      steps, and a profile of one distillation step;
   8. on-card parity: one full-width ``Mamba2Block`` forward and backward
      through the ssd_scan kernel and through the sequential oracle;
+  9. serving through the entry point: ``python -m repro_torch.launch.serve``
+     at full width (qwen3-0.6b, packed, bf16, 11 requests x 32 tokens,
+     prefix cache, supervised, traced) must exit 0; phase 3's model and
+     prompts through ``FrontendServer`` + ``AsyncEngine`` +
+     ``ServingSupervisor`` + ``Tracer`` with the journal armed must give the
+     synchronous engine's greedy tokens, overlap steps, a valid trace whose
+     counts equal the stats and a journal all terminal with its clean
+     shutdown, the serving kernels' counters read around that run; the sync
+     of step N must return while step N+1 is still queued behind a device
+     spin; one transient fault at each of plan, launch and commit and one
+     bit flipped in a resident bf16 KV block must leave the tokens as they
+     were; the async loop's tok/s and step gap beside the synchronous
+     loop's, and its device idle share from a profile;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -1490,6 +1503,390 @@ def mamba_block_parity(dev):
     torch.cuda.empty_cache()
 
 
+# -- phase 9: serving through the entry point -----------------------------------
+
+# the launcher's run: full width, 28 layers, bf16, packed, the async loop
+# behind the TCP front end under the supervisor, spans traced
+SERVE_CLI = ["--arch", "qwen3-0.6b", "--packed", "--requests", "11",
+             "--max-tokens", "32", "--prefix-cache", "--supervise"]
+# the device spin queued between step N and step N+1 in 9c (~0.2 s at the
+# SM clock of ~1.98 GHz): far longer than step N's device time
+SYNC_PROOF_SPIN_CYCLES = 400_000_000
+
+
+def serve_cli(out_dir):
+    """9a: ``python -m repro_torch.launch.serve`` as a user starts it, in a
+    subprocess; exit code 0, the fused kernels on the card, its trace
+    valid with one request span per request.  Returns the serving kernels'
+    launches that the launcher counted over its run (its ``[kernels]``
+    line; it zeroes the counters once its engine is built) and its
+    committed steps."""
+    import os
+    from repro_torch.analysis.tracecheck import validate_trace
+    trace = out_dir / "serve_trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *SERVE_CLI,
+           "--trace", str(trace)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=600)
+    (out_dir / "serve_cli.txt").write_text(out.stdout)
+    if out.returncode != 0:
+        fail(f"the serve launcher exited {out.returncode}: "
+             f"{out.stdout[-2000:]}")
+    lines = out.stdout.splitlines()
+    shown = []
+    for head in ("[attn] decode impl = fused on cuda", "closed loop:",
+                 "finish reasons:", "[kernels] launches", "[steps]", "[ttft]",
+                 "[inter-token]", "[step-gap]", "[trace] wrote"):
+        hit = [ln for ln in lines if ln.startswith(head)]
+        if not hit:
+            fail(f"the serve launcher printed no {head!r} line: "
+                 f"{out.stdout[-2000:]}")
+        shown.append(hit[0])
+    doc = json.loads(trace.read_text())
+    validate_trace(doc)
+    if doc["otherData"]["counts"]["request"] != 11:
+        fail(f"the launcher's trace counts {doc['otherData']['counts']}")
+    print(f"  launcher: exit 0 in {time.perf_counter() - t0:.1f} s "
+          "(process start, init, kernel load, serve)", flush=True)
+    for ln in shown:
+        print(f"    {ln}", flush=True)
+    launches = {k: int(v) for k, v in (
+        kv.split("=") for kv in shown[3].split()[2:])}
+    steps = int(shown[4].split()[1].split("=")[1])
+    return launches, steps
+
+
+def _serve_tcp(cfg, model, scfg, prompts, plan=None, trace=False):
+    """Serve ``prompts`` (greedy, 32 tokens each) through ``FrontendServer``
+    + ``AsyncEngine`` + ``ServingSupervisor``, one TCP client per request.
+    Every request is acked before the loop starts, so uids, admission and
+    each step's batch are the synchronous run's (the paged kernels' split
+    plan depends on the batch's depth, and greedy parity on the card is
+    held for the same batches).  Returns (tokens per request, wall seconds
+    from loop start to the last event, the engine)."""
+    import asyncio
+    import torch
+    from repro_torch.serving import (AsyncEngine, Engine, FrontendServer,
+                                     ServeClient)
+    from repro_torch.serving.supervisor import ServingSupervisor
+    from repro_torch.serving.tracing import Tracer
+
+    def factory():
+        e = Engine(cfg, model, scfg)
+        if plan is not None:
+            e.fault_hook = plan.engine_hook
+        return e
+
+    eng = factory()
+    if trace:
+        eng.tracer = Tracer(clock=eng.clock)
+    sup = ServingSupervisor(factory)
+
+    async def main():
+        aeng = AsyncEngine(eng, supervisor=sup)
+        srv = FrontendServer(aeng)
+        await srv.start()
+        clients = []
+        for p in prompts:
+            c = await ServeClient(port=srv.port).connect()
+            await c._send({"prompt": p, "max_tokens": 32, "temperature": 0.0,
+                           "ignore_eos": True})
+            ack = await c._recv()
+            if ack.get("finished"):
+                fail(f"the front end rejected a request: {ack}")
+            clients.append(c)
+
+        async def pump(c):
+            evs = []
+            while not (evs and evs[-1].get("finished")):
+                evs.append(await c._recv())
+            return evs
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aeng.start()
+        results = await asyncio.gather(*(pump(c) for c in clients))
+        wall = time.perf_counter() - t0
+        for c in clients:
+            await c.close()
+        await srv.aclose()
+        await aeng.shutdown()
+        return results, wall, aeng.engine
+
+    results, wall, eng = asyncio.run(main())
+    toks = [[e["token"] for e in evs if e.get("token", -1) >= 0]
+            for evs in results]
+    return toks, wall, eng
+
+
+def _gap(st):
+    g = st.step_gap_ms or {}
+    return f"step gap p50 {g.get('p50', 0):.2f} ms p99 {g.get('p99', 0):.2f} ms"
+
+
+def serve_entry_point(dev, out_dir):
+    """Phase 9: qwen3-0.6b at full width through the serving entry point
+    (9a), then phase 3's model and prompts in process through the front
+    end, the async loop, the supervisor, the tracer and the journal (9b),
+    the off-thread sync's wait (9c), transient faults (9d) and one
+    corrupted bf16 KV block (9e).  Returns the serving kernels' launches
+    in 9a (the launcher's own count) and in 9b."""
+    import tempfile
+    import torch
+    from repro_torch.analysis.tracecheck import validate_trace
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import Engine, SamplingParams, ServeConfig
+    from repro_torch.serving.faults import Fault, FaultPlan
+    from repro_torch.serving.journal import load_state
+
+    print("  9a: the launcher", flush=True)
+    cli_launches, cli_steps = serve_cli(out_dir)
+
+    cfg = get_config("qwen3-0.6b").with_quant(
+        Q.QuantConfig(mode="packed", use_kernel=True)).replace(
+        compute_dtype="bfloat16")
+    model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = _engine_prompts(cfg.vocab, seed=3)
+    prompts.append(prompts[3][:40])
+    base = dict(max_batch=8, max_len=1024, prefill_chunk=32,
+                prefix_cache=True, cache_dtype="bfloat16")
+    greedy = SamplingParams(max_tokens=32, ignore_eos=True)
+    n_tok = 32 * len(prompts)
+
+    # the synchronous reference: the same requests, all at t=0
+    eng = Engine(cfg, model, ServeConfig(**base))
+    reqs = [eng.submit(p, greedy) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in eng.stream():
+        pass
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    want = [list(r.output_tokens) for r in reqs]
+    sync_st = eng.stats()
+    del eng
+
+    print("  9b: front end + async loop + supervisor + tracer + journal",
+          flush=True)
+    counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+    with tempfile.TemporaryDirectory(dir=out_dir) as jdir:
+        scfg = ServeConfig(**base, journal_dir=jdir)
+        for c in counters:
+            c.reset()
+        got, wall, eng = _serve_tcp(cfg, model, scfg, prompts, trace=True)
+        launches = {c.name: c.count for c in counters}
+        jstate = load_state(jdir)
+    if got != want:
+        first = [(i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+                 for i, (x, y) in enumerate(zip(got, want)) if x != y]
+        fail(f"the async loop's tokens differ from the synchronous engine's "
+             f"(request, first token): {first}")
+    st = eng.stats()
+    if st.steps_overlapped < 1:
+        fail("the async loop overlapped no step (steps_overlapped == 0)")
+    doc = eng.tracer.export(str(out_dir / "serve_async_trace.json"))
+    validate_trace(doc)
+    counts = doc["otherData"]["counts"]
+    if (counts["request"], counts["step"], counts["prefill_chunk"]) != (
+            st.requests_submitted, st.steps_committed, st.prefill_chunks):
+        fail(f"trace counts {counts} disagree with the engine's stats "
+             f"({st.requests_submitted} requests, {st.steps_committed} steps, "
+             f"{st.prefill_chunks} chunks)")
+    live = [e["uid"] for e in jstate.reqs.values() if not e["done"]]
+    if live or not jstate.clean_shutdown or len(jstate.reqs) != len(prompts):
+        fail(f"journal after drain: live {live}, clean shutdown "
+             f"{jstate.clean_shutdown}, {len(jstate.reqs)} requests")
+    # every step runs each packed projection once and one attention kernel
+    # (decode or chunk) a layer: 9b's launches per step, which must divide
+    # evenly, hold for the launcher's run too
+    attn = ("paged_attention_decode", "paged_prefill_chunk")
+    per_step = launches["w2a8_gemv"] // st.steps_committed
+    for path, got_l, steps in (("9a", cli_launches, cli_steps),
+                               ("9b", launches, st.steps_committed)):
+        for name, n in got_l.items():
+            if n < 1:
+                fail(f"{path}: kernel {name} was never launched")
+        if (got_l["w2a8_gemv"] != per_step * steps
+                or sum(got_l[a] for a in attn) != cfg.n_layers * steps):
+            fail(f"{path}: launches {got_l} over {steps} steps; want "
+                 f"w2a8_gemv = {per_step} x steps and the attention kernels "
+                 f"{cfg.n_layers} x steps")
+    print(f"    the launcher's run (9a): launches {cli_launches} in "
+          f"{cli_steps} steps", flush=True)
+    print(f"    tokens identical to the synchronous engine ({len(prompts)} "
+          f"requests x 32); steps {st.steps_committed}, overlapped "
+          f"{st.steps_overlapped}; trace {counts}; journal {len(jstate.reqs)} "
+          f"requests terminal, clean shutdown; launches {launches}", flush=True)
+    print(f"    async loop: {n_tok / wall:.1f} tok/s ({wall:.2f} s), "
+          f"{_gap(st)}; synchronous loop: {n_tok / sync_wall:.1f} tok/s "
+          f"({sync_wall:.2f} s), {sync_st.steps_committed} steps, "
+          f"{_gap(sync_st)}", flush=True)
+    summary = dict(async_tok_per_s=n_tok / wall, async_wall_s=wall,
+                   sync_tok_per_s=n_tok / sync_wall, sync_wall_s=sync_wall,
+                   async_step_gap_ms=st.step_gap_ms,
+                   sync_step_gap_ms=sync_st.step_gap_ms,
+                   steps=st.steps_committed, steps_overlapped=st.steps_overlapped,
+                   ttft_ms=st.ttft_ms, launches=launches,
+                   cli_launches=cli_launches, cli_steps=cli_steps)
+    del eng
+    summary["profile"] = _profile_async(cfg, model, ServeConfig(**base),
+                                        prompts, out_dir)
+
+    print("  9c: the sync of step N waits on step N's event alone", flush=True)
+    summary["sync_proof"] = _sync_proof(cfg, model, ServeConfig(**base),
+                                        prompts)
+
+    print("  9d: one transient fault at each of plan, launch, commit",
+          flush=True)
+    plan = FaultPlan([Fault("plan", "raise", at=1),
+                      Fault("launch", "raise", at=3),
+                      Fault("commit", "raise", at=5)])
+    got, _, eng = _serve_tcp(cfg, model, ServeConfig(**base), prompts, plan=plan)
+    st = eng.stats()
+    if plan.unfired() or got != want or st.step_retries != 3:
+        fail(f"under transient faults: unfired {plan.unfired()}, tokens "
+             f"{'equal' if got == want else 'differ'}, retries "
+             f"{st.step_retries}")
+    print(f"    tokens identical, step_retries {st.step_retries}, failures "
+          f"{st.step_failures}, restarts {st.engine_restarts}", flush=True)
+    del eng
+
+    print("  9e: one bit flipped in a resident bf16 KV block", flush=True)
+    summary["kv_corruption"] = _kv_corruption(cfg, model, base, prompts, want)
+    (out_dir / "smoke_serve_entry.json").write_text(json.dumps(summary, indent=1))
+    del model
+    torch.cuda.empty_cache()
+    return cli_launches, launches
+
+
+def _profile_async(cfg, model, scfg, prompts, out_dir):
+    """The device idle share of the async loop: four of the prompts served
+    through the front end twice, once timed and once under
+    ``torch.profiler`` (idle = 1 - busy / the unprofiled wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    four = [prompts[2], prompts[3], prompts[6], prompts[8]]
+    _, wall, _ = _serve_tcp(cfg, model, scfg, four)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, eng = _serve_tcp(cfg, model, scfg, four)
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    wall_ms = wall * 1e3
+    if busy == 0:
+        print("    profile: the trace holds no device time (not measured)",
+              flush=True)
+        return None
+    print(f"    profile (4 requests x 32 through the front end): wall "
+          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / wall_ms:.1%}, {eng.stats().steps_committed} steps",
+          flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms)
+
+
+def _sync_proof(cfg, model, scfg, prompts):
+    """Launch decode step N, queue a ~0.2 s device spin, then read N's
+    tokens on a second thread (as the async loop's executor does) while
+    this thread launches step N+1 speculatively on N's device tokens.  The
+    read must return before the spin ends (an event recorded after the spin
+    still pending, so N+1, queued behind it, has not run) and take less
+    than the spin.  A sync of the whole stream (``.cpu()``) would wait for
+    the spin.  The read runs beside the launch because a full-width step's
+    ~1,000 launches fill the CUDA launch queue behind the spin: a launch
+    made first would block until the spin drained."""
+    import threading
+    import torch
+    from repro_torch.serving import Engine, SamplingParams
+    eng = Engine(cfg, model, scfg)
+    for p in prompts[:8]:
+        eng.submit(p[:24], SamplingParams(max_tokens=32, ignore_eos=True))
+    while any(eng.sched.pending[s] for s in eng.sched.active_slots()) \
+            or eng.sched.waiting:
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    s0 = torch.cuda.Event(enable_timing=True)
+    s1 = torch.cuda.Event(enable_timing=True)
+    step_n = eng.launch_step(eng.plan_step())
+    s0.record()
+    torch.cuda._sleep(SYNC_PROOF_SPIN_CYCLES)
+    s1.record()
+    seen = {}
+
+    def read():
+        t0 = time.perf_counter()
+        seen["tok"] = eng.sync_tokens(step_n)
+        seen["spin_done"] = s1.query()
+        seen["wait_ms"] = (time.perf_counter() - t0) * 1e3
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    spec = eng.plan_spec(step_n)
+    if spec is None:
+        fail("plan_spec declined a pure-decode step")
+    step_n1 = eng.launch_step(spec, feed=step_n)
+    reader.join()
+    eng.commit_step(step_n, seen["tok"])
+    eng.commit_step(step_n1)
+    torch.cuda.synchronize()
+    spin_ms = s0.elapsed_time(s1)
+    print(f"    N's tokens read in {seen['wait_ms']:.3f} ms, the {spin_ms:.1f} ms "
+          f"spin ahead of N+1 {'done' if seen['spin_done'] else 'still running'}",
+          flush=True)
+    if seen["spin_done"] or seen["wait_ms"] >= spin_ms:
+        fail(f"the sync of step N waited {seen['wait_ms']:.2f} ms (spin "
+             f"{spin_ms:.2f} ms, spin done: {seen['spin_done']})")
+    return dict(wait_ms=seen["wait_ms"], spin_ms=spin_ms)
+
+
+def _kv_corruption(cfg, model, base, prompts, want):
+    """9e: the sanitizer with KV checksums; at the third step boundary with
+    a checksummed block resident, one bit of one resident bf16 block is
+    flipped through the ``device_mem`` site; ``check_kv_integrity`` must
+    find exactly that block, its readers are recompute-preempted, and the
+    greedy tokens must equal 9b's."""
+    from repro_torch.serving import Engine, SamplingParams, ServeConfig
+    from repro_torch.serving.faults import Fault, FaultPlan
+    plan = FaultPlan([Fault("device_mem", "bitflip", at=2)], seed=7)
+    eng = Engine(cfg, model, ServeConfig(**base, sanitize=True,
+                                         kv_checksums=True))
+    reqs = [eng.submit(p, SamplingParams(max_tokens=32, ignore_eos=True))
+            for p in prompts]
+    victims, found, preempted = [], [], []
+    while eng.has_pending():
+        eng.step()
+        v = plan.device_mem_hook(eng)
+        if v is not None:
+            victims.append(v)
+            bad = eng.check_kv_integrity()
+            found.extend(bad)
+            preempted.extend(eng.recover_corrupt_blocks(bad))
+    got = [list(r.output_tokens) for r in reqs]
+    if victims != found or len(victims) != 1 or not preempted:
+        fail(f"KV corruption: flipped {victims}, found {found}, preempted "
+             f"{preempted}")
+    if eng.check_kv_integrity():
+        fail("KV blocks still corrupt after recovery")
+    if got != want:
+        first = [(i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+                 for i, (x, y) in enumerate(zip(got, want)) if x != y]
+        fail(f"greedy tokens after KV recovery differ (request, first "
+             f"token): {first}")
+    st = eng.stats()
+    print(f"    block {victims[0]} flipped, found by check_kv_integrity, "
+          f"{len(preempted)} reader(s) preempted and recomputed; tokens "
+          f"identical; kv_corruptions {st.kv_corruptions}, preemptions "
+          f"{st.preemptions}", flush=True)
+    return dict(block=victims[0], preempted=preempted,
+                preemptions=st.preemptions)
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -1556,7 +1953,7 @@ def main() -> None:
     card = card_info()
     print(f"card: {card}", flush=True)
     from repro_torch.kernels import build
-    info = build.build(verbose=True)
+    info = build.build()
     print(f"build: {info.seconds:.1f} s -> {info.path}", flush=True)
     out_dir = ROOT / "smoke_out"
     out_dir.mkdir(exist_ok=True)
@@ -1610,6 +2007,12 @@ def main() -> None:
     # 8. the SSD kernel vs the sequential oracle through a full-width block
     print("phase 8: on-card parity, Mamba2Block kernel vs sequential", flush=True)
     mamba_block_parity(dev)
+    # 9. serving through the entry point, the serving kernels' counters reset
+    # just before the in-process run through the front end and async loop
+    print("phase 9: serving through the entry point, qwen3-0.6b full width",
+          flush=True)
+    (by_path["serve entry point qwen3-0.6b"],
+     by_path["serve async stack qwen3-0.6b"]) = serve_entry_point(dev, out_dir)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

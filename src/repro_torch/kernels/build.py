@@ -25,8 +25,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _REPO = Path(__file__).resolve().parents[3]
+# ptxas statistics (-Xptxas -v) are always on: they change only the log, and
+# one flag set gives one build directory for every process of a checkout
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
@@ -66,7 +68,7 @@ class LaunchCounter:
 class BuildInfo:
     path: Path
     seconds: float          # 0.0 when the library was already built
-    log: str                # compiler output (ptxas statistics with verbose)
+    log: str                # compiler output, with ptxas statistics
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -94,16 +96,20 @@ def _build_dir(flags) -> Path:
     return root / h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> BuildInfo:
+def build() -> BuildInfo:
     """Compile (if needed) and load the kernel library; returns where it is,
-    how long the build took and the compiler's output."""
+    how long the build took (0 when it was built already) and the
+    compiler's output (kept beside the library)."""
     global _lib, _info
     if _lib is not None:
         return _info
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    flags = NVCC_FLAGS
     out_dir = _build_dir(flags)
     so = out_dir / "librepro_torch_kernels.so"
+    log_file = out_dir / "nvcc.log"
     log, seconds = "", 0.0
+    if so.exists() and log_file.exists():
+        log = log_file.read_text()
     if not so.exists():
         t0 = time.perf_counter()
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -130,6 +136,7 @@ def build(verbose: bool = False) -> BuildInfo:
         log += link.stdout
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{log}")
+        log_file.write_text(log)
         os.replace(tmp / so.name, so)
         shutil.rmtree(tmp, ignore_errors=True)
         seconds = time.perf_counter() - t0

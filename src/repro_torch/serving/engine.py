@@ -15,16 +15,28 @@ baseline.  The radix prefix cache, recompute preemption on pool exhaustion
 and cancellation / deadlines behave as in the JAX engine, whose host modules
 (scheduler, allocator, prefix cache) are copied unchanged.
 
+The step is split plan -> launch -> commit as in the JAX engine, and the
+rest of it comes along: speculative ``plan_spec`` (step N+1 launched on
+step N's device tokens), ``plan_stale`` / ``quarantine`` / ``shed_queued``
+for the supervisor, the fault hook at the plan, launch and commit seams,
+the block-pool sanitizer with KV checksums (``analysis/shadow.py``), the
+write-ahead journal, the tracer, the flight recorder and the metrics
+registry.
+
 The jitted step impls of the JAX engine are eager methods here, and the
 cache is a per-layer list of pools updated in place.  Per-request sampling
-streams are ``torch.Generator``s (serving/sampling.py).  Not ported in this
-slice: the contiguous cache (``paged=False``), speculative ``plan_spec``,
-the sanitizer and KV checksums, the journal, tracer / flight recorder /
-fault hook, the metrics registry, ``shed_queued`` and ``quarantine``.
+streams are ``torch.Generator``s (serving/sampling.py), each advanced at
+launch as the JAX engine advances its keys.  Host arrays reach the card
+through pinned memory with ``non_blocking`` copies, so a launch never waits
+for the device; each launch then copies its sampled tokens into a pinned
+host buffer of its own and records a CUDA event after the copy, and the
+step's one sync (:meth:`Engine.sync_tokens`) waits on that event alone.
+Not ported: the contiguous cache (``paged=False``, ROADMAP Queue A 21b).
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,7 +52,7 @@ from repro_torch.serving.paged import BlockAllocator
 from repro_torch.serving.prefix_cache import RadixPrefixCache
 from repro_torch.serving.sampling import guard_nonfinite, sample_batch
 from repro_torch.serving.scheduler import Scheduler, bucket_length
-from repro_torch.serving.telemetry import Clock, Histogram
+from repro_torch.serving.telemetry import Clock, Histogram, MetricsRegistry
 
 
 @dataclasses.dataclass
@@ -69,6 +81,14 @@ class ServeConfig:
     # radix prefix cache over the paged pool (serving/prefix_cache.py)
     prefix_cache: bool = False
     prefix_cache_blocks: Optional[int] = None
+    # block-pool sanitizer (analysis/shadow.py): every block transition and
+    # each step's KV write-set checked; O(pool) host work per step
+    sanitize: bool = False
+    # with sanitize: a crc per written KV block, swept by
+    # Engine.check_kv_integrity() (reads the pools back to the host)
+    kv_checksums: bool = False
+    # write-ahead request journal (serving/journal.py); None = off
+    journal_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.prefill_bucket_min < 1:
@@ -97,6 +117,10 @@ class ServeConfig:
             raise ValueError(
                 f"prefill_budget={self.prefill_budget} must be >= 1 or None "
                 "(a zero budget would stall every prefill forever)")
+        if self.kv_checksums and not self.sanitize:
+            raise ValueError(
+                "kv_checksums=True stores block digests in the sanitizer "
+                "shadow pool; it requires ServeConfig(sanitize=True)")
 
     @property
     def blocks_per_slot(self) -> int:
@@ -132,15 +156,22 @@ class StepPlan:
     chunks: Dict[int, int]
     stalled: List[int]
     positions: np.ndarray
+    spec: bool = False             # speculative: fed the previous step's tokens
 
 
 @dataclasses.dataclass
 class InflightStep:
     """A launched, uncommitted step: its plan, the device tensor of sampled
-    tokens (``None`` when no slot was active) and when the launch returned."""
+    tokens (``None`` when no slot was active), when the launch returned, and
+    the sanitizer's write-set captured at launch.  On the card ``host`` is
+    the pinned buffer the tokens are copied into at launch and ``ready``
+    the event recorded after that copy; on the CPU both are ``None``."""
     plan: StepPlan
     tok: Optional[torch.Tensor]
     launched_at: float = 0.0
+    write_blocks: Optional[List[int]] = None
+    host: Optional[torch.Tensor] = None
+    ready: Optional["torch.cuda.Event"] = None
 
 
 class Engine:
@@ -156,7 +187,9 @@ class Engine:
         if any(s.mixer != "attn" for s in cfg.resolved_pattern()):
             raise ValueError(
                 f"config {cfg.name!r}: the paged engine serves attention-only "
-                "stacks; the contiguous cache is not ported yet")
+                "stacks; the contiguous cache is not ported yet (ROADMAP "
+                "Queue A 21b)")
+        self.paged = True
         self.cfg, self.model = cfg, model
         self.device = model.vocab_mask.device
         impl = self.scfg.attn_impl
@@ -178,6 +211,25 @@ class Engine:
                                prefix_cache=self.prefix_cache,
                                prefill_chunk=self.scfg.prefill_chunk,
                                prefill_budget=self.scfg.prefill_budget)
+        # block-pool shadow (analysis/shadow.py): the allocator reports each
+        # refcount transition, the scheduler and prefix cache say what each
+        # reference means, launch and commit check write-sets and the mirror
+        self.shadow = None
+        if self.scfg.sanitize:
+            from repro_torch.analysis.shadow import ShadowBlockPool
+            self.shadow = ShadowBlockPool(self.allocator.num_blocks,
+                                          self.allocator.block_size,
+                                          checksums=self.scfg.kv_checksums)
+            self.allocator.observer = self.shadow
+            self.sched.shadow = self.shadow
+            if self.prefix_cache is not None:
+                self.prefix_cache.shadow = self.shadow
+        # write-ahead request journal: accepted submits and committed tokens
+        # are durable before they are observable (serving/recovery.py)
+        self.journal = None
+        if self.scfg.journal_dir:
+            from repro_torch.serving.journal import Journal
+            self.journal = Journal(self.scfg.journal_dir)
         self._prefill_positions = 0
         self._prefill_skipped = 0
         self._prefill_chunks = 0
@@ -187,19 +239,142 @@ class Engine:
         self._ttft_ms = Histogram()
         self._queue_wait_ms = Histogram()
         self._e2e_ms = Histogram()
+        # a step launched before the previous sync counts as overlapped,
+        # gap 0 by construction
         self._step_gap_ms = Histogram()
         self._last_sync: Optional[float] = None
         self._requests_submitted = 0
         self._steps_committed = 0
+        self._steps_overlapped = 0
         self._tokens_generated = 0
         self._cancellations = 0
         self._deadline_expirations = 0
+        # robustness counters (bumped here and by the supervisor) and the
+        # fault-injection hook (serving/faults.py FaultPlan.engine_hook),
+        # called at the plan / launch / commit seams before any mutation
+        self.fault_hook = None
+        self._step_failures = 0
+        self._step_retries = 0
+        self._quarantines = 0
+        self._engine_restarts = 0
+        self._load_sheds = 0
+        self._hung_steps = 0
+        self._degrade_tier = 0
+        self._kv_corruptions = 0
+        self._recovery_ms = Histogram()
+        # opt-in telemetry sinks: a serving/tracing.Tracer and the
+        # supervisor's telemetry.FlightRecorder
+        self.tracer = None
+        self.recorder = None
         # live decode state, allocated on first admission; idle rows hold
         # pad_id so their (discarded) compute never reads a dead request
         self._cache: Optional[List[Dict[str, torch.Tensor]]] = None
         self._tokens = np.full((self.scfg.max_batch,), self.scfg.pad_id,
                                np.int32)
         self._gens: List[Optional[torch.Generator]] = [None] * self.scfg.max_batch
+        # pinned host buffers for the sampled tokens, one per step in flight
+        # (at most two: the async loop launches step N+1 before syncing N)
+        self._host_tok: List[torch.Tensor] = []
+        self._host_next = 0
+        self._build_metrics()
+
+    def _build_metrics(self) -> None:
+        """(Re)build the metrics registry over the engine's live state (the
+        JAX engine's catalog, name for name).  Histograms are registered as
+        objects, counters through render-time callbacks; the supervisor
+        calls this again after moving the histograms to a restarted
+        engine."""
+        reg = MetricsRegistry()
+        for name, hist, help_ in (
+            ("serving_ttft_ms", self._ttft_ms,
+             "submit -> first token latency (EngineStats.ttft_ms)"),
+            ("serving_queue_wait_ms", self._queue_wait_ms,
+             "submit -> admission wait (EngineStats.queue_wait_ms)"),
+            ("serving_e2e_latency_ms", self._e2e_ms,
+             "submit -> finish latency (EngineStats.e2e_latency_ms)"),
+            ("serving_step_gap_ms", self._step_gap_ms,
+             "device sync -> next dispatch gap (EngineStats.step_gap_ms)"),
+            ("serving_recovery_ms", self._recovery_ms,
+             "failure -> healthy commit (EngineStats.recovery_ms)"),
+        ):
+            reg.register(name, hist, help_)
+        for name, kind, fn, help_ in (
+            ("serving_requests_submitted_total", "counter",
+             lambda: self._requests_submitted,
+             "requests accepted by submit_request "
+             "(EngineStats.requests_submitted)"),
+            ("serving_admissions_total", "counter",
+             lambda: self.sched.admissions,
+             "requests admitted to slots (EngineStats.admissions)"),
+            ("serving_preemptions_total", "counter",
+             lambda: self.sched.preemptions,
+             "slots preempted for recompute (EngineStats.preemptions)"),
+            ("serving_steps_committed_total", "counter",
+             lambda: self._steps_committed,
+             "fused steps committed (EngineStats.steps_committed)"),
+            ("serving_steps_overlapped_total", "counter",
+             lambda: self._steps_overlapped,
+             "steps launched before the previous sync "
+             "(EngineStats.steps_overlapped)"),
+            ("serving_tokens_generated_total", "counter",
+             lambda: self._tokens_generated,
+             "tokens emitted to requests (EngineStats.tokens_generated)"),
+            ("serving_prefill_positions_total", "counter",
+             lambda: self._prefill_positions,
+             "prompt positions run through chunk steps "
+             "(EngineStats.prefill_positions)"),
+            ("serving_prefill_positions_skipped_total", "counter",
+             lambda: self._prefill_skipped,
+             "prompt positions covered by shared prefix blocks "
+             "(EngineStats.prefill_positions_skipped)"),
+            ("serving_prefill_chunks_total", "counter",
+             lambda: self._prefill_chunks,
+             "prefill chunks advanced (EngineStats.prefill_chunks)"),
+            ("serving_cancellations_total", "counter",
+             lambda: self._cancellations,
+             "client cancellations (EngineStats.cancellations)"),
+            ("serving_deadline_expirations_total", "counter",
+             lambda: self._deadline_expirations,
+             "requests finished by deadline "
+             "(EngineStats.deadline_expirations)"),
+            ("serving_step_failures_total", "counter",
+             lambda: self._step_failures,
+             "step failures observed (EngineStats.step_failures)"),
+            ("serving_step_retries_total", "counter",
+             lambda: self._step_retries,
+             "step retries attempted (EngineStats.step_retries)"),
+            ("serving_quarantines_total", "counter",
+             lambda: self._quarantines,
+             "requests quarantined with FinishReason.ERROR "
+             "(EngineStats.quarantines)"),
+            ("serving_engine_restarts_total", "counter",
+             lambda: self._engine_restarts,
+             "supervisor snapshot-restores (EngineStats.engine_restarts)"),
+            ("serving_load_sheds_total", "counter",
+             lambda: self._load_sheds,
+             "queued requests shed under pressure "
+             "(EngineStats.load_sheds)"),
+            ("serving_hung_steps_total", "counter",
+             lambda: self._hung_steps,
+             "watchdog-flagged slow commits (EngineStats.hung_steps)"),
+            ("serving_queue_depth", "gauge",
+             lambda: len(self.sched.waiting),
+             "requests waiting for a slot (EngineStats.queue_depth)"),
+            ("serving_active_slots", "gauge",
+             lambda: len(self.sched.active_slots()),
+             "slots currently decoding or prefilling"),
+            ("serving_degrade_tier", "gauge",
+             lambda: self._degrade_tier,
+             "graceful-degradation tier (EngineStats.degrade_tier)"),
+            ("serving_kv_blocks_free", "gauge",
+             lambda: self.allocator.available(),
+             "allocatable KV blocks (EngineStats.blocks_free)"),
+            ("serving_kv_blocks_in_use", "gauge",
+             lambda: self.allocator.blocks_in_use(),
+             "referenced KV blocks (EngineStats.blocks_in_use)"),
+        ):
+            reg.register_callback(name, kind, fn, help_)
+        self.metrics = reg
 
     # -- step cores (the JAX engine's jitted impls) ------------------------------
 
@@ -281,9 +456,16 @@ class Engine:
                 f"uid {req.uid} already belongs to an in-flight request; "
                 "reusing it would orphan that request's callback and finish "
                 "bookkeeping")
+        now = self.clock.now()
         self._requests[req.uid] = req
-        self._submit_ts[req.uid] = self.clock.now()
+        self._submit_ts[req.uid] = now
         self._requests_submitted += 1
+        if self.tracer is not None:
+            # idempotent per uid: supervisor restarts re-submit requests
+            self.tracer.request_submit(req.uid, now)
+        if self.journal is not None:
+            # durable before the caller sees the uid
+            self.journal.log_submit(req, now_mono=now)
         self.sched.submit(req)
         return req
 
@@ -302,6 +484,10 @@ class Engine:
         """Host-only planning: sweep deadlines, admit (sampling streams
         seeded, prefix skips counted, queue wait recorded), plan chunks
         (which may preempt starved slots) and snapshot the active slots."""
+        t_plan = self.clock.now()
+        if self.fault_hook is not None:
+            # before any side effect: a plan fault leaves the scheduler as is
+            self.fault_hook("plan", {})
         events = self.expire_deadlines()
         admitted, rejected = self.sched.admit()
         self._finalize_outputs(rejected)
@@ -309,50 +495,154 @@ class Engine:
         if admitted:
             self._ensure_state()
             now = self.clock.now()
+            if self.journal is not None:
+                for _, req in admitted:
+                    self.journal.log_admit(req.uid)
             for slot, req in admitted:
                 self._gens[slot] = self._request_generator(req)
                 self._prefill_skipped += int(self.sched.prefix_lens[slot])
                 t0 = self._submit_ts.get(req.uid)
                 if t0 is not None:
                     self._queue_wait_ms.observe((now - t0) * 1e3)
+                if self.tracer is not None:
+                    self.tracer.request_admitted(req.uid, now)
         chunks = self.sched.next_chunks()
         active = self.sched.active_slots()
         stalled = [s for s in active
                    if self.sched.pending[s] and s not in chunks]
         owners = {s: self.sched.slots[s].uid for s in active}
+        if self.tracer is not None:
+            self.tracer.plan_span(t_plan, self.clock.now(),
+                                  self._steps_committed, len(active),
+                                  len(chunks))
         return StepPlan(events=events, active=active, owners=owners,
                         chunks=chunks, stalled=stalled,
                         positions=self.sched.positions.astype(np.int32,
                                                               copy=True))
 
-    def launch_step(self, plan: StepPlan) -> InflightStep:
-        """Run the planned step without syncing its sampled tokens."""
+    def plan_spec(self, inflight: InflightStep) -> Optional[StepPlan]:
+        """Plan step N+1 while step N (``inflight``) is still on the device,
+        or return None when only a post-commit plan is safe: the in-flight
+        step must be pure decode, every slot must provably survive its
+        commit (same owners, no max_tokens or capacity finish, the next
+        position's block allocatable), and no admission may be possible.
+        An EOS finish is allowed: its speculative row is discarded at commit
+        by the owner check."""
+        t_plan = self.clock.now()
+        plan = inflight.plan
+        if inflight.tok is None or plan.chunks or plan.stalled:
+            return None
+        sc = self.sched
+        active = sc.active_slots()
+        if not active or active != plan.active:
+            return None
+        if sc.waiting and any(r is None for r in sc.slots):
+            return None                # admission possible: plan it for real
+        for slot in active:
+            req = sc.slots[slot]
+            if req is None or req.uid != plan.owners.get(slot):
+                return None
+            if req.num_generated + 1 >= req.params.max_tokens:
+                return None
+            if int(sc.positions[slot]) + 1 > sc.max_len - 1:
+                return None
+            if not sc.pregrow_decode(slot):
+                return None            # pool starved: let commit preempt
+        positions = sc.positions.astype(np.int32, copy=True)
+        for slot in active:
+            positions[slot] += 1       # where step N+1 writes, post-commit-N
+        if self.tracer is not None:
+            self.tracer.plan_span(t_plan, self.clock.now(),
+                                  self._steps_committed, len(active), 0,
+                                  spec=True)
+        return StepPlan(events=[], active=list(active), owners=dict(plan.owners),
+                        chunks={}, stalled=[], positions=positions, spec=True)
+
+    def launch_step(self, plan: StepPlan,
+                    feed: Optional[InflightStep] = None) -> InflightStep:
+        """Run the planned step without waiting for the device.  A
+        speculative plan feeds ``feed.tok``, the previous step's tokens on
+        the device, instead of the host copy ``self._tokens``."""
+        t_launch = self.clock.now()
         if not plan.active:
-            return InflightStep(plan=plan, tok=None,
-                                launched_at=self.clock.now())
+            return InflightStep(plan=plan, tok=None, launched_at=t_launch)
+        if self.fault_hook is not None:
+            # before dispatch: the same plan relaunches verbatim
+            self.fault_hook("launch", {"plan": plan})
         self._ensure_state()
+        write_blocks = None
+        if self.shadow is not None:
+            write_blocks = self._sanitize_writes(plan)
         with torch.no_grad():
             if plan.chunks or plan.stalled:
                 tok = self._launch_chunk(plan)
             else:
-                tok = self._launch_decode(plan)
-        return InflightStep(plan=plan, tok=tok, launched_at=self.clock.now())
+                tok = self._launch_decode(plan, feed)
+        host, ready = self._stage_tokens(tok)
+        launched_at = self.clock.now()
+        if self.tracer is not None:
+            self.tracer.launch_span(t_launch, launched_at,
+                                    self._steps_committed, plan.spec)
+        return InflightStep(plan=plan, tok=tok, launched_at=launched_at,
+                            write_blocks=write_blocks, host=host, ready=ready)
 
-    def commit_step(self, inflight: InflightStep) -> List[StepOutput]:
-        """Sync the step's tokens (the step's one device sync) and apply
-        them: ``advance_prefill`` for chunked slots, ``record`` for every slot
-        that produced a token.  Rows whose slot changed owner since the plan
-        are discarded; budget-stalled rows are skipped."""
+    def _stage_tokens(self, tok: torch.Tensor):
+        """On the card: copy the sampled tokens into the next pinned host
+        buffer (``non_blocking``) and record an event after the copy, so
+        the sync waits for this step alone and not for whatever is queued
+        behind it.  Two buffers suffice: a buffer is reused two launches
+        later, and the loop syncs a step before launching the one after its
+        successor."""
+        if tok.device.type != "cuda":
+            return None, None
+        if not self._host_tok:
+            self._host_tok = [torch.empty(tok.shape, dtype=tok.dtype,
+                                          pin_memory=True) for _ in range(2)]
+        host = self._host_tok[self._host_next]
+        self._host_next ^= 1
+        host.copy_(tok, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    @staticmethod
+    def sync_tokens(inflight: InflightStep) -> np.ndarray:
+        """The step's one device sync: wait on the event recorded after the
+        step's token copy (``Event.synchronize`` releases the GIL) and read
+        the pinned buffer.  On the CPU the tokens are host memory already.
+        The async loop runs this on an executor thread."""
+        if inflight.ready is not None:
+            inflight.ready.synchronize()
+            return inflight.host.numpy().copy()
+        return inflight.tok.numpy().copy()
+
+    def commit_step(self, inflight: InflightStep,
+                    tok_np: Optional[np.ndarray] = None) -> List[StepOutput]:
+        """Sync the step's tokens (unless the caller passes ``tok_np``,
+        synced off-thread) and apply them: ``advance_prefill`` for chunked
+        slots, ``record`` for every slot that produced a token.  Rows whose
+        slot changed owner since the plan are discarded; budget-stalled rows
+        are skipped."""
         plan = inflight.plan
         sc = self.sched
         outs: List[StepOutput] = []
         if inflight.tok is not None:
-            tok_np = inflight.tok.cpu().numpy()
+            if tok_np is None:
+                tok_np = self.sync_tokens(inflight)
+            if self.fault_hook is not None:
+                # after the sync, before validation or any mutation; may
+                # raise or replace token rows (read back from ctx)
+                ctx = {"plan": plan, "tok": tok_np}
+                self.fault_hook("commit", ctx)
+                tok_np = ctx["tok"]
             self._validate_tokens(plan, tok_np)
             now = self.clock.now()
+            step_id = self._steps_committed
             self._steps_committed += 1
             if self._last_sync is not None:
                 gap = inflight.launched_at - self._last_sync
+                if gap <= 0.0:
+                    self._steps_overlapped += 1
                 self._step_gap_ms.observe(max(0.0, gap) * 1e3)
             self._last_sync = now
             for slot in plan.active:
@@ -369,10 +659,34 @@ class Engine:
                 outs.append(sc.record(slot, int(tok_np[slot])))
             self._prefill_positions += sum(plan.chunks.values())
             self._prefill_chunks += len(plan.chunks)
+            if (self.shadow is not None and self.shadow.checksums_enabled
+                    and inflight.write_blocks):
+                # digest every block this step wrote (blocks freed by this
+                # commit are skipped inside note_checksum)
+                for b, d in self._kv_block_digests(
+                        inflight.write_blocks).items():
+                    self.shadow.note_checksum(b, d)
+            if self.tracer is not None:
+                self.tracer.device_span(inflight.launched_at, now, step_id,
+                                        plan.spec)
+                for slot, n in plan.chunks.items():
+                    self.tracer.prefill_chunk(plan.owners.get(slot, -1),
+                                              inflight.launched_at, now, n)
+                self.tracer.commit_span(now, self.clock.now(), step_id,
+                                        len(outs), len(plan.chunks))
+            if self.recorder is not None:
+                self.recorder.record("commit", step=step_id,
+                                     active=len(plan.active),
+                                     chunks=len(plan.chunks),
+                                     outputs=len(outs), spec=plan.spec)
         # a slot freed this step decodes the pad token while idle
         for slot, req in enumerate(sc.slots):
             if req is None:
                 self._tokens[slot] = self.scfg.pad_id
+        if self.shadow is not None:
+            self.shadow.verify(self.allocator)
+            if not sc.has_work():
+                self.shadow.assert_drained()
         self._finalize_outputs(outs)
         return plan.events + outs
 
@@ -401,21 +715,99 @@ class Engine:
                 f"{bad_slots} (uids {bad_uids}); plan is safe to relaunch",
                 uids=bad_uids, slots=bad_slots)
 
+    def plan_stale(self, plan: StepPlan) -> bool:
+        """True when ``plan`` no longer matches the scheduler: a request it
+        covers was cancelled, expired or preempted since (its slot changed
+        owner, or its pending prompt is shorter than the planned chunk).  A
+        failed step's plan relaunches verbatim only while fresh."""
+        sc = self.sched
+        for slot in plan.active:
+            req = sc.slots[slot]
+            if req is None or req.uid != plan.owners.get(slot):
+                return True
+            n = plan.chunks.get(slot)
+            if n is not None and n > len(sc.pending[slot]):
+                return True
+        return False
+
+    def quarantine(self, uid: int) -> Optional[StepOutput]:
+        """Finish a repeatedly failing request with ``FinishReason.ERROR``,
+        keeping its tokens; the slot and blocks free as on a cancel."""
+        return self.cancel(uid, FinishReason.ERROR)
+
+    def shed_queued(self, keep: int) -> List[StepOutput]:
+        """Load shedding: drop waiting (not admitted) requests from the back
+        of the queue until ``keep`` remain, each finished with an
+        ``ABORTED`` marker.  Returns the finalized marker events."""
+        outs: List[StepOutput] = []
+        sc = self.sched
+        while len(sc.waiting) > max(0, keep):
+            req = sc.waiting.pop()
+            sc._arrival.pop(req.uid, None)
+            req.finish_reason = FinishReason.ABORTED
+            outs.append(StepOutput(uid=req.uid, token=-1,
+                                   index=req.num_generated, finished=True,
+                                   finish_reason=FinishReason.ABORTED))
+            self._load_sheds += 1
+        if outs and self.recorder is not None:
+            self.recorder.record("load_shed", count=len(outs),
+                                 kept=max(0, keep))
+        self._finalize_outputs(outs)
+        return outs
+
+    def _sanitize_writes(self, plan: StepPlan) -> List[int]:
+        """Check the step's KV write-set against the shadow pool before
+        launch (host block tables only): a chunked slot writes ``[start,
+        start + n)``, a decode or stalled row ``start``; each block must be
+        the trash block or owned by the slot alone.  Returns the physical
+        write-set without trash, for the ``kv_checksums`` commit."""
+        sc = self.sched
+        bs = self.allocator.block_size
+        width = sc.block_tables.shape[1]
+        written: List[int] = []
+        for slot in plan.active:
+            start = int(plan.positions[slot])
+            n = plan.chunks.get(slot, 1)
+            first = min(start // bs, width - 1)
+            last = min((start + n - 1) // bs, width - 1)
+            for lb in range(first, last + 1):
+                b = int(sc.block_tables[slot, lb])
+                self.shadow.check_write(slot, b)
+                if b != 0 and b not in written:       # 0 == TRASH_BLOCK
+                    written.append(b)
+        return written
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device.  On the card it goes through
+        pinned memory with a ``non_blocking`` copy: a plain ``.to()`` of
+        pageable memory waits for the stream, which would hold every launch
+        until the device caught up."""
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def _table(self, depth: int) -> torch.Tensor:
         """Block tables cut to the blocks covering ``depth`` positions
         (power-of-two widths, like the JAX engine's retrace buckets)."""
         sc = self.sched
         width = bucket_length(self.allocator.blocks_for(depth), 1,
                               sc.block_tables.shape[1])
-        bt = torch.from_numpy(np.ascontiguousarray(sc.block_tables[:, :width]))
-        return bt.to(self.device)
+        return self._to_device(sc.block_tables[:, :width])
 
-    def _launch_decode(self, plan: StepPlan) -> torch.Tensor:
-        """Pure-decode dispatch: one token per active slot."""
+    def _launch_decode(self, plan: StepPlan,
+                       feed: Optional[InflightStep] = None) -> torch.Tensor:
+        """Pure-decode dispatch: one token per active slot.  A speculative
+        plan takes ``feed.tok`` as it lies on the device (clamped at 0 so a
+        non-finite sentinel in a row the commit will reject cannot index the
+        embedding out of range)."""
         positions = plan.positions
         bt = self._table(int(positions[plan.active].max()) + 1)
-        toks = torch.from_numpy(self._tokens.copy()).to(self.device)
-        index = torch.from_numpy(positions.copy()).to(self.device)
+        if plan.spec and feed is not None:
+            toks = torch.clamp(feed.tok, min=0)
+        else:
+            toks = self._to_device(self._tokens)
+        index = self._to_device(positions)
         return self._decode_impl(toks, index, bt, plan.active)
 
     def _launch_chunk(self, plan: StepPlan) -> torch.Tensor:
@@ -449,12 +841,97 @@ class Engine:
                 draw.append(slot)
         depth = max(int(start[s]) + int(lens[s]) for s in plan.active)
         bt = self._table(depth)
-        dev = self.device
-        args = (torch.from_numpy(toks).to(dev), torch.from_numpy(start).to(dev),
-                torch.from_numpy(lens).to(dev), draw, bt)
+        args = (self._to_device(toks), self._to_device(start),
+                self._to_device(lens), draw, bt)
         if scfg.prefill_chunk > 0:
             return self._chunk_step_impl(*args)
         return self._chunk_scan_paged_impl(*args)
+
+    # -- device-memory integrity (ServeConfig.kv_checksums) --------------------
+
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        """Every layer's K and V pool [num_blocks, Hkv, bs, Dh], layers in
+        order, K before V: the fixed order of the block digests."""
+        self._ensure_state()
+        return [layer[k] for layer in self._cache for k in sorted(layer)]
+
+    def _kv_block_digests(self, blocks: Sequence[int]) -> Dict[int, int]:
+        """crc32 per requested pool block over every pool's rows of that
+        block, in :meth:`_pool_leaves` order.  The blocks are gathered on
+        the device and read back as bytes (bf16 has no numpy dtype): the
+        ``kv_checksums`` debug cost."""
+        leaves = self._pool_leaves()
+        idx = torch.tensor([int(b) for b in blocks], dtype=torch.long)
+        host = [leaf.index_select(0, idx.to(leaf.device)).contiguous()
+                .view(torch.uint8).cpu().numpy() for leaf in leaves]
+        out: Dict[int, int] = {}
+        for i, b in enumerate(blocks):
+            crc = 0
+            for h in host:
+                crc = zlib.crc32(h[i].tobytes(), crc)
+            out[int(b)] = crc
+        return out
+
+    def check_kv_integrity(self) -> List[int]:
+        """Recompute the digest of every resident checksummed block and
+        compare it with the one the shadow recorded at write time.  Returns
+        the corrupt block ids (empty without ``kv_checksums``); pass them
+        to :meth:`recover_corrupt_blocks`."""
+        if self.shadow is None or not self.shadow.checksums_enabled:
+            return []
+        blocks = self.shadow.checksummed()
+        if not blocks:
+            return []
+        bad = self.shadow.verify_checksums(self._kv_block_digests(blocks))
+        if bad:
+            self._kv_corruptions += len(bad)
+            if self.recorder is not None:
+                self.recorder.record("kv_corruption", blocks=len(bad))
+        return bad
+
+    def recover_corrupt_blocks(self, blocks: Sequence[int]) -> List[int]:
+        """Preempt every slot whose block table references a corrupt block
+        (owner or shared reader): recompute rebuilds its KV identically, so
+        greedy outputs keep parity.  Drops the prefix cache if a corrupt
+        block stays published.  Returns the preempted uids."""
+        bad = {int(b) for b in blocks}
+        if not bad:
+            return []
+        sc = self.sched
+        uids: List[int] = []
+        for slot in list(sc.active_slots()):
+            table = sc.block_tables[slot]
+            if any(int(table[i]) in bad for i in range(table.shape[0])):
+                req = sc.slots[slot]
+                uids.append(req.uid)
+                sc._preempt(slot)
+        if self.prefix_cache is not None and \
+                any(int(self.allocator.refcounts[b]) > 0 for b in bad):
+            # only trie holds can still reference a corrupt block now, and
+            # the trie has no per-block removal
+            self.prefix_cache.clear()
+        if self.recorder is not None:
+            self.recorder.record("kv_corruption_recovered",
+                                 blocks=len(bad), preempted=len(uids))
+        return uids
+
+    def corrupt_kv_block(self, block: int, seed: int = 0,
+                         mode: str = "garbage") -> None:
+        """Fault injection (faults.py ``device_mem`` site): overwrite one
+        pool block in place behind the allocator in every layer's K and V,
+        with seeded garbage (``mode='garbage'``) or one flipped bit
+        (``mode='bitflip'``)."""
+        rng = np.random.default_rng(seed)
+        with torch.no_grad():
+            for leaf in self._pool_leaves():
+                rows = leaf[block]
+                if mode == "bitflip":
+                    flat = rows.view(torch.uint8).reshape(-1)
+                    i = int(rng.integers(flat.numel()))
+                    flat[i:i + 1].bitwise_xor_(1 << int(rng.integers(8)))
+                else:
+                    new = rng.standard_normal(tuple(rows.shape))
+                    rows.copy_(torch.from_numpy(new).to(rows.dtype))
 
     # -- cancellation / deadlines ---------------------------------------------------
 
@@ -475,8 +952,12 @@ class Engine:
             return None
         if reason == FinishReason.DEADLINE:
             self._deadline_expirations += 1
+        elif reason == FinishReason.ERROR:
+            self._quarantines += 1
         else:
             self._cancellations += 1
+        if self.recorder is not None:
+            self.recorder.record("cancel", uid=uid, reason=reason.name)
         self._finalize_outputs([out])
         return out
 
@@ -497,6 +978,19 @@ class Engine:
         in-flight map cleanup."""
         if not outs:
             return
+        if self.journal is not None:
+            # write-ahead: durable before any callback delivers it
+            batch: Dict[int, List[int]] = {}
+            for out in outs:
+                if out.token >= 0:
+                    batch.setdefault(out.uid, []).append(out.token)
+            self.journal.log_tokens(batch)
+            for out in outs:
+                if out.finished:
+                    req = self._requests.get(out.uid)
+                    n = req.num_generated if req is not None else 0
+                    self.journal.log_terminal(out.uid, out.finish_reason, n)
+            self.journal.commit()
         now = self.clock.now()
         for out in outs:
             if out.token >= 0:
@@ -505,6 +999,8 @@ class Engine:
                     t0 = self._submit_ts.get(out.uid)
                     if t0 is not None:
                         self._ttft_ms.observe((now - t0) * 1e3)
+                    if self.tracer is not None:
+                        self.tracer.request_first_token(out.uid, now)
             req = self._requests.get(out.uid)
             if req is not None and req.on_token is not None:
                 req.on_token(out)
@@ -512,6 +1008,12 @@ class Engine:
                 t0 = self._submit_ts.pop(out.uid, None)
                 if t0 is not None:
                     self._e2e_ms.observe((now - t0) * 1e3)
+                if self.tracer is not None:
+                    # every terminal path funnels through here
+                    reason = (out.finish_reason.name.lower()
+                              if out.finish_reason is not None else "stop")
+                    tokens = req.num_generated if req is not None else 0
+                    self.tracer.request_finish(out.uid, now, reason, tokens)
                 self._requests.pop(out.uid, None)
 
     def stream(self) -> Iterator[StepOutput]:
@@ -572,8 +1074,9 @@ class Engine:
                 torch_dtype(self.scfg.cache_dtype), self.device)
 
     def stats(self) -> EngineStats:
-        """Snapshot of the counters this engine keeps (the robustness and
-        durability fields of :class:`EngineStats` stay at their defaults)."""
+        """Snapshot of the engine's counters, latency percentiles (``None``
+        until a series has a sample), block occupancy, and the prefix cache,
+        sanitizer, robustness and journal fields, as the JAX engine's."""
         alloc = self.allocator
 
         def pct(h: Histogram) -> Optional[Dict[str, float]]:
@@ -591,6 +1094,7 @@ class Engine:
             cancellations=self._cancellations,
             deadline_expirations=self._deadline_expirations,
             steps_committed=self._steps_committed,
+            steps_overlapped=self._steps_overlapped,
             ttft_ms=pct(self._ttft_ms),
             queue_wait_ms=pct(self._queue_wait_ms),
             e2e_latency_ms=pct(self._e2e_ms),
@@ -598,7 +1102,29 @@ class Engine:
             blocks_in_use=alloc.blocks_in_use(),
             blocks_free=alloc.available(),
             prefix_cache=(None if self.prefix_cache is None
-                          else self.prefix_cache.stats()))
+                          else self.prefix_cache.stats()),
+            sanitizer=(None if self.shadow is None
+                       else self.shadow.stats()),
+            step_failures=self._step_failures,
+            step_retries=self._step_retries,
+            quarantines=self._quarantines,
+            engine_restarts=self._engine_restarts,
+            load_sheds=self._load_sheds,
+            hung_steps=self._hung_steps,
+            degrade_tier=self._degrade_tier,
+            recovery_ms=pct(self._recovery_ms),
+            kv_corruptions=self._kv_corruptions,
+            journal_records=(None if self.journal is None
+                             else self.journal.appended),
+            journal_commits=(None if self.journal is None
+                             else self.journal.commits),
+            journal_replays=(None if self.journal is None
+                             else self.journal.state.recoveries))
+
+    def kv_cache_bytes(self) -> int:
+        """Resident bytes of the paged KV pools."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for leaf in self._pool_leaves())
 
     def _request_generator(self, req: GenerationRequest) -> torch.Generator:
         """The row's sampling stream, seeded as the JAX engine seeds its key

@@ -46,6 +46,15 @@ def top_p_probs(logits: torch.Tensor, temperature: torch.Tensor,
     return masked / masked.sum(dim=-1, keepdim=True)
 
 
+def _on(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host values on ``device``; on the card through pinned memory with a
+    ``non_blocking`` copy (a pageable copy would wait for the stream)."""
+    t = torch.tensor(values, dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def sample_batch(logits: torch.Tensor, temperature: Sequence[float],
                  top_p: Sequence[float],
                  gens: Sequence[Optional[torch.Generator]],
@@ -58,10 +67,10 @@ def sample_batch(logits: torch.Tensor, temperature: Sequence[float],
     rows = [r for r in draw if temperature[r] > 0.0]
     if not rows:
         return tok
-    idx = torch.tensor(rows, device=logits.device)
-    temps = torch.tensor([float(temperature[r]) for r in rows],
-                         device=logits.device)
-    tops = torch.tensor([float(top_p[r]) for r in rows], device=logits.device)
+    dev = logits.device
+    idx = _on(rows, torch.long, dev)
+    temps = _on([float(temperature[r]) for r in rows], torch.float32, dev)
+    tops = _on([float(top_p[r]) for r in rows], torch.float32, dev)
     probs = top_p_probs(logits[idx], temps, tops)
     for i, r in enumerate(rows):
         s = torch.multinomial(probs[i], 1, generator=gens[r])

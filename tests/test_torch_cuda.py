@@ -659,3 +659,65 @@ def test_kernels_raise_on_a_bad_operand(cuda):
     y, _ = ssd_kernel.ssd_scan_kernel(*big, chunk=256)
     torch.cuda.synchronize()
     assert bool((y == 0).all())
+
+
+# -- the serving engine's device boundary ---------------------------------------
+
+def _small_engine(cuda, **kw):
+    """A two-layer packed qwen3 on the card (head_dim 64, which the paged
+    kernels take), bf16 compute and cache, kernels on."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = get_config("qwen3-0.6b").reduced().replace(
+        head_dim=64, compute_dtype="bfloat16").with_quant(
+        Q.QuantConfig(mode="packed", use_kernel=True))
+    model = build_model(cfg, gen=torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    return Engine(cfg, model, ServeConfig(
+        max_batch=4, max_len=64, kv_block_size=16, prefill_chunk=8,
+        cache_dtype="bfloat16", **kw))
+
+
+def test_step_sync_waits_on_its_own_event(cuda):
+    """Step N's tokens are read while step N+1, launched speculatively on
+    N's device tokens, is still queued behind a ~0.1 s device spin."""
+    from repro_torch.serving import SamplingParams
+    eng = _small_engine(cuda)
+    for i in range(4):
+        eng.submit([3 + i, 5, 7, 11], SamplingParams(max_tokens=16,
+                                                     ignore_eos=True))
+    eng.step()
+    eng.step()
+    step_n = eng.launch_step(eng.plan_step())
+    assert not step_n.plan.chunks and step_n.ready is not None
+    torch.cuda._sleep(200_000_000)
+    step_n1 = eng.launch_step(eng.plan_spec(step_n), feed=step_n)
+    after = torch.cuda.Event()
+    after.record()
+    tok = eng.sync_tokens(step_n)
+    assert not after.query(), "the sync of step N waited for step N+1"
+    eng.commit_step(step_n, tok)
+    eng.commit_step(step_n1)
+    assert eng.stats().steps_committed == 4
+
+
+@pytest.mark.parametrize("mode", ["bitflip", "garbage"])
+def test_kv_block_digests_and_corruption_on_bf16_pools(cuda, mode):
+    """``corrupt_kv_block`` changes the one block it is given, in place on
+    the bf16 pools; ``_kv_block_digests`` sees exactly that block change,
+    and with ``kv_checksums`` ``check_kv_integrity`` reports it."""
+    from repro_torch.serving import SamplingParams
+    eng = _small_engine(cuda, sanitize=True, kv_checksums=True)
+    eng.submit(list(range(1, 30)), SamplingParams(max_tokens=4))
+    eng.step()
+    eng.step()
+    assert eng._cache[0]["k"].dtype == torch.bfloat16
+    blocks = eng.shadow.checksummed()
+    assert blocks
+    all_blocks = range(eng.allocator.num_blocks)
+    before = eng._kv_block_digests(all_blocks)
+    assert eng._kv_block_digests(all_blocks) == before
+    eng.corrupt_kv_block(blocks[0], seed=3, mode=mode)
+    after = eng._kv_block_digests(all_blocks)
+    assert [b for b in all_blocks if before[b] != after[b]] == [blocks[0]]
+    assert eng.check_kv_integrity() == [blocks[0]]
