@@ -60,6 +60,21 @@ result line):
      bit flipped in a resident bf16 KV block must leave the tokens as they
      were; the async loop's tok/s and step gap beside the synchronous
      loop's, and its device idle share from a profile;
+ 10. the training launcher and the rest of the training path: (a) ``python
+     -m repro_torch.launch.train`` at full width and depth (qwen3-0.6b, 6 CE
+     steps at 8 x 256) uninterrupted, then sent SIGTERM after its first
+     step lines (it must save and exit 0), then restarted in that
+     directory (it must resume and reach step 6): the resumed run's final
+     checkpoint held leaf by leaf to the uninterrupted run's, with the
+     checkpoint's size and the card's load, ``save_async`` stall and
+     synchronous save times (the free disk checked first); (b), at the end
+     of phase 5, its student saved through ``save_async``, loaded into a
+     fresh student (every leaf equal) and stepped beside the live one
+     (equal losses); (c) a distillation step under remat nothing, dots and
+     none on the kernel and the plain route (equal losses and gradients,
+     peak memory, step time); (d) the Table-4 weight schemes at the
+     full-width projection shapes on the card against the CPU, and a
+     blockwise CE step;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -1152,7 +1167,7 @@ def _student_from(teacher, cfg, use_kernel: bool, dev):
     return scfg, _copy_matching(teacher, build_model(scfg, device=dev))
 
 
-def train_full_width(dev, out_dir, name, layers, seq, expect, tag):
+def train_full_width(dev, out_dir, name, layers, seq, expect, tag, after=None):
     """Phases 5 and 7: ``name`` at full width and depth (``layers``), bf16
     compute with fp32 master weights and remat; an FP teacher from a seeded
     init (no teacher training: the path is what is checked), refine, 3 CE
@@ -1164,8 +1179,9 @@ def train_full_width(dev, out_dir, name, layers, seq, expect, tag):
     reports its host costs (cudaMalloc / cudaFree calls, allocator retries,
     garbage-collector time), the heap the collector walks is counted and
     fully collected once before the steps, and the card's clock and power
-    are sampled into ``clocks_<tag>.csv``.  Returns the launch counts of
-    the steps."""
+    are sampled into ``clocks_<tag>.csv``.  ``after``, if given, is called
+    last with the trained student, its state, teacher and step factory (phase
+    10b).  Returns the launch counts of the steps."""
     import importlib
     import torch
     from repro_torch.core.distill import DistillConfig
@@ -1307,6 +1323,12 @@ def train_full_width(dev, out_dir, name, layers, seq, expect, tag):
     summary["profile"] = profile_distill_step(kd_step, state, task[5], kd_ms,
                                               cfg.padded_vocab, list(counters),
                                               out_dir / f"profile_{tag}.txt")
+    if after is not None:
+        summary["after"] = after(dict(
+            cfg=scfg, student=student, teacher=teacher, state=state, opt=opt,
+            batch=task[5], counters=counters,
+            make_step=lambda model: make_distill_step(
+                model, teacher, opt, lambda s: warmup_cosine(s, 1e-4, 1, 5), dcfg)))
     (out_dir / f"smoke_{tag}.json").write_text(json.dumps(summary, indent=1))
     del teacher, student, state, kd_step, ct_step
     torch.cuda.empty_cache()
@@ -1887,6 +1909,435 @@ def _kv_corruption(cfg, model, base, prompts, want):
                 preemptions=st.preemptions)
 
 
+# -- phase 10: the training launcher, checkpoints, remat policies, Table 4 -------
+
+# the launcher as a user starts it: full width and depth, 6 CE steps
+LAUNCH_CLI = ["--arch", "qwen3-0.6b", "--steps", "6", "--batch", "8", "--seq", "256",
+              "--task", "corpus", "--log-every", "1"]
+# a resumed run must end where the uninterrupted run ended: the same leaves,
+# steps and loader state, and every float leaf within this relative
+# difference of run 1's (0: bitwise, as the CPU test holds and as the card
+# has shown; PERF.md §6)
+RESUME_RTOL = 0.0
+# share of ternary codes that may differ between the card and the CPU per
+# scheme (every scale is a float64 mean rounded once on both)
+SCHEME_FLIP_SHARE = 1e-4
+
+
+def _qwen_qat_template(cfg):
+    """A shape-only (``meta``) JAX-layout train state of ``cfg``: the
+    template ``load_checkpoint`` restores onto."""
+    from repro_torch import bridge
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.trainer import init_train_state
+    state = init_train_state(build_model(cfg, device="meta"), AdamW())
+    return bridge.train_state_to_jax(cfg, state, device="meta")
+
+
+def _launcher(ckpt_dir, log, sigterm_after=None):
+    """One ``python -m repro_torch.launch.train`` run in a subprocess; with
+    ``sigterm_after`` (a step index) SIGTERM is sent once that step's line
+    is printed.  -> (exit code, output, seconds)."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_CLI,
+         "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "100"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if sigterm_after is not None and line.startswith(f"step {sigterm_after} "):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=900)
+        lines.append(rest)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    log.write_text(out)
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def _step_lines(out):
+    return [ln for ln in out.splitlines() if ln.startswith("step ")]
+
+
+def _leaf_groups(a, b):
+    """Largest absolute and relative difference of two flat checkpoints per
+    leaf group (params, m, v); non-float leaves must be equal."""
+    import torch
+    groups = {}
+    for k, x in a.items():
+        y = b[k]
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                fail(f"leaf {k}: {x.tolist() if x.numel() < 8 else x.shape} vs "
+                     f"{y.tolist() if y.numel() < 8 else y.shape}")
+            continue
+        g = ("params" if k.startswith("params/") else
+             "m" if k.startswith("opt_state/m/") else "v")
+        d = (x.float() - y.float()).abs()
+        rel = d / y.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+        cur = groups.setdefault(g, [0.0, 0.0, 0, 0])
+        cur[0] = max(cur[0], float(d.max()))
+        cur[1] = max(cur[1], float(rel.max()))
+        cur[2] += int((d != 0).sum())
+        cur[3] += d.numel()
+    return {g: dict(max_abs=v[0], max_rel=v[1], differing=v[2], elements=v[3])
+            for g, v in groups.items()}
+
+
+def launcher_checkpoints(dev, out_dir):
+    """10a: the training launcher as a user starts it, at full width and
+    depth (qwen3-0.6b, 28 layers, 6 CE steps at 8 x 256): run 1
+    uninterrupted; run 2 sent SIGTERM after its ``step 1`` line (it must
+    save and exit 0); run 3 restarting run 2's directory (it must resume
+    and reach step 6).  Run 3's final checkpoint is held to run 1's leaf by
+    leaf.  Then, in this process, the load time of that checkpoint into a
+    fresh full-width state, ``save_async``'s host stall and the write behind
+    it, and a synchronous ``emergency_save``.  Checks the free disk first;
+    keeps at most three checkpoints and removes them."""
+    import importlib.util
+    import shutil
+    import torch
+    from repro_torch import bridge
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.checkpoint.ckpt import latest_step
+    from repro_torch.core import quant as Q
+    from repro_torch.models import build_model, get_config
+    from repro_torch.nn.module import flatten_with_paths, tree_bytes
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.trainer import init_train_state
+
+    cfg = get_config("qwen3-0.6b").with_quant(Q.QAT)
+    tmpl = _qwen_qat_template(cfg)
+    ckpt_bytes = tree_bytes(tmpl)
+    base = out_dir / "launcher_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir()
+    need = 3 * ckpt_bytes + (1 << 30)
+    free = shutil.disk_usage(base).free
+    print(f"  checkpoint {ckpt_bytes / 1e9:.3f} GB ({len(flatten_with_paths(tmpl))} "
+          f"leaves); free disk {free / 1e9:.1f} GB, need {need / 1e9:.1f} GB; "
+          f"msgpack importable: {importlib.util.find_spec('msgpack') is not None}, "
+          f"zstandard importable: {importlib.util.find_spec('zstandard') is not None}",
+          flush=True)
+    if free < need:
+        fail(f"phase 10a needs {need / 1e9:.1f} GB of free disk under {base} for "
+             f"three checkpoints; {free / 1e9:.1f} GB free, "
+             f"{(need - free) / 1e9:.1f} GB short")
+    torch.cuda.empty_cache()
+    out = {}
+    try:
+        rc, o1, s1 = _launcher(base / "run1", out_dir / "launcher_run1.log")
+        if rc != 0 or not o1.strip().endswith("done") or len(_step_lines(o1)) != 6:
+            fail(f"launcher run 1: exit {rc}, output tail {o1[-2000:]}")
+        rc, o2, s2 = _launcher(base / "run2", out_dir / "launcher_run2.log",
+                               sigterm_after=1)
+        k = latest_step(base / "run2")
+        if rc != 0 or "[sigterm] emergency checkpoint" not in o2 or k is None \
+                or not 2 <= k < 6:
+            fail(f"launcher run 2 (SIGTERM after step 1): exit {rc}, latest step "
+                 f"{k}, output tail {o2[-2000:]}")
+        rc, o3, s3 = _launcher(base / "run2", out_dir / "launcher_run3.log")
+        steps3 = [ln.split()[1] for ln in _step_lines(o3)]
+        if rc != 0 or f"[resume] from step {k}" not in o3 or \
+                steps3 != [str(i) for i in range(k, 6)] or not o3.strip().endswith("done"):
+            fail(f"launcher run 3 (resume): exit {rc}, steps {steps3}, output tail "
+                 f"{o3[-2000:]}")
+        for tag, o, s in (("run 1", o1, s1), ("run 2", o2, s2), ("run 3", o3, s3)):
+            print(f"  launcher {tag}: {s:.1f} s; " + "; ".join(_step_lines(o)), flush=True)
+        print(f"  run 2 saved at step {k} on SIGTERM; run 3 resumed there", flush=True)
+        a, ea, sa = load_checkpoint(base / "run1", tmpl, device=dev)
+        b, eb, sb = load_checkpoint(base / "run2", tmpl, device=dev)
+        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+        if (sa, ea) != (sb, eb) or sa != 6 or list(fa) != list(fb):
+            fail(f"final checkpoints differ in step/loader/leaves: {sa} {ea} vs "
+                 f"{sb} {eb}")
+        groups = _leaf_groups(fb, fa)
+        del a, b, fa, fb
+        torch.cuda.empty_cache()
+        print("  resumed vs uninterrupted, final checkpoint: " + "; ".join(
+            f"{g} max abs {v['max_abs']:.3g}, max rel {v['max_rel']:.3g}, "
+            f"{v['differing']} of {v['elements']} differ" for g, v in groups.items())
+            + f"; loader {ea}", flush=True)
+        worst = max(v["max_rel"] for v in groups.values())
+        if worst > RESUME_RTOL:
+            fail(f"the resumed run's final state is {worst:.3g} (relative) from the "
+                 f"uninterrupted run's; tolerance {RESUME_RTOL}")
+        shutil.rmtree(base / "run1")
+        # the card's times: load into a fresh full-width state, then save
+        model = build_model(cfg, device=dev)
+        state = init_train_state(model, AdamW(AdamWConfig()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, extra, step = load_checkpoint(base / "run2", tmpl, device=dev)
+        bridge.load_train_state(cfg, tree, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del tree
+        shutil.rmtree(base / "run2")
+        mgr = CheckpointManager(base / "timed")
+        t0 = time.perf_counter()
+        mgr.save_async(step, bridge.train_state_to_jax(cfg, state), extra=extra)
+        stall_s = time.perf_counter() - t0
+        mgr.wait()
+        async_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.emergency_save(step + 1, bridge.train_state_to_jax(cfg, state), extra=extra)
+        sync_s = time.perf_counter() - t0
+        files = sorted((base / "timed" / f"step_{step + 1:08d}").iterdir())
+        size = {f.name: f.stat().st_size for f in files}
+        out = dict(ckpt_bytes=ckpt_bytes, files=size, resumed_at=k, groups=groups,
+                   load_s=load_s, save_async_stall_s=stall_s, save_async_total_s=async_s,
+                   emergency_save_s=sync_s, run_s=[s1, s2, s3])
+        print(f"  checkpoint files {size}; load into a fresh state {load_s:.2f} s; "
+              f"save_async host stall {stall_s:.2f} s (written {async_s:.2f} s after "
+              f"the call); synchronous emergency_save {sync_s:.2f} s", flush=True)
+        del model, state
+        gc.collect()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_round_trip(ctx, out_dir):
+    """10b: phase 5's student after its distillation steps (both kernel knobs
+    on) saved through ``CheckpointManager.save_async``, loaded into a freshly
+    built student: every leaf ``torch.equal`` to the live state; then one
+    more distillation step from each, whose losses must be equal (bitwise,
+    or else within phase 6's rtol 1e-4, said which).  Returns the kernels'
+    launches in those two steps."""
+    import shutil
+    import torch
+    from repro_torch import bridge
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import flatten_with_paths
+    from repro_torch.training.trainer import init_train_state
+
+    cfg, state = ctx["cfg"], ctx["state"]
+    d = out_dir / "ckpt_10b"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save_async(state.step, bridge.train_state_to_jax(cfg, state))
+        stall = time.perf_counter() - t0
+        mgr.wait()
+        written = time.perf_counter() - t0
+        fresh = build_model(cfg, device=ctx["student"].embed.table.device)
+        fresh_state = init_train_state(fresh, ctx["opt"])
+        t0 = time.perf_counter()
+        tree, _, step = load_checkpoint(d, bridge.train_state_to_jax(
+            cfg, fresh_state, device="meta"), device=fresh.embed.table.device)
+        bridge.load_train_state(cfg, tree, fresh_state)
+        torch.cuda.synchronize()
+        loaded = time.perf_counter() - t0
+        del tree
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    live = flatten_with_paths(bridge.train_state_to_jax(cfg, state))
+    back = flatten_with_paths(bridge.train_state_to_jax(cfg, fresh_state))
+    if list(live) != list(back) or step != state.step:
+        fail(f"10b: reloaded leaves/step differ: {step} vs {state.step}")
+    bad = [k for k in live if not torch.equal(live[k], back[k])]
+    if bad:
+        fail(f"10b: reloaded leaves not equal to the live state: {bad[:5]}")
+    n = len(live)
+    del live, back
+    counters = ctx["counters"]
+    for c in counters.values():
+        c.reset()
+    m_live = ctx["make_step"](ctx["student"])(state, ctx["batch"])[1]
+    m_back = ctx["make_step"](fresh)(fresh_state, ctx["batch"])[1]
+    launches = {k: c.count for k, c in counters.items()}
+    a, b = float(m_live["loss"]), float(m_back["loss"])
+    bitwise = a == b
+    print(f"  10b: save_async of the live state (step {state.step}): host stall "
+          f"{stall:.2f} s, written {written:.2f} s; loaded into a fresh student in "
+          f"{loaded:.2f} s; {n} leaves torch.equal; next distill step loss live "
+          f"{a!r} / reloaded {b!r} ({'bitwise' if bitwise else 'not bitwise'}); "
+          f"launches {launches}", flush=True)
+    if not (bitwise or abs(a - b) <= 1e-4 * abs(b)):
+        fail(f"10b: the distill step from the reloaded state gives loss {b!r}, the "
+             f"live state's {a!r} (rtol 1e-4)")
+    del fresh, fresh_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(stall_s=stall, written_s=written, load_s=loaded,
+                          leaves=n, loss_live=a, loss_reloaded=b, bitwise=bitwise)
+
+
+class _GradTap:
+    """An AdamW that keeps a copy of the gradients it is given."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, *a, **kw):
+        return self.opt.init(*a, **kw)
+
+    def update(self, grads, *a, **kw):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.opt.update(grads, *a, **kw)
+
+
+def remat_policies(dev):
+    """10c: one phase-5 distillation step (qwen3-0.6b, full width and depth,
+    8 x 256, bf16 compute) from the same weights under ``remat_policy``
+    nothing, dots and none, on the kernel route (both kernel knobs on) and
+    on the plain QAT route: loss, gradients, the step's peak memory above
+    what was allocated before it (the student, its moments and the
+    teacher; the peak statistic reset before each step, the previous run's
+    tensors collected) and the wall time of a second step (the first grows
+    the allocator).  The losses and gradients of the first step must be
+    equal across the policies (bitwise); on the plain route dots's peak
+    must lie between nothing's and none's.  Returns the kernels' launches
+    and the numbers."""
+    import importlib
+    import torch
+    from repro_torch.core.distill import DistillConfig
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import (default_distill_layer, init_train_state,
+                                              make_distill_step)
+
+    base = get_config("qwen3-0.6b")
+    teacher = build_model(base, gen=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    batch = _train_batches("mnli-syn", 0, 1, dev, QWEN_SEQ)[0]
+    counters = {k: importlib.import_module(
+        f"repro_torch.kernels.{TRAIN_KERNELS[k][0]}.kernel").launches
+        for k in ("bitlinear", "relation_kd")}
+    for c in counters.values():
+        c.reset()
+    out = {}
+    for route, use_kernel in (("kernels", True), ("plain", False)):
+        ref = None
+        for policy in ("nothing", "dots", "none"):
+            cfg = base.replace(remat_policy=policy)
+            scfg, student = _student_from(teacher, cfg, use_kernel, dev)
+            opt = _GradTap(AdamW(AdamWConfig(weight_decay=0.01)))
+            step = make_distill_step(student, teacher, opt, lambda s: constant(s, 1e-4),
+                                     DistillConfig(use_kernel=use_kernel,
+                                                   distill_layer=default_distill_layer(scfg)))
+            state = init_train_state(student, opt)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            m = step(state, batch)[1]
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+            loss = float(m["loss"])
+            if ref is None:
+                ref, same, worst = (loss, opt.grads), True, 0.0
+            else:
+                same = loss == ref[0] and all(torch.equal(g, ref[1][k])
+                                              for k, g in opt.grads.items())
+                worst = max(float((g - ref[1][k]).abs().max())
+                            for k, g in opt.grads.items())
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out[f"{route}/{policy}"] = dict(loss=loss, peak_above_state_gib=peak,
+                                            state_gib=before / 2 ** 30, ms=ms,
+                                            equal_to_nothing=same,
+                                            max_abs_grad_diff=worst)
+            print(f"  10c {route} route, remat {policy}: loss {loss!r}, peak "
+                  f"{peak:.3f} GiB above the {before / 2 ** 30:.3f} GiB allocated "
+                  f"before the step, second step {ms:.1f} ms, loss and gradients "
+                  f"{'bitwise equal to' if same else 'DIFFER from'} nothing's "
+                  f"(max abs gradient difference {worst:.3g})", flush=True)
+            del student, step, state, opt, m
+            gc.collect()        # the step's closures hold the student in cycles
+            torch.cuda.empty_cache()
+            if not same:
+                fail(f"10c: remat {policy} on the {route} route changes the loss or "
+                     "the gradients")
+        del ref
+    p = {k: out[f"plain/{k}"]["peak_above_state_gib"] for k in ("nothing", "dots", "none")}
+    if not p["nothing"] < p["dots"] < p["none"]:
+        fail(f"10c: on the plain route dots's peak memory {p['dots']:.3f} GiB is not "
+             f"between nothing's {p['nothing']:.3f} and none's {p['none']:.3f}")
+    launches = {k: c.count for k, c in counters.items()}
+    print(f"  10c launches: {launches}", flush=True)
+    del teacher
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def table4_schemes(dev):
+    """10d: ``fake_quant_weight`` of each Table-4 scheme and
+    ``fake_quant_weight_lp`` at the full-width projection shapes [1024,
+    3072] and [3072, 1024], on the card and on the CPU: the share of
+    dequantized weights (codes) that differ must stay within
+    SCHEME_FLIP_SHARE; the card's time of each.  Then one CE QAT step of
+    full-width qwen3-0.6b with the blockwise scheme: a finite loss."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import init_train_state, make_train_step
+
+    out = {}
+    for shape in ((1024, 3072), (3072, 1024)):
+        w = torch.randn(shape, generator=torch.Generator().manual_seed(shape[0])) * 0.02
+        wd = w.to(dev)
+        cases = [(s, (lambda s=s: Q.fake_quant_weight(wd, s)),
+                  (lambda s=s: Q.fake_quant_weight(w, s)))
+                 for s in ("absmean", "blockwise", "awq", "gptq")]
+        wb, wbd = w.to(torch.bfloat16), wd.to(torch.bfloat16)
+        cases.append(("lp", lambda: Q.fake_quant_weight_lp(wbd),
+                      lambda: Q.fake_quant_weight_lp(wb)))
+        for name, card, cpu in cases:
+            t0 = time.perf_counter()
+            want = cpu()
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            got = card().cpu()
+            share = float((got != want).float().mean())
+            iters = 3 if name == "gptq" else 20
+            ms = time_ms(card, iters=iters, warmup=1)
+            out[f"{name} {shape[0]}x{shape[1]}"] = dict(ms=ms, cpu_ms=cpu_ms,
+                                                       share_differing=share)
+            print(f"  10d {name} [{shape[0]}, {shape[1]}]: card {ms:.4f} ms "
+                  f"(median of {iters}), CPU {cpu_ms:.1f} ms, codes differing card "
+                  f"vs CPU {share:.3g}", flush=True)
+            if share > SCHEME_FLIP_SHARE:
+                fail(f"10d: {name} at {shape}: {share:.3g} of the codes differ "
+                     f"between the card and the CPU (bound {SCHEME_FLIP_SHARE})")
+    cfg = get_config("qwen3-0.6b").with_quant(Q.QuantConfig(mode="qat",
+                                                            scheme="blockwise"))
+    model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = AdamW(AdamWConfig())
+    step = make_train_step(model, opt, lambda s: constant(s, 1e-4))
+    batch = _train_batches("corpus", 17, 1, dev, QWEN_SEQ)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(init_train_state(model, opt), batch)[1]["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"  10d blockwise CE QAT step, qwen3-0.6b full width 8 x {QWEN_SEQ}: loss "
+          f"{loss!r}, {ms:.1f} ms (first step)", flush=True)
+    if not math.isfinite(loss):
+        fail(f"10d: the blockwise CE step's loss is {loss!r}")
+    out["blockwise_step"] = dict(loss=loss, ms=ms)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -1989,10 +2440,16 @@ def main() -> None:
     # 5. the training path, its launch counters reset just before it
     print("phase 5: BitDistill training, qwen3-0.6b full width", flush=True)
     per_fwd = 7 * 28                       # BitLinear projections, 28 layers
+    # 10b runs last in this phase: a checkpoint round trip of the student,
+    # its two distill steps counted on their own
+    round_trip = {}
     by_path["train qwen3-0.6b"] = train_full_width(
         dev, out_dir, "qwen3-0.6b", 28, QWEN_SEQ,
         {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
-         "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train")
+         "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train",
+        after=lambda ctx: round_trip.setdefault(
+            "10b", checkpoint_round_trip(ctx, out_dir)))
+    by_path["checkpoint round trip qwen3-0.6b (10b)"] = round_trip["10b"][0]
     # 6. kernels vs plain paths through the distillation step
     print("phase 6: on-card parity, distill step kernel vs plain paths", flush=True)
     train_kernel_vs_plain_parity(dev)
@@ -2013,6 +2470,18 @@ def main() -> None:
           flush=True)
     (by_path["serve entry point qwen3-0.6b"],
      by_path["serve async stack qwen3-0.6b"]) = serve_entry_point(dev, out_dir)
+    # 10. the training launcher with checkpoints (a), the remat policies (c)
+    # and the Table-4 schemes (d); 10b ran at the end of phase 5
+    print("phase 10a: the training launcher at full width: checkpoint, SIGTERM, "
+          "resume", flush=True)
+    phase10 = {"10a": launcher_checkpoints(dev, out_dir),
+               "10b": round_trip["10b"][1]}
+    print("phase 10c: remat policies nothing / dots / none, qwen3-0.6b full width",
+          flush=True)
+    by_path["remat policies qwen3-0.6b (10c)"], phase10["10c"] = remat_policies(dev)
+    print("phase 10d: the Table-4 weight schemes, card vs CPU", flush=True)
+    phase10["10d"] = table4_schemes(dev)
+    (out_dir / "smoke_phase10.json").write_text(json.dumps(phase10, indent=1))
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

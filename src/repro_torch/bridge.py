@@ -1,5 +1,6 @@
 """Map a JAX parameter pytree (as numpy arrays) onto the port's modules, and
-back.
+back; and the port's ``TrainState`` to and from the JAX ``TrainState``
+layout that checkpoints hold.
 
 The JAX ``CausalLM`` keeps each pattern position's block params stacked over
 repeats (``stack/pos{i}/...`` leaves are ``[repeats, ...]``,
@@ -10,48 +11,121 @@ with ``l = r * len(pattern) + i``.  Every other leaf maps by path
 and packed trees all map this way.  Both directions are checked: a JAX leaf
 with no port tensor, or a port tensor with no JAX leaf, raises.
 ``jax_params_from_torch`` is the reverse map, so tests can compare trained
-parameters leaf by leaf.  The checkpoint format of
-``repro/checkpoint/ckpt.py`` is not read here yet.
+parameters leaf by leaf.
+
+The train state maps the same way, onto ``repro/training/trainer.py::
+TrainState``: ``params/...``, ``opt_state/step``, ``opt_state/m/...`` and
+``opt_state/v/...`` (a blockwise int8 moment is a ``Moment8`` with leaves
+``code`` and ``scale``, stacked like its parameter) and ``step``, both steps
+int32 0-d.  ``train_state_to_jax`` builds that tree (``device="meta"``
+gives a shape-only template for ``checkpoint.load_checkpoint``) and
+``load_train_state`` copies such a tree into a live ``TrainState``, so a
+checkpoint of either package resumes in the port.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.models import CausalLM, ModelConfig, build_model
 from repro_torch.nn.module import resolve_device
+from repro_torch.training.optimizer import Moment8
+from repro_torch.training.trainer import TrainState
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    flat: Dict[str, np.ndarray] = {}
+class JaxAdamWState(NamedTuple):
+    """``repro/training/optimizer.py::AdamWState``'s fields, in its order."""
+    step: Any
+    m: Any
+    v: Any
+
+
+class JaxTrainState(NamedTuple):
+    """``repro/training/trainer.py::TrainState``'s fields, in its order."""
+    params: Any
+    opt_state: JaxAdamWState
+    step: Any
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    """{'a/b': leaf} of a tree of dicts (a ``Moment8`` is a leaf here)."""
+    flat: Dict[str, Any] = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
             flat.update(_flatten(v, path))
         else:
-            flat[path] = np.asarray(v)
+            flat[path] = v
     return flat
 
 
-def torch_state_from_jax(cfg: ModelConfig, params_np: Mapping) -> Dict[str, np.ndarray]:
-    """JAX param tree -> {port state-dict key: numpy array}."""
+def _rows(leaf, r: int):
+    if isinstance(leaf, Moment8):
+        return Moment8(leaf.code[r], leaf.scale[r])
+    return leaf[r]
+
+
+def _port_leaves(cfg: ModelConfig, tree: Mapping) -> Dict[str, Any]:
+    """JAX-layout tree -> {port state-dict key: leaf}; stacked leaves are
+    split into their rows (views)."""
     n_pat = len(cfg.resolved_pattern())
-    state: Dict[str, np.ndarray] = {}
-    for path, leaf in _flatten(params_np).items():
+    state: Dict[str, Any] = {}
+    for path, leaf in _flatten(tree).items():
         parts = path.split("/")
         if parts[0] == "stack":
             pos = int(parts[1][len("pos"):])
             rest = ".".join(parts[2:])
-            if leaf.shape[0] != cfg.repeats:
-                raise ValueError(f"{path}: leading dim {leaf.shape[0]} != "
+            lead = (leaf.code if isinstance(leaf, Moment8) else leaf).shape[0]
+            if lead != cfg.repeats:
+                raise ValueError(f"{path}: leading dim {lead} != "
                                  f"repeats {cfg.repeats}")
             for r in range(cfg.repeats):
-                state[f"stack.layers.{r * n_pat + pos}.{rest}"] = leaf[r]
+                state[f"stack.layers.{r * n_pat + pos}.{rest}"] = _rows(leaf, r)
         else:
             state[".".join(parts)] = leaf
     return state
+
+
+def _jax_tree(cfg: ModelConfig, named: Mapping[str, Any],
+              stack: Callable[[list], Any]) -> Dict:
+    """{port key: leaf} -> the JAX-layout nested dict, block leaves joined
+    over repeats by ``stack``."""
+    n_pat = len(cfg.resolved_pattern())
+    tree: Dict = {}
+
+    def put(path, leaf):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+
+    stacked: Dict[tuple, list] = {}
+    for key, leaf in named.items():
+        parts = key.split(".")
+        if parts[:2] == ["stack", "layers"]:
+            rep, pos = divmod(int(parts[2]), n_pat)
+            path = ("stack", f"pos{pos}", *parts[3:])
+            stacked.setdefault(path, [None] * cfg.repeats)[rep] = leaf
+        else:
+            put(tuple(parts), leaf)
+    for path, rows in stacked.items():
+        put(path, stack(rows))
+    return tree
+
+
+def _check_keys(what: str, port: Mapping, jax: Mapping) -> None:
+    missing = sorted(set(port) - set(jax))
+    extra = sorted(set(jax) - set(port))
+    if missing or extra:
+        raise KeyError(f"{what} trees differ: port-only {missing[:8]}, "
+                       f"JAX-only {extra[:8]}")
+
+
+def torch_state_from_jax(cfg: ModelConfig, params_np: Mapping) -> Dict[str, np.ndarray]:
+    """JAX param tree -> {port state-dict key: numpy array}."""
+    return {k: np.asarray(v) for k, v in _port_leaves(cfg, params_np).items()}
 
 
 def jax_params_to_torch(cfg: ModelConfig, params_np: Mapping,
@@ -64,11 +138,7 @@ def jax_params_to_torch(cfg: ModelConfig, params_np: Mapping,
         model = build_model(cfg, device=dev)
     src = torch_state_from_jax(cfg, params_np)
     dst = model.state_dict()
-    missing = sorted(set(dst) - set(src))
-    extra = sorted(set(src) - set(dst))
-    if missing or extra:
-        raise KeyError(f"param trees differ: port-only {missing[:8]}, "
-                       f"JAX-only {extra[:8]}")
+    _check_keys("param", dst, src)
     with torch.no_grad():
         for key, t in dst.items():
             a = src[key]
@@ -82,26 +152,72 @@ def jax_params_to_torch(cfg: ModelConfig, params_np: Mapping,
 def jax_params_from_torch(cfg: ModelConfig, model: CausalLM) -> Dict:
     """The port model's tensors as the JAX param tree (nested dicts of numpy
     arrays, block leaves stacked ``[repeats, ...]``)."""
-    n_pat = len(cfg.resolved_pattern())
     state = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
-    tree: Dict = {}
+    return _jax_tree(cfg, state, np.stack)
 
-    def put(path, leaf):
-        node = tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = leaf
 
-    stacked: Dict[tuple, list] = {}
-    for key, leaf in state.items():
-        parts = key.split(".")
-        if parts[:2] == ["stack", "layers"]:
-            layer = int(parts[2])
-            rep, pos = divmod(layer, n_pat)
-            path = ("stack", f"pos{pos}", *parts[3:])
-            stacked.setdefault(path, [None] * cfg.repeats)[rep] = leaf
-        else:
-            put(tuple(parts), leaf)
-    for path, rows in stacked.items():
-        put(path, np.stack(rows))
-    return tree
+# ---------------------------------------------------------------------------
+# the train state
+# ---------------------------------------------------------------------------
+
+def train_state_to_jax(cfg: ModelConfig, state: TrainState,
+                       device: Union[str, torch.device, None] = None
+                       ) -> JaxTrainState:
+    """The port's ``TrainState`` as the JAX ``TrainState`` tree of tensors
+    (on ``device``, default: where they are; block leaves stacked, so those
+    are copies, the others the live tensors)."""
+    def leaf(t):
+        t = t.detach()
+        return t if device is None else t.to(device)
+
+    def one(x):
+        return Moment8(leaf(x.code), leaf(x.scale)) if isinstance(x, Moment8) \
+            else leaf(x)
+
+    def stack(rows):
+        if isinstance(rows[0], Moment8):
+            return Moment8(torch.stack([leaf(r.code) for r in rows]),
+                           torch.stack([leaf(r.scale) for r in rows]))
+        return torch.stack([leaf(r) for r in rows])
+
+    def tree(named):
+        return _jax_tree(cfg, {k: one(v) for k, v in named.items()}, stack)
+
+    dev = device if device is not None else next(iter(state.params.values())).device
+    step = lambda s: torch.tensor(s, dtype=torch.int32, device=dev)
+    opt = state.opt_state
+    return JaxTrainState(tree(state.params),
+                         JaxAdamWState(step(opt.step), tree(opt.m), tree(opt.v)),
+                         step(state.step))
+
+
+def _copy_leaf(key: str, dst, src) -> None:
+    if isinstance(dst, Moment8) != isinstance(src, Moment8):
+        raise ValueError(f"{key}: one side holds an int8 Moment8, the other "
+                         "a float moment (AdamWConfig.state_dtype differs)")
+    pairs = (zip(("/code", "/scale"), dst, src) if isinstance(dst, Moment8)
+             else [("", dst, src)])
+    for part, d, s in pairs:
+        if tuple(s.shape) != tuple(d.shape):
+            raise ValueError(f"{key}{part}: JAX shape {tuple(s.shape)} != "
+                             f"port {tuple(d.shape)}")
+        d.copy_(s)
+
+
+@torch.no_grad()
+def load_train_state(cfg: ModelConfig, tree: JaxTrainState,
+                     state: TrainState) -> TrainState:
+    """Copy a JAX-layout train state (``train_state_to_jax``'s structure,
+    e.g. from ``load_checkpoint``) into ``state`` in place: parameters and
+    moments keep their tensors, the steps are set."""
+    opt = state.opt_state
+    for what, dst, src in (("param", state.params, tree.params),
+                           ("opt_state/m", opt.m, tree.opt_state.m),
+                           ("opt_state/v", opt.v, tree.opt_state.v)):
+        src = _port_leaves(cfg, src)
+        _check_keys(what, dst, src)
+        for key, d in dst.items():
+            _copy_leaf(key, d, src[key])
+    state.opt_state = opt._replace(step=int(tree.opt_state.step))
+    state.step = int(tree.step)
+    return state

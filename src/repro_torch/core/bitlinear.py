@@ -3,9 +3,10 @@
 
 Weights keep the JAX layout ``[in, out]`` (``y = x @ w``), so the bridge
 copies them without a transpose.  ``fp`` and ``qat`` hold a trainable
-``w`` (and ``b``); ``qat`` runs the fake-quant forward with STE gradients,
-or with ``QuantConfig.use_kernel`` the bitlinear CUDA kernel (whose backward
-is the same STE).  ``packed`` stores ``w_packed`` uint8 ``[in/4, out]`` plus
+``w`` (and ``b``); ``qat`` runs, in the JAX package's order, the bitlinear
+CUDA kernel with ``QuantConfig.use_kernel`` (whose backward is the same
+STE), else the bf16 absmean path with ``low_precision_quant``, else the
+fake-quant forward of ``QuantConfig.scheme`` with STE gradients.  ``packed`` stores ``w_packed`` uint8 ``[in/4, out]`` plus
 a scalar ``delta`` as buffers; with ``use_kernel`` the projection runs the
 w2a8 CUDA kernel.
 """
@@ -46,29 +47,35 @@ class BitLinear(nn.Module):
             self.b = nn.Parameter(torch.zeros((out_dim,), dtype=policy.param_dtype,
                                               device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``act_scale`` (mean |x| per input channel) feeds the awq and gptq
+        weight schemes of the plain QAT path; no caller passes it, as in the
+        JAX package, so they run with a unit scale."""
         cd = self.policy.compute_dtype
-        mode = self.quant.mode
-        if mode == "fp":
+        quant = self.quant
+        if quant.mode == "fp":
             y = torch.matmul(x.to(cd), self.w.to(cd))
-        elif mode == "qat":
-            if self.quant.low_precision_quant:
-                raise NotImplementedError("low_precision_quant "
-                                          "(fake_quant_weight_lp) is not ported")
-            if self.quant.use_kernel:
+        elif quant.mode == "qat":
+            if quant.use_kernel:
                 from repro_torch.kernels.bitlinear import ops as kops
                 y = kops.bitlinear_matmul(x.to(cd), self.w.to(torch.float32),
-                                          scheme=self.quant.scheme)
+                                          scheme=quant.scheme)
             else:
                 xq = Q.fake_quant_act(x.to(cd))
-                wq = Q.fake_quant_weight(self.w.to(torch.float32),
-                                         scheme=self.quant.scheme)
+                if quant.low_precision_quant and quant.scheme == "absmean":
+                    wq = Q.fake_quant_weight_lp(self.w.to(cd))
+                else:
+                    wq = Q.fake_quant_weight(self.w.to(torch.float32),
+                                             scheme=quant.scheme,
+                                             act_scale=act_scale,
+                                             block=quant.block)
                 y = torch.matmul(xq, wq.to(cd))
-        elif mode == "packed":
+        elif quant.mode == "packed":
             y = packed_matmul(x.to(cd), self.w_packed, self.delta, self.in_dim,
-                              use_kernel=self.quant.use_kernel)
+                              use_kernel=quant.use_kernel)
         else:
-            raise ValueError(f"unknown quant mode {mode!r}")
+            raise ValueError(f"unknown quant mode {quant.mode!r}")
         if self.use_bias:
             y = y + self.b.to(cd)
         return y

@@ -27,8 +27,11 @@ def _fwd_2d(x2d: torch.Tensor, w: torch.Tensor, scheme: str):
     """-> (y, int8 codes [M, >= K], γ [M, 1], wq [K, N] int8, Δ); the card's
     codes carry the GEMM's zero K pad, the CPU's none."""
     if scheme != "absmean":
-        raise NotImplementedError(f"bitlinear kernel path: scheme {scheme!r} is "
-                                  "not ported; only 'absmean' is")
+        # the kernel takes one per-tensor scale; the JAX route quantizes any
+        # scheme's weight with absmean instead of refusing it
+        raise ValueError(f"bitlinear kernel path takes the 'absmean' weight "
+                         f"scheme only, not {scheme!r}; run {scheme!r} with "
+                         "QuantConfig(use_kernel=False)")
     if x2d.device.type == "cuda":
         delta = Q.absmean_scale(w)
         y, codes, gamma, wq = bitlinear_forward(x2d.contiguous(), w.contiguous(),

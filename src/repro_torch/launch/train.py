@@ -1,30 +1,43 @@
 """Training launcher (single device) — the single-device subset of
 ``repro/launch/train.py``: arch config -> QAT (or FP) model from a seeded
-init -> CE train step -> loop over the synthetic loader.
+init -> CE train step -> fault-tolerant loop over the synthetic loader
+(async checkpoints, auto-resume, SIGTERM emergency save, straggler
+watchdog).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
-        --steps 100 --batch 8 --seq 256 --task corpus
+        --steps 100 --batch 8 --seq 256 --task corpus --ckpt-dir /tmp/run1
 
 runs on the card; ``--device cpu --reduced`` runs the small config on the
-CPU.  Data/tensor parallelism (``--dp/--tp/--pods``) and checkpoints
-(``--ckpt-dir/--ckpt-every``) are not ported: the parser rejects them.
+CPU.  Checkpoints go to ``--ckpt-dir`` every ``--ckpt-every`` steps and at
+the end, in the JAX package's format (``checkpoint/ckpt.py``, the train
+state in the JAX ``TrainState`` layout by ``bridge.py``).  A directory that
+holds one resumes from its latest step, whichever package wrote it; SIGTERM
+saves the state after the running step and exits 0.  Data/tensor
+parallelism (``--dp/--tp/--pods``) is not ported: the parser rejects it.
 """
 from __future__ import annotations
 
 import argparse
+import signal
+import sys
 import time
 
 import torch
 
+from repro_torch import bridge
+from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+from repro_torch.checkpoint.ckpt import latest_step
 from repro_torch.core import quant as Q
 from repro_torch.data.loader import DataLoader
 from repro_torch.data.synth import get_task
+from repro_torch.distributed.elastic import StepWatchdog
 from repro_torch.models import build_model
 from repro_torch.models.base import get_config
 from repro_torch.nn.module import resolve_device
 from repro_torch.training.optimizer import AdamW, AdamWConfig
 from repro_torch.training.schedule import warmup_cosine
 from repro_torch.training.trainer import init_train_state, make_train_step
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -34,6 +47,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--task", default="corpus")
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale config")
     ap.add_argument("--quant", default="qat", choices=["fp", "qat"])
@@ -58,19 +73,61 @@ def main(argv=None):
     state = init_train_state(model, opt)
     loader = DataLoader(get_task(args.task), args.batch, args.seq)
     loader.start_prefetch()
+    mgr = CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every)
+    watchdog = StepWatchdog()
+
+    # ---- init or resume ------------------------------------------------------
+    if latest_step(args.ckpt_dir) is not None:
+        tmpl = bridge.train_state_to_jax(cfg, state, device="meta")
+        restored, extra, start = load_checkpoint(args.ckpt_dir, tmpl, device=device)
+        bridge.load_train_state(cfg, restored, state)
+        del restored
+        loader.load_state_dict(extra.get("loader", {"step": 0}))
+        print(f"[resume] from step {start}", flush=True)
+    else:
+        start = 0
+
+    stop = {"now": False}
+
+    def on_term(sig, frm):
+        stop["now"] = True
+    prev_handler = signal.signal(signal.SIGTERM, on_term)
+
+    def tree():
+        return bridge.train_state_to_jax(cfg, state)
+
     t_start = time.time()
     try:
-        for i in range(args.steps):
+        for i in range(start, args.steps):
+            watchdog.start()
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in loader.next().items()
                      if k in ("tokens", "labels", "loss_mask")}
             state, metrics = step_fn(state, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)   # the watchdog times the step
+            flag = watchdog.stop()
+            if flag:
+                print(f"[straggler] step {flag.step}: {flag.duration:.3f}s "
+                      f"(median {flag.median:.3f}s)", flush=True)
             if i % args.log_every == 0 or i == args.steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f"step {i}  loss {m['loss']:.4f}  grad_norm "
                       f"{m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
                       f"({time.time() - t_start:.1f}s)", flush=True)
+            if mgr.should_save(i + 1):
+                mgr.save_async(i + 1, tree(),
+                               extra={"loader": loader.state_dict()})
+            if stop["now"]:
+                print("[sigterm] emergency checkpoint", flush=True)
+                mgr.emergency_save(i + 1, tree(),
+                                   extra={"loader": loader.state_dict()})
+                sys.exit(0)
+        mgr.wait()
+        mgr.emergency_save(args.steps, tree(),
+                           extra={"loader": loader.state_dict()})
     finally:
+        signal.signal(signal.SIGTERM, prev_handler)
         loader.stop_prefetch()
     print("done")
 

@@ -4,13 +4,16 @@ Port of ``repro/nn/module.py``.  Parameters live in ``torch.nn.Module``s
 instead of pytrees; initializers draw from an explicit ``torch.Generator`` so
 a seeded init is reproducible on the card without JAX (the JAX and torch
 streams differ — parity tests hand both packages the same numpy weights via
-``repro_torch.bridge``).
+``repro_torch.bridge``).  ``flatten_with_paths`` names the leaves of a tree
+of dicts, NamedTuples, tuples and lists as ``jax.tree_util`` does, which is
+how checkpoints name them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -64,3 +67,78 @@ def fan_in_init(gen: torch.Generator, shape: Sequence[int], dtype,
     for d in shape[:-1]:
         fan_in *= d
     return truncated_normal_init(gen, shape, dtype, fan_in ** -0.5, device)
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts, NamedTuples, tuples and lists of tensors (or arrays)
+# ---------------------------------------------------------------------------
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(node) -> Optional[Dict[str, Any]]:
+    """``{path element: child}`` of an inner node in ``jax.tree_util``'s
+    order (dict keys sorted, NamedTuple fields, sequence indices), or None
+    for a leaf."""
+    if isinstance(node, Mapping):
+        return {str(k): node[k] for k in sorted(node)}
+    if _is_namedtuple(node):
+        return dict(zip(node._fields, node))
+    if isinstance(node, (tuple, list)):
+        return {str(i): v for i, v in enumerate(node)}
+    return None
+
+
+def flatten_with_paths(tree) -> Dict[str, Any]:
+    """{'a/b/c': leaf} view used by checkpointing and debugging: dict keys,
+    NamedTuple field names and sequence indices joined by ``/``, in the
+    order ``jax.tree_util`` flattens the same tree."""
+    flat: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        if node is None:               # an empty subtree, as in JAX
+            return
+        kids = _children(node)
+        if kids is None:
+            flat[prefix] = node
+            return
+        for k, v in kids.items():
+            walk(v, f"{prefix}/{k}" if prefix else k)
+
+    walk(tree, "")
+    return flat
+
+
+def tree_leaves(tree):
+    return list(flatten_with_paths(tree).values())
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like ``template`` holding ``leaves`` (in
+    ``flatten_with_paths`` order): dicts stay dicts, NamedTuples their own
+    type, tuples and lists theirs."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*[build(v) for v in node])
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(template)
+
+
+def count_params(params) -> int:
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(params))
+
+
+def tree_bytes(params) -> int:
+    return sum(int(np.prod(x.shape)) * (x.element_size() if torch.is_tensor(x)
+                                        else x.dtype.itemsize)
+               for x in tree_leaves(params))

@@ -5,9 +5,13 @@ The JAX ``Stack`` keeps each pattern position's params stacked over repeats
 and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
 ``n_layers`` blocks (layer ``l`` is repeat ``l // len(pattern)``, position
 ``l % len(pattern)``) run by a Python loop.  Rematerialization
-(``remat=True``, ``remat_policy="nothing"``: the JAX ``jax.checkpoint`` of
-the scan body) recomputes each block in the backward with
-``torch.utils.checkpoint`` (non-reentrant).  The paged cache is a per-layer
+(``remat=True``: the JAX ``jax.checkpoint`` of the scan body) recomputes
+each block in the backward with ``torch.utils.checkpoint``
+(non-reentrant); ``remat_policy="nothing"`` saves nothing inside a block,
+``"dots"`` saves the outputs of its matmuls with no batch dimensions
+(``aten.mm``/``aten.addmm``, the projections of the plain route; JAX's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, and
+``"none"`` does not rematerialize.  The paged cache is a per-layer
 list of ``{"k","v"}`` pools [N, Hkv, bs, Dh] that the attention layers
 update in place; mamba layers have no decode path yet.
 """
@@ -138,6 +142,26 @@ class Block(nn.Module):
         return self.attn
 
 
+# matmuls with no batch dimensions (a 3-d ``x @ w`` reaches ``aten.mm``);
+# ``bmm`` (the attention scores and their weighted sum) is recomputed.  The
+# kernel route's outputs are recomputed, as JAX recomputes a ``pallas_call``
+# inside a ``custom_vjp``: its CUDA kernels are called through ctypes, so the
+# dispatcher never sees them, and its plain version on the CPU runs inside
+# an ``autograd.Function``'s forward, where grad mode is off.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    CP = torch.utils.checkpoint.CheckpointPolicy
+    if op in _DOTS and torch.is_grad_enabled():
+        return CP.MUST_SAVE
+    return CP.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(_dots_policy)
+
+
 class Stack(nn.Module):
     """``repeats`` x ``pattern`` transformer stack as a flat list of layers."""
 
@@ -146,11 +170,12 @@ class Stack(nn.Module):
                  gen: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if remat_policy not in ("nothing", "none"):
-            raise NotImplementedError(f"remat_policy {remat_policy!r} is not "
-                                      "ported ('nothing' and 'none' are)")
+        if remat_policy not in ("nothing", "dots", "none"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r}: "
+                             "'nothing', 'dots' or 'none'")
         self.pattern = pattern
         self.remat = remat and remat_policy != "none"
+        self.remat_policy = remat_policy
         self.layers = nn.ModuleList(
             Block(cfg, pattern[i % len(pattern)], gen=gen, device=device)
             for i in range(len(pattern) * repeats))
@@ -176,8 +201,10 @@ class Stack(nn.Module):
         for li, blk in enumerate(self.layers):
             want = li == distill_layer
             if remat:
+                ctx = ({"context_fn": _save_dots}
+                       if self.remat_policy == "dots" else {})
                 out = torch.utils.checkpoint.checkpoint(
-                    blk, x, positions, want, use_reentrant=False)
+                    blk, x, positions, want, use_reentrant=False, **ctx)
             else:
                 out = blk(x, positions, want)
             if want:

@@ -721,3 +721,57 @@ def test_kv_block_digests_and_corruption_on_bf16_pools(cuda, mode):
     after = eng._kv_block_digests(all_blocks)
     assert [b for b in all_blocks if before[b] != after[b]] == [blocks[0]]
     assert eng.check_kv_integrity() == [blocks[0]]
+
+
+def test_checkpoint_from_the_card_to_the_cpu_and_back(cuda, tmp_path):
+    """A checkpoint saved from CUDA tensors (fp32, bf16, an int8 moment and
+    an int32 step) loads onto the CPU and back onto the card, bitwise; and
+    ``save_async`` copies a CUDA tensor in stream order, so an in-place
+    update queued after it is not in the save."""
+    from repro_torch.checkpoint import (CheckpointManager, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.nn.module import flatten_with_paths
+    from repro_torch.training.optimizer import Moment8
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t = {"w": torch.randn(64, 48, device=cuda, generator=g),
+         "h": torch.randn(7, device=cuda, generator=g).to(torch.bfloat16),
+         "m": Moment8(torch.randint(-127, 128, (4, 300), device=cuda,
+                                    generator=g).to(torch.int8),
+                      torch.rand(4, 2, device=cuda, generator=g)),
+         "step": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    save_checkpoint(tmp_path / "a", 1, t)
+    host, _, _ = load_checkpoint(tmp_path / "a", t, device="cpu")
+    for k, v in flatten_with_paths(t).items():
+        got = flatten_with_paths(host)[k]
+        assert got.device.type == "cpu" and torch.equal(got, v.cpu()), k
+    save_checkpoint(tmp_path / "b", 2, host)
+    back, _, _ = load_checkpoint(tmp_path / "b", t)
+    for k, v in flatten_with_paths(t).items():
+        got = flatten_with_paths(back)[k]
+        assert got.device.type == "cuda" and torch.equal(got, v), k
+    w = t["w"].clone()
+    want = w.cpu()
+    mgr = CheckpointManager(tmp_path / "c")
+    mgr.save_async(1, {"w": w})
+    w.mul_(-1)
+    mgr.wait()
+    saved, _, _ = load_checkpoint(tmp_path / "c", {"w": w}, device="cpu")
+    assert torch.equal(saved["w"], want)
+
+
+def test_table4_schemes_on_the_card_equal_the_cpu(cuda):
+    """Every mean that sets a scale sums in float64, so the card's codes
+    equal the CPU's (chip_smoke.py phase 10d measures the same at the
+    full-width shapes)."""
+    from repro_torch.core import quant as Q
+    w = torch.randn(256, 384, generator=torch.Generator().manual_seed(0)) * 0.02
+    act = torch.rand(256, generator=torch.Generator().manual_seed(1)) + 0.1
+    for scheme in ("absmean", "blockwise", "awq", "gptq"):
+        for a in (None, act):
+            cpu = Q.fake_quant_weight(w, scheme, a, block=48)
+            card = Q.fake_quant_weight(w.to(cuda), scheme,
+                                       None if a is None else a.to(cuda), block=48)
+            assert torch.equal(card.cpu(), cpu), scheme
+    wb = w.to(torch.bfloat16)
+    assert torch.equal(Q.fake_quant_weight_lp(wb.to(cuda)).cpu(),
+                       Q.fake_quant_weight_lp(wb))

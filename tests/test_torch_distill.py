@@ -184,8 +184,14 @@ def test_fake_quant_matches_jax_with_ste_gradients(dtype):
                                        ** 2), (0, 1))(_j(x), _j(w))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj[0]), rtol=1e-4, atol=1e-7)
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gj[1]), rtol=1e-4, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="absmean"):
-        TQ.fake_quant_weight(_t(w), scheme="blockwise")
+    # the other Table-4 schemes are ported too (tests/test_torch_quant_schemes.py
+    # holds each against JAX); an unknown scheme raises, naming it
+    np.testing.assert_allclose(
+        TQ.fake_quant_weight(_t(w), scheme="blockwise", block=16).numpy(),
+        np.asarray(JQ.fake_quant_weight(_j(w), scheme="blockwise", block=16)),
+        rtol=5e-7, atol=0)
+    with pytest.raises(ValueError, match="'ternary4'"):
+        TQ.fake_quant_weight(_t(w), scheme="ternary4")
 
 
 # -- the states the relation loss distills ----------------------------------------

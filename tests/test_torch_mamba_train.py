@@ -143,10 +143,10 @@ def test_pipeline_distill_stage_drops_relation_kd_and_matches_jax():
                                        err_msg=k)
 
 
-def test_launch_train_runs_mamba_on_cpu(capsys):
+def test_launch_train_runs_mamba_on_cpu(capsys, tmp_path):
     launch_train.main(["--arch", NAME, "--reduced", "--device", "cpu",
                        "--steps", "2", "--batch", "2", "--seq", "32",
-                       "--log-every", "1"])
+                       "--log-every", "1", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert out.count("step ") == 2 and out.strip().endswith("done")
     losses = [float(line.split()[3]) for line in out.splitlines()

@@ -292,12 +292,19 @@ def test_pipeline_stages_match_jax():
 
 # -- the launcher -------------------------------------------------------------------
 
-def test_launch_train_runs_on_cpu_and_refuses_unported_flags(capsys):
+def test_launch_train_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
+    """Checkpoints are ported (each run gets its own ``--ckpt-dir``: the
+    default directory is shared and resumed from); data and tensor
+    parallelism are not, and the parser refuses them."""
     launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                        "--steps", "2", "--batch", "2", "--seq", "16",
-                       "--log-every", "1"])
+                       "--log-every", "1", "--ckpt-dir", str(tmp_path),
+                       "--ckpt-every", "1"])
     out = capsys.readouterr().out
     assert out.count("step ") == 2 and out.strip().endswith("done")
-    for flag in (["--dp", "2"], ["--ckpt-dir", "x"]):
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["LATEST", "step_00000001", "step_00000002"]
+    for flag in (["--dp", "2"], ["--tp", "2"], ["--pods", "2"]):
         with pytest.raises(SystemExit):
-            launch_train.main(["--arch", "qwen3-0.6b", "--device", "cpu", *flag])
+            launch_train.main(["--arch", "qwen3-0.6b", "--device", "cpu",
+                               "--ckpt-dir", str(tmp_path), *flag])
