@@ -20,9 +20,12 @@ result line):
      its device time alone beside the time a caller sees, and its host
      time per call; bitlinear bitwise in both dtypes at seven shapes, timed
      the same way, with its three device kernels (quantizing pass, K-major
-     weight, GEMM) alone; w2a8 bitwise at the five projection shapes on
-     both sides of its route threshold, timed the same way at the decode
-     rows (M=8) and a chunk step's (M=256) beside ``torch._int_mm``;
+     weight, GEMM) alone; w2a8 bitwise at the five projection shapes of
+     qwen3-0.6b and mamba2-780m's two (in_proj N=6448 with its ragged
+     last column tile, out_proj) on both sides of its route threshold
+     (each route forced at the mamba shapes, M = 8, 16, 256), timed the
+     same way at the decode rows (M=8) and a chunk step's (M=256) beside
+     ``torch._int_mm``;
      relation_kd within rtol 1e-5 at L = 256, 300 and 4096 on two input
      recipes and three temperatures, bitwise from run to run, with its
      split plan, timed on both timers with its host time at L = 256 and
@@ -75,6 +78,16 @@ result line):
      peak memory, step time); (d) the Table-4 weight schemes at the
      full-width projection shapes on the card against the CPU, and a
      blockwise CE step;
+ 11. serving ``mamba2-780m`` at full width and depth (packed, bf16) on the
+     contiguous cache through the port's ``Engine``: 16 requests of 8–64
+     prompt tokens x 16 tokens at ``max_batch=16``, w2a8 counted at 96
+     launches a decode pass and the paged kernels at 0, the plain route's
+     greedy tokens identical, step times, tok/s, the state's bytes and a
+     profile's idle share; a request after another in the same slot gives
+     its tokens alone; one transient fault at each of plan, launch and
+     commit (async loop, speculation, supervisor) leaves the tokens; and
+     ``python -m repro_torch.launch.serve --arch mamba2-780m`` exits 0 on
+     the contiguous cache;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -194,6 +207,9 @@ def ulp(t):
 # -- phase 2: kernels against their plain versions ------------------------------
 
 W2A8_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+# mamba2-780m's in_proj (N = 2*3072 + 2*128 + 48: the last 128-column tile
+# of the wgmma route holds 48 columns) and out_proj (phase 11)
+W2A8_MAMBA_SHAPES = [(1536, 6448), (3072, 1536)]
 
 
 def _int_mm_ms(xq, wq, scale, dt, flush):
@@ -220,9 +236,11 @@ def _fmt(v):
 
 def check_w2a8(dev, flush, results):
     """w2a8 at the serving path's five projection shapes (qwen3-0.6b: q/o,
-    k/v, gate/up, down) at the decode rows (M=8) and a chunk step's rows
-    (M = max_batch 8 x chunk 32 = 256), and, where the package routes by M,
-    on both sides of its threshold; fp32 and bf16 bitwise to ``w2a8_ref``
+    k/v, gate/up, down) and mamba2-780m's two (in_proj, out_proj) at the
+    decode rows (M=8) and a chunk step's rows (M = max_batch 8 x chunk 32 =
+    256), and, where the package routes by M, on both sides of its
+    threshold, and at the mamba shapes each route forced at M = 8, 16
+    (phase 11's slots) and 256; fp32 and bf16 bitwise to ``w2a8_ref``
     (integer sums, the same scale in the same order).  In bf16 at M=8 and
     M=256 each shape is timed as a caller sees it and device alone, with
     the wrapper's host time per call, beside the plain version and the
@@ -239,22 +257,26 @@ def check_w2a8(dev, flush, results):
     ms_checked = sorted({1, 8, 64, 256} | (set() if thr is None else {thr, thr + 1}))
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for (k, n) in W2A8_SHAPES:
+    shapes = W2A8_SHAPES + W2A8_MAMBA_SHAPES
+    for (k, n) in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         qw, delta = Q.weight_quant_absmean(w)
         wq = qw.to(torch.int8)
         wp = Q.pack_ternary(wq)
-        for m in ms_checked:
+        forced = [(m, r) for m in (8, 16, 256) for r in ("splitk", "wgmma")
+                  if thr is not None and (k, n) in W2A8_MAMBA_SHAPES]
+        for m, route in [(m, None) for m in ms_checked] + forced:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dt)
-                y = wk.w2a8_kernel(x, wp, delta)
+                y = (wk.w2a8_kernel(x, wp, delta) if route is None
+                     else wk.w2a8_kernel(x, wp, delta, route=route))
                 torch.cuda.synchronize()
                 r = w2a8_ref(x, wp, delta)
                 if not torch.equal(y, r):
                     err = (y.float() - r.float()).abs().max().item()
-                    fail(f"w2a8 M={m} K={k} N={n} {dt}: max err {err} (must "
-                         "be bitwise)")
-                if dt != torch.bfloat16 or m not in (8, 256):
+                    fail(f"w2a8 M={m} K={k} N={n} {dt} route {route or 'by M'}: "
+                         f"max err {err} (must be bitwise)")
+                if dt != torch.bfloat16 or m not in (8, 256) or route:
                     continue
                 ms = both_ms(lambda: wk.w2a8_kernel(x, wp, delta), flush)
                 host = host_us(lambda: wk.w2a8_kernel(x, wp, delta))
@@ -279,7 +301,7 @@ def check_w2a8(dev, flush, results):
     if thr is not None:
         # the threshold's evidence: both routes device alone at M = thr and
         # at the next chunk-step M (2 * thr), in bf16
-        for (k, n) in W2A8_SHAPES:
+        for (k, n) in shapes:
             w = torch.randn((k, n), generator=gen, device=dev) * 0.02
             qw, delta = Q.weight_quant_absmean(w)
             wp = Q.pack_ternary(qw.to(torch.int8))
@@ -301,6 +323,7 @@ def check_w2a8(dev, flush, results):
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         device_ms=head["device_ms"], host_us=head["host_us"],
         shape="M=8 K=1024 N=3072 bf16", split_k_max_m=thr, chunk_step=chunk,
+        mamba_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_MAMBA_SHAPES],
         rows=rows, routes=routes)
 
 
@@ -968,7 +991,7 @@ def serve_full_width(dev, out_dir):
     if hits < 1:
         fail(f"no prefix-cache hit ({st.prefix_cache})")
     for layer in eng._cache:
-        for t in layer.values():
+        for t in layer["attn"].values():
             if not bool(torch.isfinite(t).all()):
                 fail("a KV pool holds non-finite values")
     for name, n in launches.items():
@@ -1006,14 +1029,16 @@ SERVE_KERNELS = {"w2a8_kernel": ("w2a8_kernel", "bitlinear_kernel_quant_rows"),
                  "paged_prefill_kernel": ("paged_prefill_kernel",)}
 
 
-def profile_steps(dev, cfg, model, scfg, prompts, out_dir):
-    """Where the device time of the phase-3 workload goes: fresh engines on
-    the same model serve four of its prompts twice, once timed on the host
-    clock and once under ``torch.profiler`` (both after the counted run, so
-    the counts and step times above carry no profiler cost).  Device time is
-    summed per kernel name from the trace's CUDA events; the idle share is
-    1 - busy / wall, with the wall of the unprofiled pass (the profiler's
-    own host cost would inflate it) over the same deterministic work."""
+def profile_steps(dev, cfg, model, scfg, prompts, out_dir, picks=(2, 3, 6, 8),
+                  name="profile_engine.txt"):
+    """Where the device time of a serving workload goes: fresh engines on
+    the same model serve four of its prompts (``picks``) twice, 8 tokens
+    each, once timed on the host clock and once under ``torch.profiler``
+    (both after the counted run, so the counts and step times above carry
+    no profiler cost).  Device time is summed per kernel name from the
+    trace's CUDA events; the idle share is 1 - busy / wall, with the wall of
+    the unprofiled pass (the profiler's own host cost would inflate it) over
+    the same deterministic work.  The top kernels go to ``out_dir/name``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1021,8 +1046,8 @@ def profile_steps(dev, cfg, model, scfg, prompts, out_dir):
 
     def serve():
         eng = Engine(cfg, model, scfg)
-        for p in (prompts[2], prompts[3], prompts[6], prompts[8]):
-            eng.submit(p, SamplingParams(max_tokens=8, ignore_eos=True))
+        for i in picks:
+            eng.submit(prompts[i], SamplingParams(max_tokens=8, ignore_eos=True))
         steps = 0
         while eng.has_pending():
             eng.step()
@@ -1056,7 +1081,7 @@ def profile_steps(dev, cfg, model, scfg, prompts, out_dir):
         groups[group(n)] = groups.get(group(n), 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     lines = [f"{us / 1e3:10.3f} ms  {us / busy:6.1%}  {n[:110]}" for n, us in top]
-    (out_dir / "profile_engine.txt").write_text(
+    (out_dir / name).write_text(
         f"steps {steps}, wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms\n" + "\n".join(lines) + "\n")
     shares = {k: v / busy for k, v in groups.items()}
@@ -2338,6 +2363,226 @@ def table4_schemes(dev):
     return out
 
 
+# -- phase 11: serving mamba2-780m on the contiguous cache --------------------------
+
+# 16 slots put every decode and chunk pass of w2a8 on its wgmma route
+MAMBA_SERVE = dict(max_batch=16, max_len=128, prefill_chunk=32,
+                   cache_dtype="bfloat16")
+MAMBA_CLI = ["--arch", "mamba2-780m", "--packed", "--requests", "8",
+             "--max-tokens", "16", "--prompt-len", "16"]
+
+
+def _mamba_prompts(vocab: int, seed: int = 7):
+    """Sixteen prompts of 8..64 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(n)).tolist()
+            for n in rng.integers(8, 65, 16)]
+
+
+class _PassCounter:
+    """Counts a model's decode passes (``CausalLM.decode_step`` calls):
+    every pass runs each layer's in_proj and out_proj once."""
+
+    def __init__(self, model):
+        self.n, self._model, inner = 0, model, model.decode_step
+
+        def counted(*a, **kw):
+            self.n += 1
+            return inner(*a, **kw)
+        model.decode_step = counted
+
+    def close(self):
+        del self._model.decode_step
+
+
+def _serve_all(cfg, model, scfg, prompts, step_ms=None):
+    """The prompts at t=0, 16 greedy tokens each, on the synchronous
+    engine; (tokens per prompt, engine)."""
+    import torch
+    from repro_torch.serving import Engine, SamplingParams
+    eng = Engine(cfg, model, scfg)
+    reqs = [eng.submit(p, SamplingParams(max_tokens=16, ignore_eos=True))
+            for p in prompts]
+    while eng.has_pending():
+        ts = time.perf_counter()
+        eng.step()
+        if step_ms is not None:
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    for r in reqs:
+        if not r.done or len(r.output_tokens) != 16 or not all(
+                0 <= t < cfg.vocab for t in r.output_tokens):
+            fail(f"request {r.uid}: done {r.done}, tokens {r.output_tokens}")
+    return [list(r.output_tokens) for r in reqs], eng
+
+
+def serve_mamba(dev, out_dir):
+    """Phase 11: mamba2-780m at full width and depth (48 layers, packed
+    ternary weights from the port's seeded init, bf16) through the port's
+    ``Engine`` on the contiguous cache: (a) 16 requests on the kernel route,
+    w2a8 counted at 96 launches a decode pass and the paged kernels at 0,
+    then on the plain route (``use_kernel=False``) with identical greedy
+    tokens, and a profile of a few steps; (b) a request served after
+    another in the same slot gives its tokens alone; (c) one transient
+    fault at each of plan, launch and commit under the supervisor, through
+    the async loop with speculative launches, leaves (a)'s tokens; (d) the
+    serve launcher with ``--arch mamba2-780m`` exits 0 on the contiguous
+    cache.  Returns the serving kernels' launches in (a) and in (d)."""
+    import asyncio
+    import os
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import AsyncEngine, Engine, SamplingParams, ServeConfig
+    from repro_torch.serving.faults import Fault, FaultPlan
+    from repro_torch.serving.supervisor import ServingSupervisor
+
+    base = get_config("mamba2-780m").replace(compute_dtype="bfloat16")
+    cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
+    t0 = time.perf_counter()
+    model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = _mamba_prompts(cfg.vocab)
+    scfg = ServeConfig(**MAMBA_SERVE)
+    per_pass = 2 * cfg.n_layers
+
+    print("  11a: 16 requests on the kernel route, then the plain route",
+          flush=True)
+    counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+    passes = _PassCounter(model)
+    for c in counters:
+        c.reset()
+    step_ms = []
+    t_run = time.perf_counter()
+    want, eng = _serve_all(cfg, model, scfg, prompts, step_ms)
+    wall = time.perf_counter() - t_run
+    launches = {c.name: c.count for c in counters}
+    n_pass = passes.n
+    passes.close()
+    st = eng.stats()
+    if eng.paged or eng._ring is None:
+        fail(f"mamba2-780m resolved to paged={eng.paged}, ring {eng._ring}")
+    at = eng._ring.committed
+    for t in (eng._ring.state[at], eng._ring.conv[at]):
+        if not bool(torch.isfinite(t).all()):
+            fail("the committed recurrent state holds non-finite values")
+    if launches["w2a8_gemv"] != per_pass * n_pass:
+        fail(f"w2a8 launched {launches['w2a8_gemv']} times over {n_pass} decode "
+             f"passes; want {per_pass} a pass")
+    if launches["paged_attention_decode"] or launches["paged_prefill_chunk"]:
+        fail(f"a paged kernel ran on the contiguous cache: {launches}")
+    state_bytes = eng.kv_cache_bytes()
+    del eng
+    plain_cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=False))
+    plain = build_model(plain_cfg, device=dev)
+    plain.load_state_dict(model.state_dict())
+    t_plain = time.perf_counter()
+    got, eng = _serve_all(plain_cfg, plain, scfg, prompts)
+    plain_wall = time.perf_counter() - t_plain
+    del eng, plain
+    if got != want:
+        first = [(i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+                 for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        fail(f"plain-route greedy tokens differ from the kernel route's "
+             f"(request, first token): {first}")
+    toks = 16 * len(prompts)
+    ordered = sorted(step_ms)
+    pct = {q: ordered[min(len(ordered) - 1, int(q / 100 * len(ordered)))]
+           for q in (50, 90, 99)}
+    summary = dict(model=cfg.name, layers=cfg.n_layers, requests=len(prompts),
+                   prompt_lens=[len(p) for p in prompts], tokens=toks,
+                   wall_s=wall, tok_per_s=toks / wall, steps=len(step_ms),
+                   passes=n_pass, ms_per_pass=wall * 1e3 / n_pass,
+                   step_ms_p50=pct[50], step_ms_p90=pct[90], step_ms_p99=pct[99],
+                   ttft_ms=st.ttft_ms, state_bytes=state_bytes,
+                   plain_wall_s=plain_wall, launches=launches)
+    print(f"    kernel route: {len(prompts)} requests, {toks} tokens in {wall:.2f} s: "
+          f"{toks / wall:.1f} tok/s; {len(step_ms)} steps, {n_pass} decode passes "
+          f"({wall * 1e3 / n_pass:.1f} ms a pass); step ms p50 {pct[50]:.1f} p90 "
+          f"{pct[90]:.1f} p99 {pct[99]:.1f}; state {state_bytes / 2**20:.1f} MiB "
+          f"(3 ring buffers); launches {launches}", flush=True)
+    print(f"    plain route: greedy tokens identical ({len(prompts)} requests x 16), "
+          f"{plain_wall:.2f} s", flush=True)
+    shortest = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:4]
+    summary["profile"] = profile_steps(dev, cfg, model, scfg, prompts, out_dir,
+                                       picks=shortest, name="profile_mamba.txt")
+
+    print("  11b: a request after another in the same slot", flush=True)
+    one = ServeConfig(**dict(MAMBA_SERVE, max_batch=1))
+    a, b = prompts[0][:8], prompts[1][:3]
+    alone = _serve_all(cfg, model, one, [b])[0][0]
+    after = _serve_all(cfg, model, one, [a, b])[0][1]
+    if after != alone:
+        fail(f"slot reuse: {after} after another request, {alone} alone")
+    print("    tokens equal to the request served alone", flush=True)
+
+    print("  11c: one transient fault at each of plan, launch, commit (async "
+          "loop, supervised)", flush=True)
+    plan = FaultPlan([Fault("plan", "raise", at=1),
+                      Fault("launch", "raise", at=3),
+                      Fault("commit", "raise", at=5)])
+
+    def factory():
+        e = Engine(cfg, model, scfg)
+        e.fault_hook = plan.engine_hook
+        return e
+
+    async def faulted():
+        aeng = AsyncEngine(factory(), supervisor=ServingSupervisor(factory))
+        aeng.start()
+        rs = [aeng.submit(p, SamplingParams(max_tokens=16, ignore_eos=True))
+              for p in prompts]
+        await aeng.shutdown()
+        return [list(r.output_tokens) for r in rs], aeng.engine.stats()
+
+    got, fst = asyncio.run(faulted())
+    # each fault is one failure; a fault on a speculative launch drops the
+    # speculation without a retry, the commit's is always retried
+    if plan.unfired() or got != want or fst.step_failures != 3 or \
+            fst.step_retries < 1:
+        fail(f"under transient faults: unfired {plan.unfired()}, tokens "
+             f"{'equal' if got == want else 'differ'}, failures "
+             f"{fst.step_failures}, retries {fst.step_retries}")
+    print(f"    tokens identical, step_failures {fst.step_failures}, "
+          f"step_retries {fst.step_retries}, overlapped "
+          f"{fst.steps_overlapped} of {fst.steps_committed} steps", flush=True)
+    summary["faults"] = dict(failures=fst.step_failures, retries=fst.step_retries,
+                             overlapped=fst.steps_overlapped,
+                             steps=fst.steps_committed)
+    del model
+    torch.cuda.empty_cache()
+
+    print("  11d: the launcher, --arch mamba2-780m", flush=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *MAMBA_CLI]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=600)
+    (out_dir / "serve_cli_mamba.txt").write_text(out.stdout)
+    lines = out.stdout.splitlines()
+    kv = [ln for ln in lines if ln.startswith("[kv-cache] contiguous")]
+    kl = [ln for ln in lines if ln.startswith("[kernels] launches")]
+    if out.returncode != 0 or not kv or not kl:
+        fail(f"the mamba serve launcher exited {out.returncode}: "
+             f"{out.stdout[-2000:]}")
+    cli = {k: int(v) for k, v in (kv_.split("=") for kv_ in kl[0].split()[2:])}
+    if cli["w2a8_gemv"] < per_pass or cli["w2a8_gemv"] % per_pass or \
+            cli["paged_attention_decode"] or cli["paged_prefill_chunk"]:
+        fail(f"the mamba launcher's launches {cli}")
+    print(f"    exit 0 in {time.perf_counter() - t0:.1f} s; {kv[0]}; {kl[0]}",
+          flush=True)
+    summary["cli_launches"] = cli
+    (out_dir / "smoke_mamba_serve.json").write_text(json.dumps(summary, indent=1))
+    return launches, cli
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -2482,6 +2727,12 @@ def main() -> None:
     print("phase 10d: the Table-4 weight schemes, card vs CPU", flush=True)
     phase10["10d"] = table4_schemes(dev)
     (out_dir / "smoke_phase10.json").write_text(json.dumps(phase10, indent=1))
+    # 11. serving mamba2-780m on the contiguous cache, the serving kernels'
+    # counters reset just before the kernel-route run
+    print("phase 11: serving mamba2-780m on the contiguous cache, full width",
+          flush=True)
+    (by_path["serve mamba2-780m"],
+     by_path["serve entry point mamba2-780m"]) = serve_mamba(dev, out_dir)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

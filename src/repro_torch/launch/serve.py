@@ -21,9 +21,9 @@ The student is the QAT model from a ``torch.Generator`` seeded with 0;
 ``--packed`` converts it with the port's per-layer
 ``convert_to_packed``, so every projection runs the w2a8 kernel on the card.
 Compute and KV cache take the config's compute dtype (bf16 at full width,
-fp32 for ``--reduced``).  The port serves attention-only stacks through the
-paged cache: ``--contiguous-kv``, or an arch with another mixer, raises a
-``ValueError`` (the contiguous cache is ROADMAP Queue A 21b).
+fp32 for ``--reduced``).  The cache layout is chosen as in JAX: the paged
+pools for attention-only stacks, the contiguous per-slot cache for an SSM
+stack (``--arch mamba2-780m``) or with ``--contiguous-kv``.
 
 ``--prefix-cache`` / ``--shared-prefixes``, ``--prefill-chunk`` /
 ``--prefill-budget``, ``--max-queue``, ``--deadline-ms``, ``--supervise``
@@ -68,18 +68,14 @@ from repro_torch.serving.tracing import Tracer
 EXIT_CLEAN_DRAIN = 0
 EXIT_RESTART_EXHAUSTED = 17
 
-# the kernels a packed attention-only student serves through; main() zeroes
-# their launch counters once the engine is built, print_stats() reports them
+# the kernels a packed student serves through (a mamba stack or the
+# contiguous cache: w2a8 alone); main() zeroes their launch counters once the
+# engine is built, print_stats() reports them
 SERVING_KERNELS = (w2a8_k.launches, paged_decode_k.launches,
                    paged_prefill_k.launches)
 
 
 def build_engine(args) -> Engine:
-    if args.contiguous_kv:
-        raise ValueError(
-            "--contiguous-kv: the port serves through the paged KV cache "
-            "only; the contiguous cache is not ported yet (ROADMAP Queue A "
-            "21b)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -87,11 +83,6 @@ def build_engine(args) -> Engine:
     if args.block_kv is not None:
         cfg = cfg.replace(block_kv=args.block_kv)
     cfg = cfg.with_quant(Q.QuantConfig(mode="qat", use_kernel=True))
-    if any(s.mixer != "attn" for s in cfg.resolved_pattern()):
-        raise ValueError(
-            f"--arch {args.arch}: the port serves attention-only stacks "
-            "through the paged KV cache; the contiguous cache its mixers "
-            "need is not ported yet (ROADMAP Queue A 21b)")
     model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     if args.packed:
@@ -106,6 +97,9 @@ def build_engine(args) -> Engine:
                        cache_dtype=cfg.compute_dtype,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
+                       # None = auto: paged for attention-only stacks,
+                       # contiguous for SSM caches
+                       paged=False if args.contiguous_kv else None,
                        kv_block_size=args.kv_block_size,
                        num_kv_blocks=args.num_kv_blocks,
                        attn_impl=args.attn_impl,
@@ -115,16 +109,18 @@ def build_engine(args) -> Engine:
                        kv_checksums=args.kv_checksums,
                        journal_dir=args.journal_dir)
     eng = Engine(cfg, model, scfg)
-    mode = f"paged bs={scfg.kv_block_size} blocks={scfg.pool_blocks()}"
+    mode = (f"paged bs={scfg.kv_block_size} blocks={scfg.pool_blocks()}"
+            if eng.paged else "contiguous")
     if eng.prefix_cache is not None:
         mode += ", radix prefix cache"
     if eng.shadow is not None:
         mode += ", sanitized"
     print(f"[kv-cache] {mode}, {scfg.cache_dtype}, "
           f"{eng.kv_cache_bytes() / 2**20:.2f} MiB")
-    print(f"[attn] decode impl = {eng.attn_impl} on {dev}"
-          + (" (the kernels' plain versions)" if eng.attn_impl == "fused"
-             and dev.type == "cpu" else ""))
+    if eng.paged:
+        print(f"[attn] decode impl = {eng.attn_impl} on {dev}"
+              + (" (the kernels' plain versions)" if eng.attn_impl == "fused"
+                 and dev.type == "cpu" else ""))
     if getattr(args, "trace", None):
         eng.tracer = Tracer(clock=eng.clock)
         print(f"[trace] recording spans -> {args.trace}")
@@ -433,7 +429,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "all slots (default: per-slot --prefill-chunk only)")
     ap.add_argument("--contiguous-kv", action="store_true",
                     help="per-slot contiguous KV regions instead of the "
-                         "paged block pool (not ported: raises)")
+                         "paged block pool")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="tokens per paged-KV block")
     ap.add_argument("--num-kv-blocks", type=int, default=None,

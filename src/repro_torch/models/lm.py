@@ -73,19 +73,24 @@ class CausalLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> List[LayerCache]:
-        """Per-layer ``{"k","v"}`` [batch, Hkv, max_len, Dh]; the serving
-        engine builds its block pools with batch = num_blocks and max_len =
-        block_size."""
+        """Per layer ``{"attn": {"k","v"} [batch, Hkv, max_len, Dh]}`` or
+        ``{"mamba": {"state","conv"}}``; the serving engine builds its block
+        pools with batch = num_blocks and max_len = block_size."""
         return self.stack.init_cache(batch, max_len, dtype, device)
 
     def decode_step(self, token: torch.Tensor, cache: List[LayerCache],
-                    cache_index: torch.Tensor, block_tables: torch.Tensor,
-                    attn_impl: str = "gather"
+                    cache_index: torch.Tensor,
+                    block_tables: Optional[torch.Tensor] = None,
+                    attn_impl: str = "gather",
+                    keep: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, List[LayerCache]]:
-        """token [B] -> (logits [B, V], cache updated in place)."""
+        """token [B] -> (logits [B, V], cache updated in place).
+        ``block_tables`` (int32 [B, L]) selects the paged pools, None the
+        contiguous cache; ``keep`` (bool [B]) leaves the recurrent state of
+        the rows where it is False as it was (``Block.decode``)."""
         x = self._embed_tokens(token[:, None])
         x, cache = self.stack.decode(x, cache, cache_index, block_tables,
-                                     attn_impl)
+                                     attn_impl, keep)
         return self._logits(self.final_norm(x))[:, 0], cache
 
     def decode_chunk(self, tokens: torch.Tensor, cache: List[LayerCache],

@@ -1,11 +1,13 @@
 """Grouped-query self-attention with BitLinear projections, qk_norm, RoPE,
-SubLN, and decode over the paged KV pools — port of ``repro/nn/attention.py``.
+SubLN, and decode over the paged KV pools or the contiguous cache — port of
+``repro/nn/attention.py``.
 
 Layouts: activations [B, S, D]; per-head tensors [B, S, H, Dh]; paged pools
-``{"k","v"}`` [num_blocks, Hkv, block_size, Dh], updated in place (the JAX
-module returns new pools; here the step's K/V are stored into the caller's
-tensors).  All softmax math in fp32.  Contiguous-cache ``decode``, the
-blocked (flash-style) forward and cross-attention come with later slices.
+``{"k","v"}`` [num_blocks, Hkv, block_size, Dh] and the contiguous cache
+``{"k","v"}`` [B, Hkv, max_len, Dh], both updated in place (the JAX module
+returns new ones; here the step's K/V are stored into the caller's
+tensors).  All softmax math in fp32.  The blocked (flash-style) forward
+and cross-attention are not ported.
 """
 from __future__ import annotations
 
@@ -132,15 +134,19 @@ class Attention(nn.Module):
                    "k": rep(k).permute(0, 2, 1, 3),
                    "v": rep(v).permute(0, 2, 1, 3)}
 
-    # -- decode over the paged pools ---------------------------------------------
+    # -- decode over the paged pools or the contiguous cache -----------------------
 
     def decode(self, x: torch.Tensor, cache: Cache, cache_index: torch.Tensor,
-               block_tables: torch.Tensor, attn_impl: str = "gather"
-               ) -> Tuple[torch.Tensor, Cache]:
+               block_tables: Optional[torch.Tensor] = None,
+               attn_impl: str = "gather") -> Tuple[torch.Tensor, Cache]:
         """One token per row: x [B, 1, D]; ``cache_index`` int32 [B] holds each
-        row's write position; row ``b``'s position ``i`` lives in pool block
-        ``block_tables[b, i // bs]`` at offset ``i % bs``.
+        row's write position.
 
+        ``block_tables=None``: the contiguous cache [B, Hkv, max_len, Dh];
+        row ``b`` writes its K/V at ``cache_index[b]`` and attends its
+        positions ``<= cache_index[b]`` with dense fp32 attention
+        (``attn_impl`` is not read).  Otherwise row ``b``'s position ``i``
+        lives in pool block ``block_tables[b, i // bs]`` at offset ``i % bs``:
         ``attn_impl="fused"`` runs the paged decode kernel (the plain PyTorch
         version for CPU tensors); ``"gather"`` runs that plain version on any
         device: it writes the new K/V, gathers the whole table into a dense
@@ -150,6 +156,16 @@ class Attention(nn.Module):
         positions = idx[:, None]
         q = self._project_q(x, positions)
         k_new, v_new = self._project_kv(x, positions)           # [B, 1, Hkv, Dh]
+        if block_tables is None:
+            kc, vc = cache["k"], cache["v"]
+            rows, at = torch.arange(b, device=x.device), idx.long()
+            kc[rows, :, at] = k_new[:, 0].to(kc.dtype)
+            vc[rows, :, at] = v_new[:, 0].to(vc.dtype)
+            t = kc.shape[2]
+            mask = torch.arange(t, device=x.device)[None, :] <= idx[:, None]
+            ctx = self._attend(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                               mask[:, None, None, :])
+            return self._out(ctx), cache
         attend = _pick(attn_impl, pa_ops.paged_attention_decode,
                        pa_ops.paged_attention_decode_plain)
         ctx, _, _ = attend(q[:, 0], k_new[:, 0], v_new[:, 0], cache["k"],

@@ -7,13 +7,15 @@ re-exported here under the JAX module's names.  ``Mamba2Block.forward``
 runs the SSD through ``kernels/ssd_scan/ops.ssd_scan``: the hand-written
 kernel on the card, ``ssd_chunked`` on the CPU.  BitLinear applies to
 ``in_proj`` / ``out_proj``; the gated RMSNorm before ``out_proj`` is the
-paper's SubLN placement.  ``init_cache`` / ``decode`` (SSM serving) are not
-ported yet.
+paper's SubLN placement.  ``init_cache`` / ``decode`` keep the O(1)
+recurrent state [B, H, P, N] (fp32) and the (k-1)-deep conv tail that serving
+runs on; ``decode`` advances them in place, where the JAX module returns new
+ones.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -79,12 +81,18 @@ class Mamba2Block(nn.Module):
         return (zxbcdt[..., :di], zxbcdt[..., di:di + self.conv_dim],
                 zxbcdt[..., di + self.conv_dim:])
 
-    def _conv(self, xbc: torch.Tensor) -> torch.Tensor:
+    def _conv(self, xbc: torch.Tensor,
+              hist: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Causal depthwise conv over [B, S, conv_dim] in fp32, then SiLU,
-        back in the input dtype."""
+        back in the input dtype.  ``hist`` [B, k-1+S, conv_dim] (decode: the
+        cached tail, then ``xbc`` in the cache's dtype) replaces the zero
+        history."""
         k, s = self.conv_kernel, xbc.shape[1]
         w = self.conv_w.to(torch.float32)                            # [k, c]
-        pad = torch.nn.functional.pad(xbc.to(torch.float32), (0, 0, k - 1, 0))
+        if hist is None:
+            pad = torch.nn.functional.pad(xbc.to(torch.float32), (0, 0, k - 1, 0))
+        else:
+            pad = hist.to(torch.float32)
         out = pad[:, 0:s, :] * w[0]
         for i in range(1, k):
             out = out + pad[:, i:i + s, :] * w[i]
@@ -118,4 +126,46 @@ class Mamba2Block(nn.Module):
         y = y * silu(z)
         if self.norm is not None:
             y = self.norm(y)
+        return self.out_proj(y)
+
+    # -- decode (single token, recurrent state) ----------------------------------
+
+    def init_cache(self, batch: int, dtype: torch.dtype,
+                   device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+        """``state`` fp32 [B, H, P, N] and the conv tail ``conv`` [B, k-1,
+        conv_dim] in the cache dtype, both zero."""
+        return {"state": torch.zeros((batch, self.n_heads, self.head_dim,
+                                      self.d_state), dtype=torch.float32,
+                                     device=device),
+                "conv": torch.zeros((batch, self.conv_kernel - 1, self.conv_dim),
+                                    dtype=dtype, device=device)}
+
+    def decode(self, u: torch.Tensor, cache: Dict[str, torch.Tensor],
+               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """u [B, 1, D] -> y [B, 1, D]; advances ``cache`` in place.  With
+        ``keep`` (bool [B]) a row where it is False leaves its state and
+        tail as they were: the JAX engine's ``where(keep, new, old)`` over
+        the cache, done at the one place the cache is written."""
+        b = u.shape[0]
+        di, n, h, p = self.d_inner, self.d_state, self.n_heads, self.head_dim
+        z, xbc_new, dt_raw = self._split(self.in_proj(u))
+        conv, st = cache["conv"], cache["state"]
+        hist = torch.cat([conv, xbc_new.to(conv.dtype)], dim=1)       # [B, k, c]
+        xbc = self._conv(xbc_new, hist)
+        x = xbc[:, 0, :di].reshape(b, h, p).to(torch.float32)
+        B = xbc[:, 0, di:di + n].to(torch.float32)
+        C = xbc[:, 0, di + n:].to(torch.float32)
+        a, dt = self._gates(dt_raw[:, 0])                            # [B, H]
+        new = st * a[:, :, None, None] + (dt[:, :, None] * x)[..., None] * B[:, None, None, :]
+        y = torch.einsum("bhpn,bn->bhp", new, C) + self.D[:, None] * x
+        y = y.reshape(b, 1, di).to(u.dtype) * silu(z)
+        if self.norm is not None:
+            y = self.norm(y)
+        tail = hist[:, 1:]
+        if keep is None:
+            st.copy_(new)
+            conv.copy_(tail)
+        else:
+            st.copy_(torch.where(keep[:, None, None, None], new, st))
+            conv.copy_(torch.where(keep[:, None, None], tail, conv))
         return self.out_proj(y)

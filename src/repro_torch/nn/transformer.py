@@ -11,9 +11,10 @@ each block in the backward with ``torch.utils.checkpoint``
 ``"dots"`` saves the outputs of its matmuls with no batch dimensions
 (``aten.mm``/``aten.addmm``, the projections of the plain route; JAX's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, and
-``"none"`` does not rematerialize.  The paged cache is a per-layer
-list of ``{"k","v"}`` pools [N, Hkv, bs, Dh] that the attention layers
-update in place; mamba layers have no decode path yet.
+``"none"`` does not rematerialize.  The decode cache is a per-layer list
+of ``{"attn": {"k","v"}}`` (paged pools [N, Hkv, bs, Dh] or the contiguous
+[B, Hkv, max_len, Dh]) or ``{"mamba": {"state","conv"}}``, which the layers
+update in place.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
 from repro_torch.nn.ssm import Mamba2Block
 
-LayerCache = Dict[str, torch.Tensor]
+LayerCache = Dict[str, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,27 +120,43 @@ class Block(nn.Module):
             return x
         return x, torch.stack([aux["q"], aux["k"], aux["v"]])
 
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
+                   device: Optional[torch.device] = None) -> LayerCache:
+        if self.mamba is not None:
+            return {"mamba": self.mamba.init_cache(batch, dtype, device)}
+        return {"attn": self.attn.init_cache(batch, max_len, dtype, device)}
+
     def decode(self, x: torch.Tensor, cache: LayerCache,
-               cache_index: torch.Tensor, block_tables: torch.Tensor,
-               attn_impl: str = "gather") -> torch.Tensor:
-        h, _ = self._decode_attn().decode(self.norm1(x), cache, cache_index,
-                                          block_tables, attn_impl=attn_impl)
+               cache_index: torch.Tensor,
+               block_tables: Optional[torch.Tensor] = None,
+               attn_impl: str = "gather",
+               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One token per row, the cache updated in place.  ``keep`` (bool
+        [B]) reaches the mamba mixer only: a row where it is False leaves
+        its recurrent state as it was.  Attention writes need no mask: the
+        engine replays a masked row's last (token, position), which
+        rewrites the same K/V."""
+        if self.mamba is not None:
+            return self._ffn(x + self.mamba.decode(self.norm1(x), cache["mamba"],
+                                                   keep))
+        h, _ = self.attn.decode(self.norm1(x), cache["attn"], cache_index,
+                                block_tables, attn_impl=attn_impl)
         return self._ffn(x + h)
 
     def decode_chunk(self, x: torch.Tensor, cache: LayerCache,
                      start: torch.Tensor, lens: torch.Tensor,
                      block_tables: torch.Tensor,
                      attn_impl: str = "gather") -> torch.Tensor:
-        h, _ = self._decode_attn().decode_chunk(self.norm1(x), cache, start,
-                                                lens, block_tables,
-                                                attn_impl=attn_impl)
-        return self._ffn(x + h)
-
-    def _decode_attn(self) -> Attention:
+        """Chunked-prefill step over the paged pools: self-attention blocks
+        only, as in JAX (the engine serves other mixers by a scan of
+        decode steps)."""
         if self.attn is None:
-            raise NotImplementedError("decode of a mamba layer (Mamba2Block."
-                                      "init_cache/decode) is not ported yet")
-        return self.attn
+            raise ValueError(
+                f"decode_chunk supports pure self-attention blocks; mixer "
+                f"{self.spec.mixer!r} has no chunked paged path")
+        h, _ = self.attn.decode_chunk(self.norm1(x), cache["attn"], start,
+                                      lens, block_tables, attn_impl=attn_impl)
+        return self._ffn(x + h)
 
 
 # matmuls with no batch dimensions (a 3-d ``x @ w`` reaches ``aten.mm``);
@@ -216,14 +233,16 @@ class Stack(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> List[LayerCache]:
-        return [blk._decode_attn().init_cache(batch, max_len, dtype, device)
+        return [blk.init_cache(batch, max_len, dtype, device)
                 for blk in self.layers]
 
     def decode(self, x: torch.Tensor, cache: List[LayerCache],
-               cache_index: torch.Tensor, block_tables: torch.Tensor,
-               attn_impl: str = "gather") -> Tuple[torch.Tensor, List[LayerCache]]:
+               cache_index: torch.Tensor,
+               block_tables: Optional[torch.Tensor] = None,
+               attn_impl: str = "gather", keep: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, List[LayerCache]]:
         for blk, c in zip(self.layers, cache):
-            x = blk.decode(x, c, cache_index, block_tables, attn_impl)
+            x = blk.decode(x, c, cache_index, block_tables, attn_impl, keep)
         return x, cache
 
     def decode_chunk(self, x: torch.Tensor, cache: List[LayerCache],

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine — port of ``repro/serving/engine.py``
-for the paged KV cache.
+over the paged KV cache or the contiguous per-slot cache.
 
 Same lifecycle as the JAX engine: ``submit()`` enqueues a
 :class:`GenerationRequest`; ``step()`` is plan -> launch -> commit, where
@@ -31,7 +31,18 @@ through pinned memory with ``non_blocking`` copies, so a launch never waits
 for the device; each launch then copies its sampled tokens into a pinned
 host buffer of its own and records a CUDA event after the copy, and the
 step's one sync (:meth:`Engine.sync_tokens`) waits on that event alone.
-Not ported: the contiguous cache (``paged=False``, ROADMAP Queue A 21b).
+
+``ServeConfig.paged`` picks the cache layout as in JAX: paged for
+attention-only stacks, contiguous [slots, max_len] otherwise (an SSM stack
+such as ``mamba2-780m`` keeps a recurrent state and a conv tail per slot).
+On the contiguous cache every chunk step is a sequential scan of decode
+steps with per-row masking.  Three faults of the JAX engine on this path
+are repaired here (ROADMAP Queue C): a request whose first chunk starts at
+position 0 starts from a zero recurrent state, where JAX carries over the
+slot's previous request's; a failed step leaves the committed recurrent
+state as it was, where JAX's relaunch advances it a second time
+(:class:`RecurrentRing`); and a budget-stalled row's state does not
+advance, where JAX's advances on a pad token.
 """
 from __future__ import annotations
 
@@ -71,6 +82,10 @@ class ServeConfig:
     prefill_chunk: int = 32
     # cap on total chunk tokens per step across slots (None = no cap)
     prefill_budget: Optional[int] = None
+    # True / False force the paged / contiguous cache; None picks paged for
+    # attention-only stacks and contiguous for the rest (SSM caches have no
+    # paged layout)
+    paged: Optional[bool] = None
     kv_block_size: int = 16          # tokens per KV block
     # pool size incl. the reserved trash block; None = full capacity
     num_kv_blocks: Optional[int] = None
@@ -113,6 +128,14 @@ class ServeConfig:
             raise ValueError(
                 f"prefix_cache_blocks={self.prefix_cache_blocks} must be "
                 ">= 1 or None")
+        if self.prefix_cache and self.paged is False:
+            raise ValueError(
+                "prefix_cache=True shares paged KV blocks; it requires the "
+                "paged cache (ServeConfig(paged=True) or auto)")
+        if self.sanitize and self.paged is False:
+            raise ValueError(
+                "sanitize=True shadows the paged block pool; it requires "
+                "the paged cache (ServeConfig(paged=True) or auto)")
         if self.prefill_budget is not None and self.prefill_budget < 1:
             raise ValueError(
                 f"prefill_budget={self.prefill_budget} must be >= 1 or None "
@@ -172,34 +195,91 @@ class InflightStep:
     write_blocks: Optional[List[int]] = None
     host: Optional[torch.Tensor] = None
     ready: Optional["torch.cuda.Event"] = None
+    ring: Optional[int] = None     # its RecurrentRing buffer (SSM stacks)
+
+
+class RecurrentRing:
+    """The recurrent (SSM) leaves of the contiguous cache in a ring of three
+    buffers: the committed state, the in-flight step's and the speculative
+    step's.  A launch copies its predecessor's buffer (the committed one, or
+    that of the in-flight step it is fed from) into a buffer that is neither
+    and runs in place there; a commit publishes its buffer by moving
+    ``committed``; a failed step's buffer is dropped, so its relaunch reads
+    the committed state again.  Each buffer is one flat tensor per leaf kind
+    ([3, layers, B, ...]), so a copy or a reset is one operation.  Attention
+    K/V needs no ring: a replayed step rewrites the same values."""
+
+    def __init__(self, cache: List[Dict[str, Dict[str, torch.Tensor]]]):
+        layers = [i for i, layer in enumerate(cache) if "mamba" in layer]
+        st = cache[layers[0]]["mamba"]["state"]
+        cv = cache[layers[0]]["mamba"]["conv"]
+        self.state = st.new_zeros((3, len(layers)) + tuple(st.shape))
+        self.conv = cv.new_zeros((3, len(layers)) + tuple(cv.shape))
+        self.views = []
+        for r in range(3):
+            view = list(cache)         # the attention layers' dicts are shared
+            for j, i in enumerate(layers):
+                view[i] = {"mamba": {"state": self.state[r, j],
+                                     "conv": self.conv[r, j]}}
+            self.views.append(view)
+        self.committed = 0
+
+    def begin(self, pred: Optional[int], fresh: Optional[torch.Tensor]) -> int:
+        """Claim a buffer for a launch fed from buffer ``pred`` (None: the
+        committed state): copy ``pred`` into it and zero the rows where
+        ``fresh`` (bool [B]) is set.  Returns the buffer's index."""
+        src = self.committed if pred is None else pred
+        own = next(r for r in range(3) if r not in (src, self.committed))
+        self.state[own].copy_(self.state[src])
+        self.conv[own].copy_(self.conv[src])
+        if fresh is not None:
+            self.state[own].masked_fill_(fresh[None, :, None, None, None], 0)
+            self.conv[own].masked_fill_(fresh[None, :, None, None], 0)
+        return own
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.state, self.conv))
 
 
 class Engine:
     """Continuous-batching facade: ``submit() / step() / stream()`` plus the
-    blocking ``generate()`` wrapper.  ``model`` is a paged-capable
-    ``CausalLM`` (attention-only stack); the engine runs on its device."""
+    blocking ``generate()`` wrapper.  ``model`` is a ``CausalLM``; the engine
+    runs on its device."""
 
     def __init__(self, cfg: ModelConfig, model: CausalLM,
                  scfg: Optional[ServeConfig] = None,
                  clock: Optional[Clock] = None):
         self.clock = clock if clock is not None else Clock()
         self.scfg = scfg if scfg is not None else ServeConfig()
-        if any(s.mixer != "attn" for s in cfg.resolved_pattern()):
+        attn_only = all(s.mixer == "attn" for s in cfg.resolved_pattern())
+        if self.scfg.paged and not attn_only:
             raise ValueError(
-                f"config {cfg.name!r}: the paged engine serves attention-only "
-                "stacks; the contiguous cache is not ported yet (ROADMAP "
-                "Queue A 21b)")
-        self.paged = True
+                "paged KV cache supports attention-only decoder stacks; "
+                f"config {cfg.name!r} has mixers "
+                f"{[s.mixer for s in cfg.resolved_pattern()]} — pass "
+                "ServeConfig(paged=False) for the contiguous cache")
+        self.paged = attn_only if self.scfg.paged is None else self.scfg.paged
         self.cfg, self.model = cfg, model
         self.device = model.vocab_mask.device
         impl = self.scfg.attn_impl
         if impl == "auto":
-            impl = "fused" if self.device.type == "cuda" else "gather"
+            impl = ("fused" if self.paged and self.device.type == "cuda"
+                    else "gather")
+        if impl == "fused" and not self.paged:
+            raise ValueError(
+                "attn_impl='fused' selects the paged-pool kernels; they "
+                "require the paged KV cache (ServeConfig(paged=True))")
         self.attn_impl = impl
-        self.allocator = BlockAllocator(self.scfg.pool_blocks(),
-                                        self.scfg.kv_block_size)
+        self.allocator = (BlockAllocator(self.scfg.pool_blocks(),
+                                         self.scfg.kv_block_size)
+                          if self.paged else None)
         self.prefix_cache: Optional[RadixPrefixCache] = None
         if self.scfg.prefix_cache:
+            if not self.paged:
+                raise ValueError(
+                    "prefix_cache=True requires the paged KV cache; this "
+                    "model resolved to the contiguous layout — pass "
+                    "ServeConfig(paged=True) for an attention-only stack")
             self.prefix_cache = RadixPrefixCache(
                 self.allocator, self.scfg.prefix_cache_blocks)
             # alloc() LRU-evicts cached-but-unreferenced prefix blocks
@@ -216,6 +296,11 @@ class Engine:
         # reference means, launch and commit check write-sets and the mirror
         self.shadow = None
         if self.scfg.sanitize:
+            if not self.paged:
+                raise ValueError(
+                    "sanitize=True shadows the paged block pool; this model "
+                    "resolved to the contiguous layout — pass "
+                    "ServeConfig(paged=True) for an attention-only stack")
             from repro_torch.analysis.shadow import ShadowBlockPool
             self.shadow = ShadowBlockPool(self.allocator.num_blocks,
                                           self.allocator.block_size,
@@ -268,7 +353,9 @@ class Engine:
         self.recorder = None
         # live decode state, allocated on first admission; idle rows hold
         # pad_id so their (discarded) compute never reads a dead request
-        self._cache: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._cache: Optional[List[Dict[str, Dict[str, torch.Tensor]]]] = None
+        # the recurrent leaves' ring (contiguous SSM stacks), built with it
+        self._ring: Optional[RecurrentRing] = None
         self._tokens = np.full((self.scfg.max_batch,), self.scfg.pad_id,
                                np.int32)
         self._gens: List[Optional[torch.Generator]] = [None] * self.scfg.max_batch
@@ -367,10 +454,12 @@ class Engine:
              lambda: self._degrade_tier,
              "graceful-degradation tier (EngineStats.degrade_tier)"),
             ("serving_kv_blocks_free", "gauge",
-             lambda: self.allocator.available(),
+             lambda: (self.allocator.available()
+                      if self.allocator is not None else 0),
              "allocatable KV blocks (EngineStats.blocks_free)"),
             ("serving_kv_blocks_in_use", "gauge",
-             lambda: self.allocator.blocks_in_use(),
+             lambda: (self.allocator.blocks_in_use()
+                      if self.allocator is not None else 0),
              "referenced KV blocks (EngineStats.blocks_in_use)"),
         ):
             reg.register_callback(name, kind, fn, help_)
@@ -405,24 +494,32 @@ class Engine:
                            self._gens, draw)
         return guard_nonfinite(nxt, last)
 
-    def _chunk_scan_paged_impl(self, tokens: torch.Tensor, start: torch.Tensor,
-                               lens: torch.Tensor, draw: Sequence[int],
-                               block_tables: torch.Tensor) -> torch.Tensor:
-        """Sequential chunk scan over the paged pools: the ``prefill_chunk=0``
-        stop-the-world baseline.  Row ``b`` at scan index ``j`` replays
-        position ``start + min(j, lens - 1)`` with its own token once
-        ``j >= lens``: the KV projection depends only on (token, position),
-        so the rewrite stores identical values, and the row's logits were
-        already captured at ``j == lens - 1``."""
+    def _chunk_scan_impl(self, tokens: torch.Tensor, start: torch.Tensor,
+                         lens: torch.Tensor, adv: torch.Tensor,
+                         draw: Sequence[int],
+                         block_tables: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """Sequential chunk scan of decode steps: every chunk step of the
+        contiguous cache, and the ``prefill_chunk=0`` stop-the-world
+        baseline of the paged pools.  Row ``b`` at pass ``j`` runs position
+        ``start + min(j, lens - 1)`` with its token there: once ``j >= lens``
+        it replays its last (token, position), which rewrites the same
+        attention K/V, and the mask ``j < adv`` leaves its recurrent state
+        as it was (``adv`` is ``lens`` for a row that advances, 0 for a
+        budget-stalled or idle one).  Its logits are taken at
+        ``j == lens - 1``.  ``tokens`` is cut to the longest row: a later
+        pass would change nothing."""
         b, slen = tokens.shape
         rows = torch.arange(b, device=self.device)
         last = None
         for j in range(slen):
             jj = torch.clamp(lens - 1, max=j)
             tok = tokens[rows, jj.long()]
+            keep = adv > j if self._ring is not None else None
             logits, _ = self.model.decode_step(tok, self._cache, start + jj,
                                                block_tables,
-                                               attn_impl=self.attn_impl)
+                                               attn_impl=self.attn_impl,
+                                               keep=keep)
             take = (lens - 1 == j)[:, None]
             last = logits if last is None else torch.where(take, logits, last)
         nxt = sample_batch(last, self.sched.temperatures, self.sched.top_ps,
@@ -574,6 +671,7 @@ class Engine:
         if self.shadow is not None:
             write_blocks = self._sanitize_writes(plan)
         with torch.no_grad():
+            ring = self._begin_ring(plan, feed)
             if plan.chunks or plan.stalled:
                 tok = self._launch_chunk(plan)
             else:
@@ -584,7 +682,29 @@ class Engine:
             self.tracer.launch_span(t_launch, launched_at,
                                     self._steps_committed, plan.spec)
         return InflightStep(plan=plan, tok=tok, launched_at=launched_at,
-                            write_blocks=write_blocks, host=host, ready=ready)
+                            write_blocks=write_blocks, host=host, ready=ready,
+                            ring=ring)
+
+    def _begin_ring(self, plan: StepPlan,
+                    feed: Optional[InflightStep]) -> Optional[int]:
+        """Point the cache at a fresh ring buffer for this launch (SSM
+        stacks): a speculative launch reads the buffer of the step it is fed
+        from, any other the committed state.  A row whose chunk starts at
+        position 0 is a new request and starts from zero state and tail:
+        contiguous serving has no prefix cache or preemption, so nothing
+        else starts there."""
+        if self._ring is None:
+            return None
+        pred = feed.ring if plan.spec and feed is not None else None
+        rows = [s for s in plan.chunks if plan.positions[s] == 0]
+        fresh = None
+        if rows:
+            mask = np.zeros((self.scfg.max_batch,), bool)
+            mask[rows] = True
+            fresh = self._to_device(mask)
+        own = self._ring.begin(pred, fresh)
+        self._cache = self._ring.views[own]
+        return own
 
     def _stage_tokens(self, tok: torch.Tensor):
         """On the card: copy the sampled tokens into the next pinned host
@@ -636,6 +756,8 @@ class Engine:
                 self.fault_hook("commit", ctx)
                 tok_np = ctx["tok"]
             self._validate_tokens(plan, tok_np)
+            if inflight.ring is not None:
+                self._ring.committed = inflight.ring   # publish the state
             now = self.clock.now()
             step_id = self._steps_committed
             self._steps_committed += 1
@@ -802,7 +924,8 @@ class Engine:
         non-finite sentinel in a row the commit will reject cannot index the
         embedding out of range)."""
         positions = plan.positions
-        bt = self._table(int(positions[plan.active].max()) + 1)
+        bt = (self._table(int(positions[plan.active].max()) + 1)
+              if self.paged else None)
         if plan.spec and feed is not None:
             toks = torch.clamp(feed.tok, min=0)
         else:
@@ -811,11 +934,11 @@ class Engine:
         return self._decode_impl(toks, index, bt, plan.active)
 
     def _launch_chunk(self, plan: StepPlan) -> torch.Tensor:
-        """Fused chunk-step dispatch: prefilling slots advance their planned
+        """Chunk-step dispatch: prefilling slots advance their planned
         chunk, decoding slots their one token.  Budget-stalled slots ride
         along as emit-less length-1 pad rows (their stale KV write is
         rewritten identically by the real chunk before anything attends
-        it)."""
+        it; their recurrent state does not advance)."""
         sc, scfg = self.sched, self.scfg
         chunks = plan.chunks
         max_l = max(chunks.values()) if chunks else 1
@@ -826,41 +949,48 @@ class Engine:
         toks = np.full((scfg.max_batch, t), scfg.pad_id, np.int32)
         start = plan.positions.copy()
         lens = np.ones((scfg.max_batch,), np.int32)
+        adv = np.zeros((scfg.max_batch,), np.int32)
         draw: List[int] = []
         for slot in plan.active:
             n = chunks.get(slot)
             if n is not None:
                 toks[slot, :n] = sc.pending[slot][:n]
-                lens[slot] = n
+                lens[slot] = adv[slot] = n
                 if n == len(sc.pending[slot]):      # prompt exhausted
                     draw.append(slot)
             elif slot in plan.stalled:
                 pass                   # emit-less pad row
             else:
                 toks[slot, 0] = self._tokens[slot]
+                adv[slot] = 1
                 draw.append(slot)
-        depth = max(int(start[s]) + int(lens[s]) for s in plan.active)
-        bt = self._table(depth)
-        args = (self._to_device(toks), self._to_device(start),
-                self._to_device(lens), draw, bt)
-        if scfg.prefill_chunk > 0:
-            return self._chunk_step_impl(*args)
-        return self._chunk_scan_paged_impl(*args)
+        bt = None
+        if self.paged:
+            bt = self._table(max(int(start[s]) + int(lens[s]) for s in plan.active))
+            if scfg.prefill_chunk > 0:
+                return self._chunk_step_impl(
+                    self._to_device(toks), self._to_device(start),
+                    self._to_device(lens), draw, bt)
+        return self._chunk_scan_impl(
+            self._to_device(toks[:, :max_l]), self._to_device(start),
+            self._to_device(lens), self._to_device(adv), draw, bt)
 
     # -- device-memory integrity (ServeConfig.kv_checksums) --------------------
 
-    def _pool_leaves(self) -> List[torch.Tensor]:
-        """Every layer's K and V pool [num_blocks, Hkv, bs, Dh], layers in
-        order, K before V: the fixed order of the block digests."""
+    def _kv_leaves(self) -> List[torch.Tensor]:
+        """Every attention layer's K and V (the pools [num_blocks, Hkv, bs,
+        Dh] when paged), layers in order, K before V: the fixed order of the
+        block digests."""
         self._ensure_state()
-        return [layer[k] for layer in self._cache for k in sorted(layer)]
+        return [layer["attn"][k] for layer in self._cache if "attn" in layer
+                for k in ("k", "v")]
 
     def _kv_block_digests(self, blocks: Sequence[int]) -> Dict[int, int]:
         """crc32 per requested pool block over every pool's rows of that
-        block, in :meth:`_pool_leaves` order.  The blocks are gathered on
+        block, in :meth:`_kv_leaves` order.  The blocks are gathered on
         the device and read back as bytes (bf16 has no numpy dtype): the
         ``kv_checksums`` debug cost."""
-        leaves = self._pool_leaves()
+        leaves = self._kv_leaves()
         idx = torch.tensor([int(b) for b in blocks], dtype=torch.long)
         host = [leaf.index_select(0, idx.to(leaf.device)).contiguous()
                 .view(torch.uint8).cpu().numpy() for leaf in leaves]
@@ -923,7 +1053,7 @@ class Engine:
         (``mode='bitflip'``)."""
         rng = np.random.default_rng(seed)
         with torch.no_grad():
-            for leaf in self._pool_leaves():
+            for leaf in self._kv_leaves():
                 rows = leaf[block]
                 if mode == "bitflip":
                     flat = rows.view(torch.uint8).reshape(-1)
@@ -1034,7 +1164,8 @@ class Engine:
         def rejected(prompt):
             if not prompt or len(prompt) + 1 > self.scfg.max_len:
                 return True
-            return (self.allocator.blocks_for(len(prompt) + 1)
+            return (self.allocator is not None and
+                    self.allocator.blocks_for(len(prompt) + 1)
                     > self.allocator.allocatable)
 
         bad = [r.uid for r in requests
@@ -1066,12 +1197,21 @@ class Engine:
     # -- internals ------------------------------------------------------------------
 
     def _ensure_state(self) -> None:
-        if self._cache is None:
+        if self._cache is not None:
+            return
+        dt = torch_dtype(self.scfg.cache_dtype)
+        if self.paged:
             # the block pool is an init_cache with batch = num_blocks and
             # per-"row" length block_size: [N, Hkv, bs, Dh] per layer
             self._cache = self.model.init_cache(
-                self.scfg.pool_blocks(), self.scfg.kv_block_size,
-                torch_dtype(self.scfg.cache_dtype), self.device)
+                self.scfg.pool_blocks(), self.scfg.kv_block_size, dt,
+                self.device)
+            return
+        self._cache = self.model.init_cache(self.scfg.max_batch,
+                                            self.scfg.max_len, dt, self.device)
+        if any("mamba" in layer for layer in self._cache):
+            self._ring = RecurrentRing(self._cache)
+            self._cache = self._ring.views[self._ring.committed]
 
     def stats(self) -> EngineStats:
         """Snapshot of the engine's counters, latency percentiles (``None``
@@ -1099,8 +1239,8 @@ class Engine:
             queue_wait_ms=pct(self._queue_wait_ms),
             e2e_latency_ms=pct(self._e2e_ms),
             step_gap_ms=pct(self._step_gap_ms),
-            blocks_in_use=alloc.blocks_in_use(),
-            blocks_free=alloc.available(),
+            blocks_in_use=None if alloc is None else alloc.blocks_in_use(),
+            blocks_free=None if alloc is None else alloc.available(),
             prefix_cache=(None if self.prefix_cache is None
                           else self.prefix_cache.stats()),
             sanitizer=(None if self.shadow is None
@@ -1122,9 +1262,11 @@ class Engine:
                              else self.journal.state.recoveries))
 
     def kv_cache_bytes(self) -> int:
-        """Resident bytes of the paged KV pools."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for leaf in self._pool_leaves())
+        """Resident bytes of the decode state: the paged pools, or the
+        contiguous cache with its recurrent leaves counted in all three
+        ring buffers."""
+        n = sum(leaf.numel() * leaf.element_size() for leaf in self._kv_leaves())
+        return n + (0 if self._ring is None else self._ring.nbytes())
 
     def _request_generator(self, req: GenerationRequest) -> torch.Generator:
         """The row's sampling stream, seeded as the JAX engine seeds its key

@@ -380,10 +380,14 @@ class TestServeLauncher:
         assert ei.value.code == 0
 
     def test_contiguous_kv_and_non_attention_stacks_raise(self):
+        """``--contiguous-kv`` and a mamba stack resolve to the contiguous
+        cache, as in the JAX launcher; each raises where it asks for what
+        only the paged pools have (the prefix cache, the sanitizer)."""
         from repro_torch.launch import serve
 
-        with pytest.raises(ValueError, match="Queue A 21b"):
-            serve.build_engine(serve.parse_args(self.ARGV + ["--contiguous-kv"]))
-        argv = ["--arch", "mamba2-780m", "--reduced", "--device", "cpu"]
-        with pytest.raises(ValueError, match="Queue A 21b"):
-            serve.build_engine(serve.parse_args(argv))
+        mamba = ["--arch", "mamba2-780m", "--reduced", "--device", "cpu"]
+        for argv in (self.ARGV + ["--contiguous-kv"], mamba):
+            assert serve.build_engine(serve.parse_args(argv)).paged is False
+            for extra in (["--prefix-cache"], ["--sanitize"]):
+                with pytest.raises(ValueError, match="paged"):
+                    serve.build_engine(serve.parse_args(argv + extra))

@@ -711,7 +711,7 @@ def test_kv_block_digests_and_corruption_on_bf16_pools(cuda, mode):
     eng.submit(list(range(1, 30)), SamplingParams(max_tokens=4))
     eng.step()
     eng.step()
-    assert eng._cache[0]["k"].dtype == torch.bfloat16
+    assert eng._cache[0]["attn"]["k"].dtype == torch.bfloat16
     blocks = eng.shadow.checksummed()
     assert blocks
     all_blocks = range(eng.allocator.num_blocks)

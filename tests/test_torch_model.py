@@ -127,7 +127,7 @@ def test_decode_chunk_and_step_match_jax(packed_pair, attn_impl):
     # the pools hold the same K/V (trash block excluded)
     for layer in range(tcfg.n_layers):
         np.testing.assert_allclose(
-            tcache[layer]["k"].numpy()[1:],
+            tcache[layer]["attn"]["k"].numpy()[1:],
             np.asarray(jcache["pos0"]["attn"]["k"][layer])[1:],
             rtol=1e-5, atol=1e-5)
 

@@ -282,5 +282,7 @@ def test_seeded_init_has_the_jax_ranges():
         assert bool(((dt >= 1e-3 * 0.999) & (dt <= 0.1 * 1.001)).all())
         assert bool((mb.D == 1).all()) and bool((mb.conv_b == 0).all())
         assert blk.mlp is None and blk.attn is None
-    with pytest.raises(NotImplementedError, match="mamba"):
-        m.init_cache(1, 16, torch.float32)
+    cache = m.init_cache(1, 16, torch.float32)
+    assert [set(layer) for layer in cache] == [{"mamba"}] * len(m.stack.layers)
+    assert all(bool((t == 0).all()) for layer in cache
+               for t in layer["mamba"].values())
