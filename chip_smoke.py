@@ -6,7 +6,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card name and power limit; build the CUDA kernels from ``src/repro_torch/
      csrc`` and report the build time, the tensor-core kernels' registers,
-     spills and shared memory, and their SASS: bitlinear's GEMM and w2a8's
+     spills and shared memory (and the paged kernels' at head_dim 256), and
+     their SASS: bitlinear's GEMM and w2a8's
      wgmma route must hold the int8 ``wgmma`` (IGMMA) and the TMA loads
      (UTMALDG), ssd_scan's three product stages TF32 ``mma`` (HMMA) and
      relation_kd TF32 ``wgmma`` (HGMMA);
@@ -14,16 +15,18 @@ result line):
      (the serving kernels and bitlinear in bf16 and fp32, relation_kd and
      ssd_scan in fp32), with its time, the plain version's time, a library
      yardstick where one PyTorch call computes the same function, and the
-     card's lower bound for the work; the paged prefill kernel at two
-     shapes (the original one, and a mixed step of one prefilling and
-     seven decode rows), each paged launch with its split and CTA counts,
+     card's lower bound for the work; the paged kernels at qwen3-0.6b's
+     heads (8 kv heads of 128, g = 2) and gemma-7b's (16 kv heads of 256,
+     g = 1), the prefill kernel at two shapes (the original one, and a
+     mixed step of one prefilling and seven decode rows), each paged launch with its split and CTA counts,
      its device time alone beside the time a caller sees, and its host
      time per call; bitlinear bitwise in both dtypes at seven shapes, timed
      the same way, with its three device kernels (quantizing pass, K-major
      weight, GEMM) alone; w2a8 bitwise at the five projection shapes of
-     qwen3-0.6b and mamba2-780m's two (in_proj N=6448 with its ragged
-     last column tile, out_proj) on both sides of its route threshold
-     (each route forced at the mamba shapes, M = 8, 16, 256), timed the
+     qwen3-0.6b, mamba2-780m's two (in_proj N=6448 with its ragged last
+     column tile, out_proj) and gemma-7b's and qwen2.5-3b's eight (K up to
+     24576) on both sides of its route threshold (each route forced at the
+     mamba shapes, M = 8, 16, 256, and at the dense ones, M = 8, 256), timed the
      same way at the decode rows (M=8) and a chunk step's (M=256) beside
      ``torch._int_mm``;
      relation_kd within rtol 1e-5 at L = 256, 300 and 4096 on two input
@@ -88,6 +91,22 @@ result line):
      commit (async loop, speculation, supervisor) leaves the tokens; and
      ``python -m repro_torch.launch.serve --arch mamba2-780m`` exits 0 on
      the contiguous cache;
+ 12. the dense configs: (a) ``gemma-7b`` at full width and depth (28
+     layers, 16 kv heads of 256, d_ff 24576, vocab 256000; packed, bf16)
+     served through the port's ``Engine`` with the paged kernels at
+     head_dim 256, phase 3's prompts x 32 greedy tokens, w2a8 counted at
+     196 launches a step and the paged kernels at 28, step times, tok/s,
+     KV bytes, peak memory, a profile's idle share and the tokens the plain
+     route gives alike (printed); (b) its widths at depth 2 in fp32, the
+     kernel route against the plain one, teacher-forced: each layer's
+     attention context, given the plain route's block input, within the
+     fp32 tolerance and the pools bitwise (the logits and the int8 codes
+     rounded apart printed), and free-running greedy tokens; (c) ``python -m
+     repro_torch.launch.serve --arch gemma-7b --packed`` exits 0 with both
+     paged kernels launched; (d) one ``Attention`` at qwen3-0.6b's widths
+     over 4096 positions: the blocked forward (block_kv 1024 and 1000)
+     against the dense one, outputs and input gradients, bf16 scores
+     against fp32, and each forward's peak memory;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -210,6 +229,10 @@ W2A8_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 10
 # mamba2-780m's in_proj (N = 2*3072 + 2*128 + 48: the last 128-column tile
 # of the wgmma route holds 48 columns) and out_proj (phase 11)
 W2A8_MAMBA_SHAPES = [(1536, 6448), (3072, 1536)]
+# gemma-7b's q/k/v, o, gate/up and down (K up to 24576), and qwen2.5-3b's
+# q/o, k/v (N = 256), gate/up and down (phase 12)
+W2A8_DENSE_SHAPES = [(3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072),
+                     (2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 
 
 def _int_mm_ms(xq, wq, scale, dt, flush):
@@ -236,11 +259,12 @@ def _fmt(v):
 
 def check_w2a8(dev, flush, results):
     """w2a8 at the serving path's five projection shapes (qwen3-0.6b: q/o,
-    k/v, gate/up, down) and mamba2-780m's two (in_proj, out_proj) at the
-    decode rows (M=8) and a chunk step's rows (M = max_batch 8 x chunk 32 =
-    256), and, where the package routes by M, on both sides of its
-    threshold, and at the mamba shapes each route forced at M = 8, 16
-    (phase 11's slots) and 256; fp32 and bf16 bitwise to ``w2a8_ref``
+    k/v, gate/up, down), mamba2-780m's two (in_proj, out_proj) and the eight
+    of gemma-7b and qwen2.5-3b at the decode rows (M=8) and a chunk step's
+    rows (M = max_batch 8 x chunk 32 = 256), and, where the package routes
+    by M, on both sides of its threshold, and at the mamba shapes each route
+    forced at M = 8, 16 (phase 11's slots) and 256, at the dense shapes at
+    M = 8 and 256; fp32 and bf16 bitwise to ``w2a8_ref``
     (integer sums, the same scale in the same order).  In bf16 at M=8 and
     M=256 each shape is timed as a caller sees it and device alone, with
     the wrapper's host time per call, beside the plain version and the
@@ -257,14 +281,15 @@ def check_w2a8(dev, flush, results):
     ms_checked = sorted({1, 8, 64, 256} | (set() if thr is None else {thr, thr + 1}))
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    shapes = W2A8_SHAPES + W2A8_MAMBA_SHAPES
+    shapes = W2A8_SHAPES + W2A8_MAMBA_SHAPES + W2A8_DENSE_SHAPES
     for (k, n) in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         qw, delta = Q.weight_quant_absmean(w)
         wq = qw.to(torch.int8)
         wp = Q.pack_ternary(wq)
         forced = [(m, r) for m in (8, 16, 256) for r in ("splitk", "wgmma")
-                  if thr is not None and (k, n) in W2A8_MAMBA_SHAPES]
+                  if thr is not None and ((k, n) in W2A8_MAMBA_SHAPES
+                                          or (m != 16 and (k, n) in W2A8_DENSE_SHAPES))]
         for m, route in [(m, None) for m in ms_checked] + forced:
             for dt in (torch.bfloat16, torch.float32):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dt)
@@ -324,6 +349,7 @@ def check_w2a8(dev, flush, results):
         device_ms=head["device_ms"], host_us=head["host_us"],
         shape="M=8 K=1024 N=3072 bf16", split_k_max_m=thr, chunk_step=chunk,
         mamba_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_MAMBA_SHAPES],
+        dense_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_DENSE_SHAPES],
         rows=rows, routes=routes)
 
 
@@ -390,13 +416,36 @@ def _paged_row(what, ms, plain, lib, bd, by, grid, host):
                 library_device_ms=lib[1], host_us=host, launch=grid)
 
 
+# (kv heads, g, head_dim) of the paged rows: qwen3-0.6b's (the headline
+# rows) and gemma-7b's (phase 12: MHA, head_dim 256)
+PAGED_HEADS = {"qwen3-0.6b": (8, 2, 128), "gemma-7b": (16, 1, 256)}
+
+
 def check_paged_decode(dev, flush, results):
+    """The decode kernel at qwen3-0.6b's heads (the headline row) and at
+    gemma-7b's (``gemma_row``)."""
+    row, worst = _paged_decode_shape(dev, flush, *PAGED_HEADS["qwen3-0.6b"])
+    gemma, worst_g = _paged_decode_shape(dev, flush, *PAGED_HEADS["gemma-7b"])
+    results["paged_attention_decode"] = dict(
+        name="paged_attention_decode", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:114",
+        max_abs_err=max(worst, worst_g),
+        shape="B=8 Hkv=8 g=2 Dh=128 bs=16 depth<=1023 bf16", **row,
+        gemma_row=dict(gemma, max_abs_err=worst_g,
+                       shape="B=8 Hkv=16 g=1 Dh=256 bs=16 depth<=1023 bf16"))
+
+
+def _paged_decode_shape(dev, flush, hkv, g, dh):
+    """One decode launch shape: the kernel against its plain version in bf16
+    and fp32 with and without softcap, then in bf16 its times beside the
+    plain version's, SDPA's and the bound.  Returns (numbers, max error)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.kernel import paged_attention_decode_kernel
     from repro_torch.kernels.paged_attention.ref import paged_attention_decode_ref
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, hkv, g, dh, bs = 8, 8, 2, 128, 16
+    b, bs = 8, 16
     # mixed depths up to 1024, one idx on a block boundary, one idle row
     depths = [1023, 512, 17, 0, 300, 800, 64, None]
     live = [i for i, d in enumerate(depths) if d is not None]
@@ -445,12 +494,7 @@ def check_paged_decode(dev, flush, results):
                 q, kn, vn, k1, v1, bt, idx, scale, 0.0))
             row = _paged_row(f"paged decode B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} "
                              f"L={L} bf16", ms, plain, lib, bd, by, grid, host)
-    results["paged_attention_decode"] = dict(
-        name="paged_attention_decode", route="cuda",
-        source="src/repro_torch/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention/kernel.py:114",
-        max_abs_err=worst, shape="B=8 Hkv=8 g=2 Dh=128 bs=16 depth<=1023 bf16",
-        **row)
+    return row, worst
 
 
 def check_paged_prefill(dev, flush, results):
@@ -460,22 +504,32 @@ def check_paged_prefill(dev, flush, results):
     seven decode rows at depths 17..990).  The first is the headline row."""
     starts = [0, 256, 700, 31, 990, 16, 500, None]
     lens = [32, 32, 20, 1, 1, 7, 32, 1]
-    row = _paged_prefill_shape(dev, flush, starts, lens, 2, "paged prefill")
-    mixed = _paged_prefill_shape(
-        dev, flush, [256, 17, 130, 300, 511, 640, 800, 990],
-        [32, 1, 1, 1, 1, 1, 1, 1], 6, "paged prefill mixed step")
+    mixed_starts = [256, 17, 130, 300, 511, 640, 800, 990]
+    mixed_lens = [32, 1, 1, 1, 1, 1, 1, 1]
+    rows = {}
+    for model, heads in PAGED_HEADS.items():
+        rows[model] = (
+            _paged_prefill_shape(dev, flush, starts, lens, 2, "paged prefill", heads),
+            _paged_prefill_shape(dev, flush, mixed_starts, mixed_lens, 6,
+                                 "paged prefill mixed step", heads))
+    (row, mixed), (gemma, gemma_mixed) = rows["qwen3-0.6b"], rows["gemma-7b"]
+    mixed_shape = ("B=8 T=32: one row 32 tokens at 256, seven decode rows at "
+                   "depths 17..990, bf16")
+    worst = max(r["max_abs_err"] for pair in rows.values() for r in pair)
     results["paged_prefill_chunk"] = dict(
-        name="paged_prefill_chunk", route="cuda",
+        row, name="paged_prefill_chunk", route="cuda",
         source="src/repro_torch/csrc/paged_prefill.cu",
         replaces="src/repro/kernels/paged_prefill/kernel.py:136",
-        max_abs_err=max(row.pop("max_abs_err"), mixed["max_abs_err"]),
-        shape="B=8 Hkv=8 g=2 Dh=128 bs=16 T=32 start<=990 bf16", **row,
-        mixed_step=dict(mixed, shape="B=8 T=32: one row 32 tokens at 256, seven "
-                        "decode rows at depths 17..990, bf16"))
+        max_abs_err=worst,
+        shape="B=8 Hkv=8 g=2 Dh=128 bs=16 T=32 start<=990 bf16",
+        mixed_step=dict(mixed, shape=mixed_shape),
+        gemma_row=dict(gemma, shape="B=8 Hkv=16 g=1 Dh=256 bs=16 T=32 start<=990 "
+                       "bf16", mixed_step=dict(gemma_mixed, shape=mixed_shape)))
 
 
-def _paged_prefill_shape(dev, flush, starts, lens, seed, tag):
-    """One prefill launch shape, rows with start None idle: the kernel
+def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads):
+    """One prefill launch shape at ``heads`` = (kv heads, g, head_dim), rows
+    with start None idle: the kernel
     against its plain version in bf16 and fp32 with and without softcap
     (valid rows of live rows; pools bitwise outside the trash block), then
     in bf16 its time, the plain version's, SDPA's over the pre-gathered
@@ -485,7 +539,7 @@ def _paged_prefill_shape(dev, flush, starts, lens, seed, tag):
     from repro_torch.kernels.paged_prefill.kernel import paged_prefill_chunk_kernel
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_chunk_ref
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, hkv, g, dh, bs, t = 8, 8, 2, 128, 16, 32
+    (hkv, g, dh), b, bs, t = heads, 8, 16, 32
     live = [i for i, s in enumerate(starts) if s is not None]
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -702,13 +756,28 @@ def _instance(fn: str):
     return None, None
 
 
-def _kernel_ptxas(log: str):
-    """(instance, ptxas's spill and register lines) of each SASS_CHECKS
-    kernel in the build log."""
+# the paged kernels' template arguments (TQ, TC) as they are mangled
+_PAGED_TYPES = {"13__nv_bfloat16S0_": "bf16,bf16", "ff": "fp32,fp32",
+                "f13__nv_bfloat16": "fp32,bf16", "13__nv_bfloat16f": "bf16,fp32"}
+
+
+def _paged_instance(line: str, dh: int = 256):
+    """``paged_decode_kernel<bf16,bf16,256>`` for an attention instance of
+    the paged kernels at head dim ``dh`` named in ``line``, else None."""
+    import re
+    m = re.search(r"(paged_(?:decode|prefill)_kernel)I(\w+?)Li(\d+)E", line)
+    if m is None or int(m.group(3)) != dh or m.group(2) not in _PAGED_TYPES:
+        return None
+    return f"{m.group(1)}<{_PAGED_TYPES[m.group(2)]},{dh}>"
+
+
+def _kernel_ptxas(log: str, name_of=lambda line: _instance(line)[1]):
+    """(instance, ptxas's spill and register lines) of each kernel in the
+    build log that ``name_of`` names (by default the SASS_CHECKS kernels)."""
     fn, out, spill = None, [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            fn = _instance(line)[1]
+            fn = name_of(line)
             spill = ""
         elif fn and "spill" in line:
             spill = line.strip()
@@ -2396,13 +2465,13 @@ class _PassCounter:
         del self._model.decode_step
 
 
-def _serve_all(cfg, model, scfg, prompts, step_ms=None):
-    """The prompts at t=0, 16 greedy tokens each, on the synchronous
+def _serve_all(cfg, model, scfg, prompts, step_ms=None, tokens=16):
+    """The prompts at t=0, ``tokens`` greedy tokens each, on the synchronous
     engine; (tokens per prompt, engine)."""
     import torch
     from repro_torch.serving import Engine, SamplingParams
     eng = Engine(cfg, model, scfg)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=16, ignore_eos=True))
+    reqs = [eng.submit(p, SamplingParams(max_tokens=tokens, ignore_eos=True))
             for p in prompts]
     while eng.has_pending():
         ts = time.perf_counter()
@@ -2411,7 +2480,7 @@ def _serve_all(cfg, model, scfg, prompts, step_ms=None):
             step_ms.append((time.perf_counter() - ts) * 1e3)
     torch.cuda.synchronize()
     for r in reqs:
-        if not r.done or len(r.output_tokens) != 16 or not all(
+        if not r.done or len(r.output_tokens) != tokens or not all(
                 0 <= t < cfg.vocab for t in r.output_tokens):
             fail(f"request {r.uid}: done {r.done}, tokens {r.output_tokens}")
     return [list(r.output_tokens) for r in reqs], eng
@@ -2583,6 +2652,370 @@ def serve_mamba(dev, out_dir):
     return launches, cli
 
 
+# -- phase 12: the dense configs, gemma-7b at full width ------------------------------
+
+GEMMA_SERVE = dict(max_batch=8, max_len=1024, prefill_chunk=32, prefix_cache=True,
+                   cache_dtype="bfloat16")
+GEMMA_CLI = ["--arch", "gemma-7b", "--packed", "--requests", "8",
+             "--max-tokens", "16", "--prompt-len", "16"]
+GEMMA_TOKENS = 32
+
+
+def _common_prefix(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def serve_gemma(dev, out_dir):
+    """12a: gemma-7b at full width and depth (28 layers, d_model 3072, 16 kv
+    heads of 256, d_ff 24576, a tied 256,000-word vocabulary, GeGLU,
+    embed_scale), packed ternary weights from the port's seeded init, bf16,
+    through the port's ``Engine``: phase 3's prompts at t=0 x 32 greedy
+    tokens.  Gates: the engine resolves ``"fused"``, every request gets its
+    tokens, w2a8 counts 7 x 28 = 196 launches a step and the paged kernels
+    28.  Prints step percentiles, tok/s, KV bytes, peak memory and a
+    profile's idle share, and the count of tokens the plain route
+    (``"gather"``, ``use_kernel=False``) gives alike before a request's
+    first difference: not a gate, since at bf16 over 28 layers the two
+    routes sum in other orders and a near tie may go either way.  Returns
+    the serving kernels' launches and the summary."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import ServeConfig
+
+    base = get_config("gemma-7b").replace(compute_dtype="bfloat16")
+    cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB held", flush=True)
+    scfg = ServeConfig(**GEMMA_SERVE)
+    prompts = _engine_prompts(cfg.vocab, seed=3)
+    counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+    for c in counters:
+        c.reset()
+    step_ms = []
+    t_run = time.perf_counter()
+    want, eng = _serve_all(cfg, model, scfg, prompts, step_ms, tokens=GEMMA_TOKENS)
+    wall = time.perf_counter() - t_run
+    launches = {c.name: c.count for c in counters}
+    st = eng.stats()
+    steps = st.steps_committed
+    if eng.attn_impl != "fused":
+        fail(f"gemma-7b: the engine resolved attn_impl={eng.attn_impl!r} on the card")
+    paged = launches["paged_attention_decode"] + launches["paged_prefill_chunk"]
+    per_step = 7 * cfg.n_layers
+    if (launches["w2a8_gemv"] != per_step * steps or paged != cfg.n_layers * steps
+            or not launches["paged_attention_decode"]
+            or not launches["paged_prefill_chunk"]):
+        fail(f"gemma-7b: launches {launches} over {steps} steps; want w2a8_gemv "
+             f"{per_step} a step and the paged kernels {cfg.n_layers} a step, each "
+             "launched")
+    for layer in eng._cache:
+        for t in layer["attn"].values():
+            if not bool(torch.isfinite(t).all()):
+                fail("gemma-7b: a KV pool holds non-finite values")
+    kv_bytes = eng.kv_cache_bytes()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del eng
+    toks = GEMMA_TOKENS * len(prompts)
+    ordered = sorted(step_ms)
+    pct = {q: ordered[min(len(ordered) - 1, int(q / 100 * len(ordered)))]
+           for q in (50, 90, 99)}
+    summary = dict(model=cfg.name, layers=cfg.n_layers, requests=len(prompts),
+                   tokens=toks, wall_s=wall, tok_per_s=toks / wall, steps=steps,
+                   step_ms_p50=pct[50], step_ms_p90=pct[90], step_ms_p99=pct[99],
+                   ttft_ms=st.ttft_ms, prefill_chunks=st.prefill_chunks,
+                   kv_bytes=kv_bytes, peak_bytes=peak, launches=launches,
+                   launches_per_step={k: v / steps for k, v in launches.items()})
+    print(f"    served {len(prompts)} requests x {GEMMA_TOKENS} tokens in {wall:.2f} s: "
+          f"{toks / wall:.1f} tok/s; {steps} steps, step ms p50 {pct[50]:.2f} p90 "
+          f"{pct[90]:.2f} p99 {pct[99]:.2f}; KV pools {kv_bytes / 2**30:.2f} GiB; "
+          f"peak {peak / 1e9:.2f} GB; launches {launches} "
+          f"({launches['w2a8_gemv'] // steps} w2a8 and {paged // steps} paged a step)",
+          flush=True)
+    summary["profile"] = profile_steps(dev, cfg, model, scfg, prompts, out_dir,
+                                       name="profile_gemma.txt")
+    plain_cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=False))
+    plain = build_model(plain_cfg, device=dev)
+    plain.load_state_dict(model.state_dict())
+    del model
+    got, eng = _serve_all(plain_cfg, plain, ServeConfig(**dict(GEMMA_SERVE,
+                                                                attn_impl="gather")),
+                          prompts, tokens=GEMMA_TOKENS)
+    del eng, plain
+    torch.cuda.empty_cache()
+    agree = [_common_prefix(a, b) for a, b in zip(want, got)]
+    summary["plain_route"] = dict(tokens_before_first_difference=agree,
+                                  identical_requests=sum(a == b for a, b in zip(want, got)))
+    print(f"    plain route (gather, use_kernel=False): {sum(agree)} of {toks} tokens "
+          f"alike before each request's first difference, "
+          f"{summary['plain_route']['identical_requests']} of {len(prompts)} "
+          f"requests identical (not a gate)", flush=True)
+    return launches, summary
+
+
+class _LayerTap:
+    """Taps each block of ``model``: records the block's input and its
+    attention's context (the input of ``Attention._out``, before the output
+    projection quantizes it) in call order; with ``feed`` set, block ``i``
+    is given ``feed[i]`` instead of its own input.  The blocks' ``decode``
+    and ``decode_chunk`` and the attentions' ``_out`` are wrapped as
+    instance attributes, which ``close`` removes."""
+
+    def __init__(self, model):
+        self.blocks, self.inputs, self.ctx, self.feed = model.stack.layers, [], [], None
+        for i, blk in enumerate(self.blocks):
+            for name in ("decode", "decode_chunk"):
+                setattr(blk, name, self._block(i, getattr(blk, name)))
+            blk.attn._out = self._out(blk.attn._out)
+
+    def _block(self, i, inner):
+        def run(x, *a, **kw):
+            x = x if self.feed is None else self.feed[i]
+            self.inputs.append(x)
+            return inner(x, *a, **kw)
+        return run
+
+    def _out(self, inner):
+        def run(ctx):
+            self.ctx.append(ctx)
+            return inner(ctx)
+        return run
+
+    def reset(self, feed=None):
+        self.inputs, self.ctx, self.feed = [], [], feed
+
+    def close(self):
+        for blk in self.blocks:
+            del blk.decode, blk.decode_chunk, blk.attn._out
+
+
+def gemma_kernel_vs_plain(dev):
+    """12b: gemma-7b's widths at depth 2, fp32 compute and pools, the kernel
+    route (w2a8; the paged kernels at head_dim 256, fp32 instances) against
+    the plain route (``use_kernel=False``, ``"gather"``) from the same
+    weights, teacher-forced: four token streams through
+    ``CausalLM.decode_chunk`` (chunks of 32, the rows whose prompt is done
+    as decode rows) and then ``decode_step``.  The gate: with each block of
+    the kernel route given the plain route's input to that block, every
+    layer's attention context (the paged kernels' output) is within the
+    fp32 tolerance of phase 2 (2e-5 + 2e-5·|x|) over the valid rows, and the
+    pools stay bitwise equal outside the trash block (w2a8 is exact).
+    Beside it, the kernel route run free: its logits against the plain
+    route's, and the int8 codes of the output projection's input that the
+    two contexts round differently, printed (a context that differs in its
+    last bits flips a code at a .5 boundary, which moves the logits by far
+    more than 1e-4 of their range: ROADMAP Queue C).  Then the engine's
+    greedy tokens free-running, which should be identical; at a mismatch
+    the plain path's top-2 logit gap there is printed, and the phase fails
+    only where it is above 1e-3.  Returns the summary."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import ServeConfig
+
+    base = get_config("gemma-7b").replace(n_layers=2, compute_dtype="float32")
+    kcfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
+    pcfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=False))
+    kmodel = build_model(kcfg, gen=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    pmodel = build_model(pcfg, device=dev)
+    pmodel.load_state_dict(kmodel.state_dict())
+    rng = np.random.default_rng(12)
+    b, bs, t, n_dec = 4, 16, 32, 4
+    plens = [70, 33, 128, 5]
+    streams = [rng.integers(0, base.vocab, n + t).tolist() for n in plens]
+    n_log = -(-max(len(s) for s in streams) // bs)
+    bt = torch.arange(1, 1 + b * n_log, dtype=torch.int32,
+                      device=dev).reshape(b, n_log)
+    caches = {r: m.init_cache(1 + b * n_log, bs, torch.float32, dev)
+              for r, m in (("plain", pmodel), ("free", kmodel), ("fed", kmodel))}
+    ptap, ktap = _LayerTap(pmodel), _LayerTap(kmodel)
+    pos = [0] * b
+    stats = dict(calls=0, ctx_err=0.0, logit_rel_err=0.0, codes=0, codes_flipped=0)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def step(run, valid):
+        """One teacher-forced call on the three caches: ``run(model, cache,
+        impl)`` -> logits."""
+        stats["calls"] += 1
+        ptap.reset()
+        lp = run(pmodel, caches["plain"], "gather")
+        ktap.reset()
+        lk = run(kmodel, caches["free"], "fused")
+        ref = lp.float()[valid]
+        rel = (lk.float()[valid] - ref).abs().max().item() / ref.abs().max().item()
+        stats["logit_rel_err"] = max(stats["logit_rel_err"], rel)
+        ktap.reset(feed=list(ptap.inputs))
+        run(kmodel, caches["fed"], "fused")
+        for layer, (ck, cp) in enumerate(zip(ktap.ctx, ptap.ctx)):
+            ck, cp = ck[valid].float(), cp[valid].float()
+            err = (ck - cp).abs()
+            if not bool((err <= 2e-5 + 2e-5 * cp.abs()).all()):
+                fail(f"12b: call {stats['calls']} layer {layer}: the paged "
+                     f"kernel's context differs from the plain route's by "
+                     f"{err.max().item():.3g} (fp32 tolerance 2e-5 + 2e-5|x|)")
+            stats["ctx_err"] = max(stats["ctx_err"], err.max().item())
+            # the codes the output projection takes: SubLN's output (a
+            # quantized stack has SubLN before W_out), rounded to int8
+            subln = kmodel.stack.layers[layer].attn.subln or (lambda v: v)
+            qk = Q.act_quant_absmax_int8(subln(ck.flatten(1)))[0]
+            qp = Q.act_quant_absmax_int8(subln(cp.flatten(1)))[0]
+            stats["codes"] += qp.numel()
+            stats["codes_flipped"] += int((qk != qp).sum().item())
+
+    with torch.no_grad():
+        while any(p < n for p, n in zip(pos, plens)):
+            lens = [min(t, n - p) if p < n else 1 for p, n in zip(pos, plens)]
+            tok = torch.tensor([s[p:p + t] + [0] * (t - len(s[p:p + t]))
+                                for s, p in zip(streams, pos)], device=dev)
+            start, ln = i32(pos), i32(lens)
+            step(lambda m, c, impl: m.decode_chunk(tok, c, start, ln, bt,
+                                                   attn_impl=impl)[0],
+                 torch.arange(t, device=dev)[None] < ln[:, None])
+            pos = [p + n for p, n in zip(pos, lens)]
+        for _ in range(n_dec):
+            tok = torch.tensor([s[p] for s, p in zip(streams, pos)], device=dev)
+            idx = i32(pos)
+            step(lambda m, c, impl: m.decode_step(tok, c, idx, bt,
+                                                  attn_impl=impl)[0],
+                 slice(None))
+            pos = [p + 1 for p in pos]
+    ptap.close()
+    ktap.close()
+    for layer, (cf, cp) in enumerate(zip(caches["fed"], caches["plain"])):
+        for k in ("k", "v"):
+            if not torch.equal(cf["attn"][k][1:], cp["attn"][k][1:]):
+                fail(f"12b: layer {layer} pool {k} of the kernel route fed the "
+                     "plain inputs differs from the plain route's")
+    del caches
+    print(f"    teacher-forced, {stats['calls']} calls (decode_chunk then "
+          f"decode_step): each layer's attention context within "
+          f"{stats['ctx_err']:.3g} of the plain route's given the same block "
+          f"input, pools bitwise; the two contexts round "
+          f"{stats['codes_flipped']} of {stats['codes']} int8 codes of the "
+          f"output projection's input differently, and the free kernel "
+          f"route's logits are within {stats['logit_rel_err']:.3g} of "
+          f"max|logit| (printed, not gated)", flush=True)
+
+    prompts = _engine_prompts(base.vocab, seed=5)[:5]
+    outs = {}
+    for tag, cfg, model, impl in (("kernel", kcfg, kmodel, "fused"),
+                                  ("plain", pcfg, pmodel, "gather")):
+        outs[tag], _ = _serve_all(cfg, model, ServeConfig(
+            max_batch=4, max_len=1024, prefill_chunk=32, attn_impl=impl,
+            cache_dtype="float32"), prompts)
+    diffs = []
+    for r, (a, p) in enumerate(zip(outs["kernel"], outs["plain"])):
+        if a != p:
+            j = _common_prefix(a, p)
+            gap = _top2_gaps(pmodel, prompts[r], p, dev)[j]
+            diffs.append(dict(request=r, token=j, top2_gap=gap))
+    del kmodel, pmodel
+    torch.cuda.empty_cache()
+    wide = [d for d in diffs if d["top2_gap"] > 1e-3]
+    print(f"    free-running greedy: {len(prompts) - len(diffs)} of {len(prompts)} "
+          f"requests identical x 16 tokens; first differences (request, token, "
+          f"plain top-2 gap): {[tuple(d.values()) for d in diffs]}", flush=True)
+    if wide:
+        fail(f"12b: greedy tokens differ where the plain path's top-2 gap is "
+             f"above 1e-3: {wide}")
+    return dict(stats, greedy_differences=diffs)
+
+
+def gemma_launcher(out_dir):
+    """12c: ``python -m repro_torch.launch.serve --arch gemma-7b --packed``
+    (the QAT model built whole on the card, then packed) must exit 0 with
+    both paged kernels launched.  Returns its launches and peak line."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *GEMMA_CLI]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=600)
+    (out_dir / "serve_cli_gemma.txt").write_text(out.stdout)
+    lines = out.stdout.splitlines()
+    kl = [ln for ln in lines if ln.startswith("[kernels] launches")]
+    mem = [ln for ln in lines if ln.startswith("[memory]")]
+    if out.returncode != 0 or not kl:
+        fail(f"the gemma-7b serve launcher exited {out.returncode}: "
+             f"{out.stdout[-2000:]}")
+    cli = {k: int(v) for k, v in (kv.split("=") for kv in kl[0].split()[2:])}
+    if not (cli["paged_attention_decode"] and cli["paged_prefill_chunk"]
+            and cli["w2a8_gemv"]):
+        fail(f"the gemma-7b launcher's launches {cli}")
+    print(f"    exit 0 in {time.perf_counter() - t0:.1f} s; {kl[0]}; "
+          f"{mem[0] if mem else '(no [memory] line)'}", flush=True)
+    return cli, (mem[0] if mem else None)
+
+
+def attention_variants_full_width(dev):
+    """12d: one ``Attention`` at qwen3-0.6b's widths (d_model 1024, 16 heads,
+    8 kv heads of 128, qk_norm, RoPE 1e6) over S = 4096, fp32: the blocked
+    forward at block_kv 1024 and 1000 (a ragged last block of 96) against
+    the dense one, outputs within 2e-3 and input gradients (of sum y²)
+    within 5e-3, and bf16 scores against fp32 within 5e-2: JAX's bounds for
+    these variants (tests/test_attention_variants.py).  The forward's peak
+    memory above its input is printed for each, not gated."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.nn.attention import Attention
+    from repro_torch.nn.module import DTypePolicy
+    c = get_config("qwen3-0.6b")
+    pol = DTypePolicy(torch.float32, torch.float32)
+    x = torch.randn((1, 4096, c.d_model), generator=torch.Generator(
+        device=dev).manual_seed(13), device=dev)
+
+    def run(**kw):
+        mod = Attention(c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+                        qk_norm=c.qk_norm, rope_theta=c.rope_theta, policy=pol,
+                        gen=torch.Generator(device=dev).manual_seed(12),
+                        device=dev, **kw)
+        gc.collect()                  # the last run's graph, freed before the count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        with torch.no_grad():
+            y = mod(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        xg = x.clone().requires_grad_(True)
+        (mod(xg) ** 2).sum().backward()
+        return y, xg.grad, peak
+
+    y0, g0, p0 = run()
+    out = dict(dense_peak_bytes=p0)
+    for blk in (1024, 1000):
+        y, g, p = run(impl="blocked", block_kv=blk)
+        ey, eg = (y - y0).abs().max().item(), (g - g0).abs().max().item()
+        if not (torch.allclose(y, y0, rtol=2e-3, atol=2e-3)
+                and torch.allclose(g, g0, rtol=5e-3, atol=5e-3)):
+            fail(f"12d: blocked (block_kv {blk}) vs dense: output err {ey:.3g}, "
+                 f"input-gradient err {eg:.3g} (max |grad| {g0.abs().max().item():.3g})")
+        out[f"blocked_{blk}"] = dict(out_err=ey, grad_err=eg, peak_bytes=p)
+        print(f"    blocked, block_kv {blk}: output within {ey:.3g}, input "
+              f"gradient within {eg:.3g} of dense; forward peak {p / 2**20:.0f} "
+              f"MiB (dense {p0 / 2**20:.0f} MiB)", flush=True)
+    y, _, p = run(scores_dtype="bfloat16")
+    e = (y - y0).abs().max().item()
+    if not torch.allclose(y, y0, rtol=5e-2, atol=5e-2):
+        fail(f"12d: bf16 scores vs fp32: output err {e:.3g}")
+    out["bf16_scores"] = dict(out_err=e, peak_bytes=p)
+    print(f"    bf16 scores: output within {e:.3g} of fp32 scores (bound 5e-2); "
+          f"forward peak {p / 2**20:.0f} MiB", flush=True)
+    return out
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -2645,6 +3078,11 @@ def main() -> None:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
+    def phase(title):
+        # each phase's heading with the seconds since the start, so that a
+        # run's log shows what each phase costs of the time limit
+        print(f"{title} [at {time.perf_counter() - t_start:.1f} s]", flush=True)
+
     # 1. card and build
     card = card_info()
     print(f"card: {card}", flush=True)
@@ -2658,8 +3096,11 @@ def main() -> None:
     gemm_line = (f"bitlinear GEMM: {gemm_info()}; w2a8: {w2a8_info()} (smem_bytes: "
                  "dynamic shared memory per CTA); ptxas: " + "; ".join(
                      f"{fn}: {use}" for fn, use in _kernel_ptxas(info.log)))
-    (out_dir / "ptxas.txt").write_text(info.log + gemm_line + "\n")
+    paged_line = ("paged kernels at head_dim 256 (gemma-7b), ptxas: " + "; ".join(
+        f"{fn}: {use}" for fn, use in _kernel_ptxas(info.log, _paged_instance)))
+    (out_dir / "ptxas.txt").write_text(info.log + gemm_line + "\n" + paged_line + "\n")
     print(gemm_line, flush=True)
+    print(paged_line, flush=True)
     sass = kernel_sass(info.path, out_dir)
     print(f"tensor-core SASS: {sass['counts']}; e.g. " + "; ".join(
         sass["examples"].values()), flush=True)
@@ -2668,7 +3109,7 @@ def main() -> None:
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     flush = scratch.zero_
     results = {}
-    print("phase 2: kernels vs plain versions", flush=True)
+    phase("phase 2: kernels vs plain versions")
     check_w2a8(dev, flush, results)
     check_paged_decode(dev, flush, results)
     check_paged_prefill(dev, flush, results)
@@ -2677,13 +3118,13 @@ def main() -> None:
     check_ssd_scan(dev, flush, results)
     del scratch
     # 3. the main path, launch counters reset just before it
-    print("phase 3: engine, qwen3-0.6b full width", flush=True)
+    phase("phase 3: engine, qwen3-0.6b full width")
     by_path = {"serve qwen3-0.6b": serve_full_width(dev, out_dir)}
     # 4. kernels vs plain paths through the engine
-    print("phase 4: on-card parity, kernel vs plain paths", flush=True)
+    phase("phase 4: on-card parity, kernel vs plain paths")
     kernel_vs_plain_parity(dev, out_dir)
     # 5. the training path, its launch counters reset just before it
-    print("phase 5: BitDistill training, qwen3-0.6b full width", flush=True)
+    phase("phase 5: BitDistill training, qwen3-0.6b full width")
     per_fwd = 7 * 28                       # BitLinear projections, 28 layers
     # 10b runs last in this phase: a checkpoint round trip of the student,
     # its two distill steps counted on their own
@@ -2696,43 +3137,55 @@ def main() -> None:
             "10b", checkpoint_round_trip(ctx, out_dir)))
     by_path["checkpoint round trip qwen3-0.6b (10b)"] = round_trip["10b"][0]
     # 6. kernels vs plain paths through the distillation step
-    print("phase 6: on-card parity, distill step kernel vs plain paths", flush=True)
+    phase("phase 6: on-card parity, distill step kernel vs plain paths")
     train_kernel_vs_plain_parity(dev)
     # 7. the mamba2-780m training path, its counters reset just before it:
     # the student's in_proj + out_proj per layer and one SSD per layer, each
     # forward recomputed once under remat; the FP teacher adds 48 SSDs
-    print("phase 7: BitDistill training, mamba2-780m full width", flush=True)
+    phase("phase 7: BitDistill training, mamba2-780m full width")
     by_path["train mamba2-780m"] = train_full_width(
         dev, out_dir, "mamba2-780m", 48, MAMBA_SEQ,
         {"train": {"bitlinear": 2 * 2 * 48, "ssd_scan": 2 * 48},
          "distill": {"bitlinear": 2 * 2 * 48, "ssd_scan": 3 * 48}}, "train_mamba")
     # 8. the SSD kernel vs the sequential oracle through a full-width block
-    print("phase 8: on-card parity, Mamba2Block kernel vs sequential", flush=True)
+    phase("phase 8: on-card parity, Mamba2Block kernel vs sequential")
     mamba_block_parity(dev)
     # 9. serving through the entry point, the serving kernels' counters reset
     # just before the in-process run through the front end and async loop
-    print("phase 9: serving through the entry point, qwen3-0.6b full width",
-          flush=True)
+    phase("phase 9: serving through the entry point, qwen3-0.6b full width")
     (by_path["serve entry point qwen3-0.6b"],
      by_path["serve async stack qwen3-0.6b"]) = serve_entry_point(dev, out_dir)
     # 10. the training launcher with checkpoints (a), the remat policies (c)
     # and the Table-4 schemes (d); 10b ran at the end of phase 5
-    print("phase 10a: the training launcher at full width: checkpoint, SIGTERM, "
-          "resume", flush=True)
+    phase("phase 10a: the training launcher at full width: checkpoint, SIGTERM, "
+          "resume")
     phase10 = {"10a": launcher_checkpoints(dev, out_dir),
                "10b": round_trip["10b"][1]}
-    print("phase 10c: remat policies nothing / dots / none, qwen3-0.6b full width",
-          flush=True)
+    phase("phase 10c: remat policies nothing / dots / none, qwen3-0.6b full width")
     by_path["remat policies qwen3-0.6b (10c)"], phase10["10c"] = remat_policies(dev)
-    print("phase 10d: the Table-4 weight schemes, card vs CPU", flush=True)
+    phase("phase 10d: the Table-4 weight schemes, card vs CPU")
     phase10["10d"] = table4_schemes(dev)
     (out_dir / "smoke_phase10.json").write_text(json.dumps(phase10, indent=1))
     # 11. serving mamba2-780m on the contiguous cache, the serving kernels'
     # counters reset just before the kernel-route run
-    print("phase 11: serving mamba2-780m on the contiguous cache, full width",
-          flush=True)
+    phase("phase 11: serving mamba2-780m on the contiguous cache, full width")
     (by_path["serve mamba2-780m"],
      by_path["serve entry point mamba2-780m"]) = serve_mamba(dev, out_dir)
+    # 12. the dense configs: gemma-7b served at full width (the serving
+    # kernels' counters reset just before 12a's run and read after it), the
+    # kernel route vs the plain one at its widths, its launcher, and the
+    # blocked forward and bf16 scores at full width
+    phase("phase 12a: serving gemma-7b at full width (head_dim 256)")
+    by_path["serve gemma-7b (12a)"], phase12 = serve_gemma(dev, out_dir)
+    phase("phase 12b: on-card parity, gemma-7b widths at depth 2, kernel vs plain "
+          "route")
+    phase12["12b"] = gemma_kernel_vs_plain(dev)
+    phase("phase 12c: the launcher, --arch gemma-7b --packed")
+    by_path["serve entry point gemma-7b (12c)"], phase12["12c_memory"] = \
+        gemma_launcher(out_dir)
+    phase("phase 12d: blocked forward and bf16 scores, qwen3-0.6b widths, S=4096")
+    phase12["12d"] = attention_variants_full_width(dev)
+    (out_dir / "smoke_gemma.json").write_text(json.dumps(phase12, indent=1))
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -46,6 +46,15 @@
 //    the four lanes that share a row.  Other dtype pairs (fp32 pools, mixed)
 //    compute the same register tiles with fp32 CUDA-core FMAs from shared
 //    memory (KT = 32), keeping the fp32 tolerance.
+//  * Head dims 64, 128 and 256.  At 256 a thread's accumulators alone are
+//    DH/8 x 4 = 128 fp32 registers, and holding the Q fragments as well
+//    (DH/16 x 4 = 64 more) would leave too few of the 255 for the tile's
+//    scores and addresses, so the tensor-core path reloads each Q fragment
+//    from shared memory (ldmatrix, Q stays staged for the whole walk) next
+//    to the K fragment it meets, instead of holding them all (kHoldQ).  The
+//    shared memory stays under the 227 KB opt-in: bf16 Q 32 KB + ring
+//    128 KB, fp32 Q 65 KB + ring 130 KB, plus the table slice.  A decode
+//    row with g = 1 (MHA) fills one of the 16 rows of its m16 tile.
 //
 // Reads and writes across CTAs.  The pool writes of a row are done once, by
 // the CTA of row group 0 and of the split that holds position start (the
@@ -100,6 +109,9 @@ template <typename TQ, typename TC, int DH>
 struct PagedShape {
   static constexpr bool kMma =
       std::is_same<TQ, __nv_bfloat16>::value && std::is_same<TC, __nv_bfloat16>::value;
+  // hold Q's fragments in registers for the whole walk (DH <= 128), or
+  // reload each from shared memory where it is used (DH = 256)
+  static constexpr bool kHoldQ = DH <= 128;
   static constexpr int KT = kMma ? 64 : 32;        // keys per tile
   static constexpr int EPC = 16 / (int)sizeof(TC);  // cache elements per 16 bytes
   static constexpr int QLD = kMma ? DH : DH + 4;    // Q row stride (bf16 / fp32)
@@ -341,7 +353,15 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qf[S::kMma ? DH / 16 : 1][4];
+  uint32_t qf[S::kMma && S::kHoldQ ? DH / 16 : 1][4];
+  // lane's row and 16-byte column offset of Q's ldmatrix.x4 (k-step kk
+  // reads chunk 2*kk + qcol); mt*16 + qrow < QR always
+  const int qrow = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, qcol = lane >> 4;
+  const __nv_bfloat16* Qsm = reinterpret_cast<const __nv_bfloat16*>(pa_sm);
+  auto q_frag = [&](uint32_t (&r)[4], int kk) {
+    const int c = 2 * kk + qcol;
+    pa_ldsm4(r, Qsm + qrow * DH + ((c ^ (qrow & 7)) << 3));
+  };
 
   load_tile(0, 0);
   pa_commit();
@@ -374,15 +394,10 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
       }
     }
     if (has_rows) {
-      if constexpr (S::kMma) {
+      if constexpr (S::kMma && S::kHoldQ) {
         if (t == 0) {
-          const __nv_bfloat16* Qs = reinterpret_cast<const __nv_bfloat16*>(pa_sm);
-          const int r = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-          for (int kk = 0; kk < DH / 16; ++kk) {
-            const int c = 2 * kk + (lane >> 4);
-            pa_ldsm4(qf[kk], Qs + r * DH + ((c ^ (r & 7)) << 3));
-          }
+          for (int kk = 0; kk < DH / 16; ++kk) q_frag(qf[kk], kk);
         }
       }
       const bool is_chunk = t >= n_res_tiles;
@@ -396,7 +411,7 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-        if constexpr (S::kMma) {
+        if constexpr (S::kMma && S::kHoldQ) {
           // two accumulators per n-tile (even and odd k-steps): four
           // independent mma chains instead of two
           float sd[2][4];
@@ -419,6 +434,19 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
           for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) sc[n][e] += sd[n][e];
+        } else if constexpr (S::kMma) {
+          // DH = 256: Q's fragment reloaded beside each K fragment, and one
+          // accumulator per n-tile (the registers of the second pair are
+          // what the held fragments would have spilled)
+          const int kr = c16 * 16 + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk) {
+            uint32_t kb[4], qa[4];
+            pa_ldsm4(kb, Kt + kv_off(kr, 2 * kk + ((lane >> 3) & 1)));
+            q_frag(qa, kk);
+            pa_mma(sc[0], qa, kb[0], kb[1]);
+            pa_mma(sc[1], qa, kb[2], kb[3]);
+          }
         } else {
           const float* Qs = reinterpret_cast<const float*>(pa_sm);
           const float* q0 = Qs + row0 * S::QLD;
@@ -666,7 +694,7 @@ static int paged_launch_dh(KA attend, KM merge, size_t* allowed,
 // plan through paged_plan_query (paged_attention.cu).
 static inline bool paged_plan(PagedProblem& p) {
   if (p.B < 1 || p.R < 1 || p.T < 1 || p.bs < 1 || p.L < 1) return false;
-  if (p.Dh != 64 && p.Dh != 128) return false;
+  if (p.Dh != 64 && p.Dh != 128 && p.Dh != 256) return false;
   const long long keys = (long long)p.L * p.bs;
   const long long grown = (keys + PA_MAX_SPLITS * 64 - 1) / (PA_MAX_SPLITS * 64) * 64;
   const long long base = p.T == 1 ? 128 : 256;

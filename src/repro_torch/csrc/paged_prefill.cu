@@ -51,9 +51,15 @@ static int launch(const void* q, const void* kc, const void* vc, void* kpool,
                                        paged_prefill_kernel_merge<TQ, TC, 64>,
                                        &allowed, a, p, stream);
   }
-  static size_t allowed = 0;
-  return paged_launch_dh<TQ, TC, 128>(paged_prefill_kernel<TQ, TC, 128>,
-                                      paged_prefill_kernel_merge<TQ, TC, 128>,
+  if (p.Dh == 128) {
+    static size_t allowed = 0;
+    return paged_launch_dh<TQ, TC, 128>(paged_prefill_kernel<TQ, TC, 128>,
+                                        paged_prefill_kernel_merge<TQ, TC, 128>,
+                                        &allowed, a, p, stream);
+  }
+  static size_t allowed = 0;   // 256: paged_plan takes no other head dim
+  return paged_launch_dh<TQ, TC, 256>(paged_prefill_kernel<TQ, TC, 256>,
+                                      paged_prefill_kernel_merge<TQ, TC, 256>,
                                       &allowed, a, p, stream);
 }
 

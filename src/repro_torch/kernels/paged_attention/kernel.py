@@ -23,7 +23,9 @@ one buffer per stream, kept across calls), a two-stage ``cp.async`` ring
 of 64-key tiles, and for bf16 x bf16 ``mma.sync`` tensor-core products with
 P split into bf16 high and low parts for P·V (one rounding of P to bf16
 would cost more than the one-ulp tolerance); fp32 CUDA-core products for the
-other dtype pairs.  Head dims 64 and 128 are built; others raise.
+other dtype pairs.  Head dims 64, 128 and 256 are built (at 256 the
+tensor-core path reloads Q's fragments from shared memory per tile rather
+than holding them in registers beside the 128 accumulators); others raise.
 """
 from __future__ import annotations
 
@@ -47,12 +49,13 @@ def plan(b: int, hkv: int, rows: int, t: int, dh: int, bs: int, n_log: int) -> d
     makes it from host-known shapes (no device sync): keys per split, splits,
     row groups of query rows, fp32 floats of workspace, attention and merge
     CTAs.  ``rows`` = T·g query rows per (row, kv-head); ValueError for a
-    shape the kernels do not take (head dims other than 64 and 128)."""
+    shape the kernels do not take (head dims other than 64, 128 and 256)."""
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     if build.library().paged_plan_query(b, hkv, rows, t, dh, bs, n_log, out):
         raise ValueError(f"paged kernels: B={b} Hkv={hkv} rows={rows} T={t} "
                          f"head_dim {dh} bs={bs} L={n_log} is not taken "
-                         "(csrc/paged_core.cuh::paged_plan: head dims 64 and 128)")
+                         "(csrc/paged_core.cuh::paged_plan: head dims 64, 128 "
+                         "and 256)")
     return dict(zip(_PLAN_KEYS, out))
 
 

@@ -22,7 +22,8 @@ only the trash block is read and written by rows whose output is discarded
 (``paged_core.cuh``).  A two-stage ``cp.async`` ring streams 64-key tiles;
 bf16 x bf16 runs Q·Kᵀ and P·V on the tensor cores (``mma.sync``), with P
 split into bf16 high and low parts so P·V keeps fp32 accuracy; the other
-dtype pairs use fp32 CUDA-core products.  Head dims 64 and 128 are built.
+dtype pairs use fp32 CUDA-core products.  Head dims 64, 128 and 256 are
+built.
 """
 from __future__ import annotations
 

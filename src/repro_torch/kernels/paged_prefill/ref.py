@@ -9,8 +9,25 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.paged_attention.ref import window
+
 NEG_INF = -2.0e38
 TRASH_BLOCK = 0           # serving/paged.py convention: block 0 is reserved
+
+
+def chunk_slots(block_tables: torch.Tensor, start: torch.Tensor,
+                lens: torch.Tensor, t: int, bs: int):
+    """(pool block, offset, position), each [B, T], of chunk token ``j`` of
+    row ``b`` at position ``start[b] + j``: block
+    ``block_tables[b, min(pos // bs, L-1)]``, or the trash block for a pad
+    token ``j >= lens[b]``."""
+    ar = torch.arange(t, device=block_tables.device)
+    pos = start.long()[:, None] + ar[None]
+    blk = torch.clamp(pos // bs, max=block_tables.shape[1] - 1)
+    bid = torch.gather(block_tables.long(), 1, blk)
+    bid = torch.where(ar[None] < lens.long()[:, None], bid,
+                      torch.full_like(bid, TRASH_BLOCK))
+    return bid, pos % bs, pos
 
 
 def paged_prefill_chunk_ref(q: torch.Tensor, k_chunk: torch.Tensor,
@@ -25,21 +42,13 @@ def paged_prefill_chunk_ref(q: torch.Tensor, k_chunk: torch.Tensor,
     nlog = block_tables.shape[1]
     g = tg // t
     dev = q.device
-    bt = block_tables.long()
-    ar = torch.arange(t, device=dev)
-    pos = start.long()[:, None] + ar[None]                          # [B, T]
-    valid = ar[None] < lens.long()[:, None]
-    blk = torch.clamp(pos // bs, max=nlog - 1)
-    bid = torch.gather(bt, 1, blk)
-    bid = torch.where(valid, bid, torch.full_like(bid, TRASH_BLOCK))
-    off = pos % bs
+    bid, off, pos = chunk_slots(block_tables, start, lens, t, bs)
     kf = k_chunk.permute(0, 2, 1, 3).reshape(b * t, hkv, dh)
     vf = v_chunk.permute(0, 2, 1, 3).reshape(b * t, hkv, dh)
     k_pool[bid.reshape(-1), :, off.reshape(-1)] = kf.to(k_pool.dtype)
     v_pool[bid.reshape(-1), :, off.reshape(-1)] = vf.to(v_pool.dtype)
 
-    k = k_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, hkv, nlog * bs, dh)
-    v = v_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, hkv, nlog * bs, dh)
+    k, v = window(k_pool, block_tables), window(v_pool, block_tables)
     qg = q.reshape(b, hkv, t, g, dh)
     s = torch.einsum("bktgd,bkpd->bktgp", qg.to(torch.float32),
                      k.to(torch.float32)) * scale

@@ -88,6 +88,12 @@ def build_engine(args) -> Engine:
     if args.packed:
         cfg, model = convert_to_packed(cfg, model)
         print("[packed] ternary 2-bit weights")
+    if dev.type == "cuda":
+        # the QAT model (fp32 weights) is built whole before it is packed:
+        # the build's peak, e.g. ~34 GB of weights for gemma-7b
+        print(f"[memory] peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+              f"allocated while building; {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+              "GB held by the serving model")
     prompt_len = args.prompt_len
     if args.shared_prefixes > 0:
         prompt_len = args.shared_prefix_len + args.tail_len
@@ -441,8 +447,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "dense block-table gather (auto = fused on the "
                          "card)")
     ap.add_argument("--block-kv", type=int, default=None,
-                    help="override Attention.block_kv (KV block length of "
-                         "the blocked/flash prefill impl)")
+                    help="override ModelConfig.block_kv, the KV block length "
+                         "of the blocked (flash-style) forward; it reaches "
+                         "only CausalLM.apply, which the engine does not "
+                         "call, so it changes no served token (as in the "
+                         "JAX launcher)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache: share KV blocks of repeated "
                          "prompt prefixes across requests (paged only)")

@@ -2,9 +2,11 @@
 ``repro/models/base.py``.  The fields are the JAX config's, so a config
 compares field for field with its JAX counterpart; ``policy()`` returns
 torch dtypes.  The port runs the dense attention families (the ``attn`` +
-``dense`` pattern; ``qwen3-*``, ``qwen1.5-0.5b``) and the SSM family (the
-``mamba`` + ``none`` pattern; ``mamba2-780m``); the other families come
-with later slices.
+``dense`` pattern; ``qwen3-*``, ``qwen1.5-0.5b``, ``qwen2.5-3b``,
+``gemma-7b``, ``mistral-large-123b``) and the SSM family (the ``mamba`` +
+``none`` pattern; ``mamba2-780m``); the MoE, hybrid, VLM and
+encoder-decoder configs are registered as data and refused by
+``build_model``.
 """
 from __future__ import annotations
 
@@ -100,7 +102,10 @@ class ModelConfig:
             rope_theta=self.rope_theta, logit_softcap=self.logit_softcap,
             ssm_state=self.ssm_state, ssm_head_dim=self.ssm_head_dim,
             ssm_chunk=self.ssm_chunk, subln=self.subln, quant=self.quant,
-            attn_scores_dtype=self.attn_scores_dtype, policy=self.policy())
+            attn_scores_dtype=self.attn_scores_dtype,
+            attn_impl=self.attn_impl, block_kv=self.block_kv,
+            seq_shard_activations=self.seq_shard_activations,
+            policy=self.policy())
 
     # -- config surgery ---------------------------------------------------------
 

@@ -5,7 +5,6 @@ padded-vocab logits mask).  ``apply`` is the JAX training contract
 alone, for the serving engine."""
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -41,8 +40,10 @@ class CausalLM(nn.Module):
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed(tokens)
         if self.cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
-                                 device=x.device)
+            # gemma: sqrt(d_model) in fp32, cast to the activation dtype
+            # before the product, as JAX's ``jnp.sqrt(d).astype(x.dtype)``
+            scale = torch.sqrt(torch.tensor(float(self.cfg.d_model)))
+            x = x * scale.to(device=x.device, dtype=x.dtype)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,12 @@ Layouts: activations [B, S, D]; per-head tensors [B, S, H, Dh]; paged pools
 ``{"k","v"}`` [num_blocks, Hkv, block_size, Dh] and the contiguous cache
 ``{"k","v"}`` [B, Hkv, max_len, Dh], both updated in place (the JAX module
 returns new ones; here the step's K/V are stored into the caller's
-tensors).  All softmax math in fp32.  The blocked (flash-style) forward
-and cross-attention are not ported.
+tensors).  Softmax statistics in fp32.  ``scores_dtype="bfloat16"`` is
+JAX's bf16 scores mode (the operands of both products rounded to bf16,
+fp32 accumulation, the exp and the weights in bf16); ``impl="blocked"`` is
+JAX's flash-style forward, which streams ``block_kv`` keys at a time with
+an online softmax in fp32 and runs only in the full-sequence forward.
+Cross-attention is not ported.
 """
 from __future__ import annotations
 
@@ -20,12 +24,16 @@ from torch import nn
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear, SubLN
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.paged_prefill import ops as pp_ops
+from repro_torch.kernels.paged_prefill import ref as pp_ref
 from repro_torch.nn.layers import RMSNorm, apply_rope
 from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
 
 NEG_INF = -2.0e38
+BF16_MASK = -3.0e38          # JAX's mask fill under bf16 scores
 Cache = Dict[str, torch.Tensor]
+_SCORES_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Attention(nn.Module):
@@ -33,6 +41,7 @@ class Attention(nn.Module):
                  head_dim: int, qkv_bias: bool = False, qk_norm: bool = False,
                  rope_theta: float = 10000.0, logit_softcap: float = 0.0,
                  subln: bool = False, scores_dtype: str = "float32",
+                 impl: str = "dense", block_kv: int = 1024,
                  quant: Q.QuantConfig = Q.FP,
                  policy: DTypePolicy = DEFAULT_POLICY,
                  gen: Optional[torch.Generator] = None,
@@ -41,10 +50,16 @@ class Attention(nn.Module):
         if n_heads % n_kv_heads:
             raise ValueError(f"n_heads={n_heads} is not a multiple of "
                              f"n_kv_heads={n_kv_heads}")
-        if scores_dtype != "float32":
-            raise ValueError(f"scores_dtype={scores_dtype!r}: only fp32 scores "
-                             "are ported")
+        if scores_dtype not in _SCORES_DTYPES:
+            raise ValueError(f"scores_dtype={scores_dtype!r}: 'float32' or "
+                             "'bfloat16'")
+        if impl not in ("dense", "blocked"):
+            raise ValueError(f"attn_impl={impl!r}: 'dense' or 'blocked'")
+        if block_kv < 1:
+            raise ValueError(f"block_kv={block_kv} must be at least 1")
         self.n_heads, self.n_kv_heads, self.head_dim = n_heads, n_kv_heads, head_dim
+        self.scores_dtype = _SCORES_DTYPES[scores_dtype]
+        self.impl, self.block_kv = impl, block_kv
         self.rope_theta, self.logit_softcap = rope_theta, logit_softcap
         q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
         self.q_dim = q_dim
@@ -81,23 +96,89 @@ class Attention(nn.Module):
     # -- attention core --------------------------------------------------------
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """q [B,S,Hq,Dh]; k/v [B,T,Hkv,Dh]; mask [B,1,S,T] bool (True =
-        keep)."""
+                mask: Optional[torch.Tensor], kv_layout: str = "bshd"
+                ) -> torch.Tensor:
+        """q [B,S,Hq,Dh]; k/v [B,T,Hkv,Dh] ("bshd") or [B,Hkv,T,Dh] ("bhsd",
+        the cache layout); mask [B,1,S,T] bool (True = keep).
+
+        With bf16 scores (JAX's ``sd != float32`` branch) both products take
+        bf16-rounded operands and accumulate in fp32 (a product of two bf16
+        values is exact in fp32, so the CPU and the card agree up to the
+        order of the sums); the row max is subtracted in fp32, the exp and
+        the weights are bf16, the row sum fp32."""
         b, s, hq, dh = q.shape
         g = hq // self.n_kv_heads
+        sd = self.scores_dtype
         qg = q.reshape(b, s, self.n_kv_heads, g, dh).permute(0, 2, 3, 1, 4)
-        kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-        scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(torch.float32),
-                              kf.to(torch.float32))
+        if kv_layout == "bshd":
+            kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        else:
+            kf, vf = k, v
+        f32 = torch.float32
+        scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(sd).to(f32),
+                              kf.to(sd).to(f32))
         scores = scores / math.sqrt(dh)
         if self.logit_softcap > 0.0:
             scores = self.logit_softcap * torch.tanh(scores / self.logit_softcap)
         if mask is not None:
+            fill = NEG_INF if sd == f32 else BF16_MASK
             scores = torch.where(mask[:, :, None], scores,
-                                 torch.full_like(scores, NEG_INF))
-        w = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgst,bktd->bkgsd", w, vf.to(torch.float32))
+                                 torch.full_like(scores, fill))
+        if sd == f32:
+            w = torch.softmax(scores, dim=-1)
+        else:
+            m = torch.amax(scores, dim=-1, keepdim=True)
+            e = torch.exp((scores - m).to(sd).to(f32)).to(sd)
+            z = torch.sum(e.to(f32), dim=-1, keepdim=True)
+            w = (e.to(f32) / z.to(sd).to(f32)).to(sd).to(f32)
+        out = torch.einsum("bkgst,bktd->bkgsd", w, vf.to(sd).to(f32))
+        return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh).to(v.dtype)
+
+    def _attend_blocked(self, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, mask: Optional[torch.Tensor]
+                        ) -> torch.Tensor:
+        """The flash-style forward (JAX ``_attend_blocked``): K/V padded to
+        whole blocks of ``min(block_kv, T)`` keys and walked one block at a
+        time with an online softmax, the (max, sum, acc) carry in fp32;
+        peak memory O(S·block) instead of O(S·T).  Scores are fp32 whatever
+        ``scores_dtype`` says, as in JAX.  Gradients come from autograd
+        through the loop (JAX differentiates through its ``lax.scan``)."""
+        b, s, hq, dh = q.shape
+        t = k.shape[1]
+        g = hq // self.n_kv_heads
+        blk = min(self.block_kv, t)
+        nb = -(-t // blk)
+        pad = nb * blk - t
+        f32 = torch.float32
+        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        colmask = None if mask is None else torch.nn.functional.pad(mask, (0, pad))
+        qg = (q.reshape(b, s, self.n_kv_heads, g, dh)
+              .permute(0, 2, 3, 1, 4).to(f32))                # [b,kv,g,s,dh]
+        scale = (1.0 / torch.sqrt(torch.tensor(float(dh), dtype=f32))).item()
+        shape = (b, self.n_kv_heads, g, s, 1)
+        m = torch.full(shape, NEG_INF, dtype=f32, device=q.device)
+        z = torch.zeros(shape, dtype=f32, device=q.device)
+        acc = torch.zeros(shape[:-1] + (dh,), dtype=f32, device=q.device)
+        cols = torch.arange(blk, device=q.device)
+        for i in range(nb):
+            lo = i * blk
+            kb = kp[:, lo:lo + blk].permute(0, 2, 1, 3).to(f32)   # [b,kv,blk,dh]
+            vb = vp[:, lo:lo + blk].permute(0, 2, 1, 3).to(f32)
+            sc = torch.einsum("bkgsd,bktd->bkgst", qg, kb) * scale
+            if self.logit_softcap > 0.0:
+                sc = self.logit_softcap * torch.tanh(sc / self.logit_softcap)
+            valid = (lo + cols) < t
+            keep = valid if colmask is None else \
+                colmask[..., lo:lo + blk][:, :, None] & valid
+            sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1, keepdim=True))
+            c = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            z = z * c + torch.sum(p, dim=-1, keepdim=True)
+            acc = acc * c + torch.einsum("bkgst,bktd->bkgsd", p, vb)
+            m = m_new
+        out = acc / torch.clamp_min(z, 1e-30)
         return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh).to(v.dtype)
 
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
@@ -125,7 +206,9 @@ class Attention(nn.Module):
         k, v = self._project_kv(x, positions)
         ar = torch.arange(s, device=x.device)
         mask = (ar[None, :] <= ar[:, None])[None, None].expand(b, 1, s, s)
-        y = self._out(self._attend(q, k, v, mask))
+        attend = (self._attend_blocked if self.impl == "blocked" and s > 1
+                  else self._attend)
+        y = self._out(attend(q, k, v, mask))
         if not collect_states:
             return y
         g = self.n_heads // self.n_kv_heads
@@ -144,13 +227,16 @@ class Attention(nn.Module):
 
         ``block_tables=None``: the contiguous cache [B, Hkv, max_len, Dh];
         row ``b`` writes its K/V at ``cache_index[b]`` and attends its
-        positions ``<= cache_index[b]`` with dense fp32 attention
-        (``attn_impl`` is not read).  Otherwise row ``b``'s position ``i``
-        lives in pool block ``block_tables[b, i // bs]`` at offset ``i % bs``:
+        positions ``<= cache_index[b]`` with dense attention (``attn_impl``
+        is not read).  Otherwise row ``b``'s position ``i`` lives in pool
+        block ``block_tables[b, i // bs]`` at offset ``i % bs``:
         ``attn_impl="fused"`` runs the paged decode kernel (the plain PyTorch
-        version for CPU tensors); ``"gather"`` runs that plain version on any
-        device: it writes the new K/V, gathers the whole table into a dense
-        window and runs masked dense attention."""
+        version for CPU tensors), whose scores are fp32 whatever
+        ``scores_dtype`` says, as JAX's kernel's are; ``"gather"`` writes the
+        new K/V, gathers the whole table into a dense window and runs masked
+        dense attention: with fp32 scores through the kernel's plain version
+        (on any device), with bf16 scores through :meth:`_attend`, as JAX's
+        gather route does."""
         b = x.shape[0]
         idx = cache_index.to(torch.int32).reshape(-1).expand(b).contiguous()
         positions = idx[:, None]
@@ -163,11 +249,18 @@ class Attention(nn.Module):
             vc[rows, :, at] = v_new[:, 0].to(vc.dtype)
             t = kc.shape[2]
             mask = torch.arange(t, device=x.device)[None, :] <= idx[:, None]
-            ctx = self._attend(q, kc.transpose(1, 2), vc.transpose(1, 2),
-                               mask[:, None, None, :])
+            ctx = self._attend(q, kc, vc, mask[:, None, None, :],
+                               kv_layout="bhsd")
             return self._out(ctx), cache
         attend = _pick(attn_impl, pa_ops.paged_attention_decode,
                        pa_ops.paged_attention_decode_plain)
+        if attn_impl == "gather" and self.scores_dtype != torch.float32:
+            bid, off = pa_ref.decode_slots(block_tables, idx, cache["k"].shape[2])
+            k, v = self._paged_window(cache, block_tables, bid, off,
+                                      k_new[:, 0], v_new[:, 0])
+            mask = torch.arange(k.shape[2], device=x.device)[None, :] <= idx[:, None]
+            ctx = self._attend(q, k, v, mask[:, None, None, :], kv_layout="bhsd")
+            return self._out(ctx), cache
         ctx, _, _ = attend(q[:, 0], k_new[:, 0], v_new[:, 0], cache["k"],
                            cache["v"], block_tables, idx,
                            softcap=self.logit_softcap)
@@ -180,7 +273,9 @@ class Attention(nn.Module):
         written at ``start[b] + j`` (iff ``j < lens[b]``; pad positions are
         never written into owned blocks) and attends positions
         ``<= start[b] + j``.  Decode rows are ``lens == 1``.  ``attn_impl`` as
-        in :meth:`decode` (``"fused"``: the paged prefill kernel)."""
+        in :meth:`decode` (``"fused"``: the paged prefill kernel, fp32
+        scores; ``"gather"`` with bf16 scores: :meth:`_attend` over the
+        gathered window, pad tokens stored into the trash block)."""
         b, t, _ = x.shape
         start = start.to(torch.int32).reshape(-1).expand(b).contiguous()
         lens = lens.to(torch.int32).reshape(-1).expand(b).contiguous()
@@ -190,9 +285,33 @@ class Attention(nn.Module):
         k_new, v_new = self._project_kv(x, positions)
         attend = _pick(attn_impl, pp_ops.paged_prefill_chunk,
                        pp_ops.paged_prefill_chunk_plain)
+        if attn_impl == "gather" and self.scores_dtype != torch.float32:
+            bid, off, pos = pp_ref.chunk_slots(block_tables, start, lens, t,
+                                               cache["k"].shape[2])
+            hkv, dh = self.n_kv_heads, self.head_dim
+            k, v = self._paged_window(cache, block_tables, bid.reshape(-1),
+                                      off.reshape(-1),
+                                      k_new.reshape(b * t, hkv, dh),
+                                      v_new.reshape(b * t, hkv, dh))
+            mask = (torch.arange(k.shape[2], device=x.device)[None, None]
+                    <= pos[:, :, None])[:, None]                  # [B,1,T,L*bs]
+            ctx = self._attend(q, k, v, mask, kv_layout="bhsd")
+            return self._out(ctx), cache
         ctx, _, _ = attend(q, k_new, v_new, cache["k"], cache["v"],
                            block_tables, start, lens, softcap=self.logit_softcap)
         return self._out(ctx), cache
+
+    def _paged_window(self, cache: Cache, block_tables: torch.Tensor,
+                      bid: torch.Tensor, off: torch.Tensor, k_rows: torch.Tensor,
+                      v_rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Store ``k_rows``/``v_rows`` [n, Hkv, Dh] at pool block ``bid[n]``,
+        offset ``off[n]`` (in place), then gather each row's block table into
+        a dense [B, Hkv, L*bs, Dh] window (JAX's ``_paged_update`` and the
+        gather ``decode_chunk``)."""
+        pk, pv = cache["k"], cache["v"]
+        pk[bid, :, off] = k_rows.to(pk.dtype)
+        pv[bid, :, off] = v_rows.to(pv.dtype)
+        return pa_ref.window(pk, block_tables), pa_ref.window(pv, block_tables)
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> Cache:

@@ -1,5 +1,6 @@
 """Transformer blocks and stacks — port of ``repro/nn/transformer.py`` for the
-``attn`` + ``dense`` and ``mamba`` + ``none`` patterns.
+``attn`` + ``dense`` and ``mamba`` + ``none`` patterns (a block of any other
+pattern, MoE or cross-attention, raises naming the feature).
 
 The JAX ``Stack`` keeps each pattern position's params stacked over repeats
 and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
@@ -55,6 +56,9 @@ class BlockConfig:
     rope_theta: float = 10000.0
     logit_softcap: float = 0.0
     attn_scores_dtype: str = "float32"
+    attn_impl: str = "dense"        # "dense" | "blocked" (flash-style)
+    block_kv: int = 1024            # KV block length for the blocked impl
+    seq_shard_activations: bool = False   # Megatron-SP residual sharding
     # SSM
     ssm_state: int = 128
     ssm_head_dim: int = 64
@@ -74,10 +78,18 @@ class Block(nn.Module):
                  device: Optional[torch.device] = None):
         super().__init__()
         if spec not in (LayerSpec("attn", "dense"), LayerSpec("mamba", "none")):
+            what = ("the MoE FFN (nn/moe.py)" if spec.ffn == "moe" else
+                    "cross-attention" if "cross" in spec.mixer else
+                    f"mixer {spec.mixer!r} with ffn {spec.ffn!r}")
             raise NotImplementedError(
-                f"layer {spec}: only the attn + dense and mamba + none "
-                "patterns are ported")
+                f"layer {spec}: {what} is not ported; only the attn + dense "
+                "and mamba + none patterns are")
         c = cfg
+        if c.seq_shard_activations:
+            raise ValueError(
+                "seq_shard_activations=True (Megatron sequence-parallel "
+                "sharding of the residual stream) is not ported: it comes "
+                "with distributed/sharding.py (ROADMAP Queue A, item 25)")
         self.spec = spec
         self.norm1 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
         self.attn = self.mamba = self.norm2 = self.mlp = None
@@ -86,7 +98,8 @@ class Block(nn.Module):
                 c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
                 qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope_theta=c.rope_theta,
                 logit_softcap=c.logit_softcap, subln=c.subln,
-                scores_dtype=c.attn_scores_dtype, quant=c.quant, policy=c.policy,
+                scores_dtype=c.attn_scores_dtype, impl=c.attn_impl,
+                block_kv=c.block_kv, quant=c.quant, policy=c.policy,
                 gen=gen, device=device)
         else:
             self.mamba = Mamba2Block(

@@ -184,7 +184,7 @@ def _paged_pools(rng, hkv, dh, bs, L, depths, shared=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_paged_prefill_split_walk(cuda, dtype, dh, softcap):
     """A T = 32 launch over a 1024-position table (four 256-key splits): a
@@ -233,7 +233,7 @@ def test_paged_prefill_split_walk(cuda, dtype, dh, softcap):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_paged_decode_split_walk(cuda, dtype, dh, softcap):
     """Decode over a 1024-position table (eight 128-key splits): depths
@@ -277,6 +277,57 @@ def test_paged_decode_split_walk(cuda, dtype, dh, softcap):
             *args)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_gemma_heads(cuda, dtype):
+    """gemma-7b's attention (16 kv heads of 256, g = 1: one query row per
+    (row, head)): a decode step and a T = 32 chunk step of one prefilling
+    row among decode rows, over mixed depths with an idle row, against the
+    plain versions; a head dim of 96 raises naming it."""
+    rng = np.random.default_rng(256)
+    Hkv, g, dh, bs, L, T = 16, 1, 256, 16, 64, 32
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dtype)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
+    idx = [1023, 512, 17, 0, L * bs - 1]
+    depths = [i + 1 for i in idx]
+    depths[4] = None
+    bt, kp, vp = _paged_pools(rng, Hkv, dh, bs, L, depths)
+    B = len(idx)
+    q = rng.standard_normal((B, Hkv, g, dh)).astype(np.float32)
+    kn = rng.standard_normal((B, Hkv, dh)).astype(np.float32)
+    vn = rng.standard_normal((B, Hkv, dh)).astype(np.float32)
+    k1, v1 = dev(kp), dev(vp)
+    k2, v2 = k1.clone(), v1.clone()
+    args = (torch.from_numpy(bt).to(cuda), i32(idx), dh ** -0.5, 0.0)
+    out, _, _ = pa_kernel.paged_attention_decode_kernel(dev(q), dev(kn), dev(vn),
+                                                        k1, v1, *args)
+    ref, _, _ = pa_ref.paged_attention_decode_ref(dev(q), dev(kn), dev(vn), k2, v2,
+                                                  *args)
+    torch.testing.assert_close(out[:4].float(), ref[:4].float(), rtol=0,
+                               atol=_atol(dtype))
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    starts, lens = [256, 17, 130, 990, L * bs - 1], [32, 1, 1, 1, 1]
+    depths = [s + n for s, n in zip(starts, lens)]
+    depths[4] = None
+    bt, kp, vp = _paged_pools(rng, Hkv, dh, bs, L, depths)
+    q = rng.standard_normal((B, Hkv, T * g, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Hkv, T, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Hkv, T, dh)).astype(np.float32)
+    k1, v1 = dev(kp), dev(vp)
+    k2, v2 = k1.clone(), v1.clone()
+    args = (torch.from_numpy(bt).to(cuda), i32(starts), i32(lens), dh ** -0.5, 0.0)
+    out, _, _ = pp_kernel.paged_prefill_chunk_kernel(dev(q), dev(kc), dev(vc),
+                                                     k1, v1, *args)
+    ref, _, _ = pp_ref.paged_prefill_chunk_ref(dev(q), dev(kc), dev(vc), k2, v2,
+                                               *args)
+    for b in range(4):
+        torch.testing.assert_close(out[b, :, :lens[b] * g].float(),
+                                   ref[b, :, :lens[b] * g].float(),
+                                   rtol=0, atol=_atol(dtype))
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    with pytest.raises(ValueError, match="head_dim 96"):
+        pa_kernel.plan(B, Hkv, g, 1, 96, bs, L)
+
+
 def test_paged_plan_caps_the_splits(cuda):
     """The launch plan is the .cu's (``paged_core.cuh::paged_plan``): 128-key
     splits for decode, 256 for a chunk, grown so there are at most 16, a
@@ -294,6 +345,8 @@ def test_paged_plan_caps_the_splits(cuda):
     assert p["split_keys"] * p["splits"] >= 4096 * 16
     p = pa_kernel.plan(2, 2, 2, 1, 64, 16, 8)
     assert (p["splits"], p["workspace_floats"], p["merge_ctas"]) == (1, 0, 0)
+    assert pa_kernel.plan(8, 16, 1, 1, 256, 16, 64)["workspace_floats"] == \
+        8 * 16 * 8 * 64 * 258
     with pytest.raises(ValueError, match="head_dim 96"):
         pa_kernel.plan(2, 2, 2, 1, 96, 16, 8)
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=cuda)
