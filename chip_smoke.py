@@ -125,6 +125,7 @@ import gc
 import json
 import math
 import statistics
+import re
 import subprocess
 import sys
 import time
@@ -233,6 +234,8 @@ W2A8_MAMBA_SHAPES = [(1536, 6448), (3072, 1536)]
 # q/o, k/v (N = 256), gate/up and down (phase 12)
 W2A8_DENSE_SHAPES = [(3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072),
                      (2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
+# granite-moe-1b-a400m's q/o and k/v (phase 13; its experts are einsums)
+W2A8_MOE_SHAPES = [(1024, 1024), (1024, 512)]
 
 
 def _int_mm_ms(xq, wq, scale, dt, flush):
@@ -259,8 +262,9 @@ def _fmt(v):
 
 def check_w2a8(dev, flush, results):
     """w2a8 at the serving path's five projection shapes (qwen3-0.6b: q/o,
-    k/v, gate/up, down), mamba2-780m's two (in_proj, out_proj) and the eight
-    of gemma-7b and qwen2.5-3b at the decode rows (M=8) and a chunk step's
+    k/v, gate/up, down), mamba2-780m's two (in_proj, out_proj), the eight
+    of gemma-7b and qwen2.5-3b and granite-moe-1b-a400m's k/v (its q/o is
+    qwen3's (1024, 1024)) at the decode rows (M=8) and a chunk step's
     rows (M = max_batch 8 x chunk 32 = 256), and, where the package routes
     by M, on both sides of its threshold, and at the mamba shapes each route
     forced at M = 8, 16 (phase 11's slots) and 256, at the dense shapes at
@@ -281,7 +285,8 @@ def check_w2a8(dev, flush, results):
     ms_checked = sorted({1, 8, 64, 256} | (set() if thr is None else {thr, thr + 1}))
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    shapes = W2A8_SHAPES + W2A8_MAMBA_SHAPES + W2A8_DENSE_SHAPES
+    shapes = W2A8_SHAPES + W2A8_MAMBA_SHAPES + W2A8_DENSE_SHAPES + [
+        kn for kn in W2A8_MOE_SHAPES if kn not in W2A8_SHAPES]
     for (k, n) in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         qw, delta = Q.weight_quant_absmean(w)
@@ -350,6 +355,7 @@ def check_w2a8(dev, flush, results):
         shape="M=8 K=1024 N=3072 bf16", split_k_max_m=thr, chunk_step=chunk,
         mamba_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_MAMBA_SHAPES],
         dense_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_DENSE_SHAPES],
+        moe_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_MOE_SHAPES],
         rows=rows, routes=routes)
 
 
@@ -417,23 +423,30 @@ def _paged_row(what, ms, plain, lib, bd, by, grid, host):
 
 
 # (kv heads, g, head_dim) of the paged rows: qwen3-0.6b's (the headline
-# rows) and gemma-7b's (phase 12: MHA, head_dim 256)
-PAGED_HEADS = {"qwen3-0.6b": (8, 2, 128), "gemma-7b": (16, 1, 256)}
+# rows), gemma-7b's (phase 12: MHA, head_dim 256) and granite-moe-1b-a400m's
+# (phase 13: head_dim 64)
+PAGED_HEADS = {"qwen3-0.6b": (8, 2, 128), "gemma-7b": (16, 1, 256),
+               "granite-moe-1b-a400m": (8, 2, 64)}
 
 
 def check_paged_decode(dev, flush, results):
-    """The decode kernel at qwen3-0.6b's heads (the headline row) and at
-    gemma-7b's (``gemma_row``)."""
+    """The decode kernel at qwen3-0.6b's heads (the headline row), at
+    gemma-7b's (``gemma_row``) and at granite-moe-1b-a400m's
+    (``granite_row``)."""
     row, worst = _paged_decode_shape(dev, flush, *PAGED_HEADS["qwen3-0.6b"])
     gemma, worst_g = _paged_decode_shape(dev, flush, *PAGED_HEADS["gemma-7b"])
+    granite, worst_m = _paged_decode_shape(dev, flush,
+                                           *PAGED_HEADS["granite-moe-1b-a400m"])
     results["paged_attention_decode"] = dict(
         name="paged_attention_decode", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:114",
-        max_abs_err=max(worst, worst_g),
+        max_abs_err=max(worst, worst_g, worst_m),
         shape="B=8 Hkv=8 g=2 Dh=128 bs=16 depth<=1023 bf16", **row,
         gemma_row=dict(gemma, max_abs_err=worst_g,
-                       shape="B=8 Hkv=16 g=1 Dh=256 bs=16 depth<=1023 bf16"))
+                       shape="B=8 Hkv=16 g=1 Dh=256 bs=16 depth<=1023 bf16"),
+        granite_row=dict(granite, max_abs_err=worst_m,
+                         shape="B=8 Hkv=8 g=2 Dh=64 bs=16 depth<=1023 bf16"))
 
 
 def _paged_decode_shape(dev, flush, hkv, g, dh):
@@ -513,6 +526,7 @@ def check_paged_prefill(dev, flush, results):
             _paged_prefill_shape(dev, flush, mixed_starts, mixed_lens, 6,
                                  "paged prefill mixed step", heads))
     (row, mixed), (gemma, gemma_mixed) = rows["qwen3-0.6b"], rows["gemma-7b"]
+    granite, granite_mixed = rows["granite-moe-1b-a400m"]
     mixed_shape = ("B=8 T=32: one row 32 tokens at 256, seven decode rows at "
                    "depths 17..990, bf16")
     worst = max(r["max_abs_err"] for pair in rows.values() for r in pair)
@@ -524,7 +538,10 @@ def check_paged_prefill(dev, flush, results):
         shape="B=8 Hkv=8 g=2 Dh=128 bs=16 T=32 start<=990 bf16",
         mixed_step=dict(mixed, shape=mixed_shape),
         gemma_row=dict(gemma, shape="B=8 Hkv=16 g=1 Dh=256 bs=16 T=32 start<=990 "
-                       "bf16", mixed_step=dict(gemma_mixed, shape=mixed_shape)))
+                       "bf16", mixed_step=dict(gemma_mixed, shape=mixed_shape)),
+        granite_row=dict(granite, shape="B=8 Hkv=8 g=2 Dh=64 bs=16 T=32 "
+                         "start<=990 bf16",
+                         mixed_step=dict(granite_mixed, shape=mixed_shape)))
 
 
 def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads):
@@ -752,7 +769,7 @@ def _instance(fn: str):
                 return kern, f"{kern}<{'bf16' if 'bfloat16' in fn else 'fp32'}>"
             if kern == "relation_kl_tiles":
                 return kern, kern + ("<vec>" if "ILb1E" in fn else "<scalar>")
-            return kern, kern + ("<128,64>" if "Li128E" in fn else "<16,16>")
+            return kern, kern + "<" + ",".join(re.findall(r"Li(\d+)E", fn)) + ">"
     return None, None
 
 
@@ -908,23 +925,41 @@ def check_relation_kd(dev, flush, results):
 
 
 def check_ssd_scan(dev, flush, results):
-    """ssd_scan at the mamba2-780m training shape: batch 8 x seq 512, 48
-    heads of 64, state 128, chunk 256 (BH = 384, two chunks), fp32, inputs
-    as Mamba2Block feeds them (A in [-8, -1] per head, dt = softplus(N(-2,
-    1)), so a chunk's summed dt·|A| passes the ~88 where an unmasked
-    exponential overflows).  y and the final state against ssd_chunked and
-    the sequential ssd_scan_ref ([BH] layout, B and C per head), rtol 1e-4
-    atol 1e-4; the gradient of all five operands through the
-    autograd.Function against autograd through ssd_chunked, rtol 1e-3 atol
-    1e-3.  That backward is itself a recompute through ssd_chunked, so the
-    gradient check shows the Function is wired up; phase 8 holds the
-    kernel path's gradients against the sequential oracle."""
+    """ssd_scan at the mamba2-780m training shape (the headline row): batch
+    8 x seq 512, 48 heads of 64, state 128, chunk 256 (BH = 384, two
+    chunks); and at jamba-1.5-large-398b's (``jamba_row``, the (128, 128)
+    instance): batch 2 x seq 512, 128 heads of 128, state 128, chunk 256
+    (BH = 256).  Each as ``_ssd_scan_shape`` checks and times it."""
+    row = _ssd_scan_shape(dev, flush, 8, 512, 48, 64, 128, 256, seed=5)
+    jamba = _ssd_scan_shape(dev, flush, 2, 512, 128, 128, 128, 256, seed=6,
+                            truth=True)
+    results["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:74",
+        max_abs_err=max(row["max_abs_err"], jamba["max_abs_err"]), **{
+            k: v for k, v in row.items() if k != "max_abs_err"},
+        jamba_row=jamba)
+
+
+def _ssd_scan_shape(dev, flush, b, s, h, p, n, chunk, seed, truth=False):
+    """One ssd_scan shape, fp32, inputs as Mamba2Block feeds them (A in
+    [-8, -1] per head, dt = softplus(N(-2, 1)), so a chunk's summed dt·|A|
+    passes the ~88 where an unmasked exponential overflows).  y and the
+    final state against ssd_chunked and the sequential ssd_scan_ref ([BH]
+    layout, B and C per head), rtol 1e-4 atol 1e-4; the gradient of all
+    five operands through the autograd.Function against autograd through
+    ssd_chunked, rtol 1e-3 atol 1e-3.  That backward is itself a recompute
+    through ssd_chunked, so the gradient check shows the Function is wired
+    up; phase 8 holds the kernel path's gradients against the sequential
+    oracle.  With ``truth``, the kernel's y and ssd_chunked's are also
+    measured against ssd_chunked in float64: the largest error over the
+    tolerance (1e-4 + 1e-4·|y|), printed, not gated.  Then the times
+    beside the plain version's and the bound.  Returns the numbers."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
     from repro_torch.kernels.ssd_scan.ref import chunk_len, ssd_chunked, ssd_scan_ref
-    gen = torch.Generator(device=dev).manual_seed(5)
-    b, s, h, p, n, chunk = 8, 512, 48, 64, 128, 256
+    gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     A = -(1.0 + 7.0 * torch.rand((h,), generator=gen, device=dev))
     dt = torch.nn.functional.softplus(r(b, s, h) - 2.0)
@@ -937,6 +972,14 @@ def check_ssd_scan(dev, flush, results):
     flat = lambda t: t.transpose(1, 2).reshape(b * h, s, *t.shape[3:])
     yr, hr = ssd_scan_ref(flat(x), flat(a), flat(dt), B.repeat_interleave(h, 0),
                           C.repeat_interleave(h, 0))
+    over = {}
+    if truth:
+        y64, _ = ssd_chunked(*(t.double() for t in ins), chunk=chunk)
+        for what, got in (("kernel", y), ("ssd_chunked", yc),
+                          ("ssd_scan_ref", yr.reshape(b, h, s, p).transpose(1, 2))):
+            e = (got.double() - y64).abs() / (1e-4 + 1e-4 * y64.abs())
+            over[what] = e.max().item()
+        del y64
     worst = 0.0
     for what, got, want in (("y vs ssd_chunked", y, yc), ("h vs ssd_chunked", hT, hc),
                             ("y vs ssd_scan_ref", flat(y), yr),
@@ -944,7 +987,9 @@ def check_ssd_scan(dev, flush, results):
         err = (got - want).abs()
         if not (bool(torch.isfinite(got).all())
                 and bool((err <= 1e-4 + 1e-4 * want.abs()).all())):
-            fail(f"ssd_scan {what}: max err {err.max().item()}")
+            fail(f"ssd_scan (N, P) = ({n}, {p}) {what}: max err "
+                 f"{err.max().item()}; largest error over the tolerance against a "
+                 f"float64 ssd_chunked: {over or 'not measured'}")
         worst = max(worst, err.max().item())
     g = r(b, s, h, p)
     ins1 = [t.clone().requires_grad_() for t in ins]
@@ -955,7 +1000,8 @@ def check_ssd_scan(dev, flush, results):
         err = (t1.grad - t2.grad).abs()
         if not (bool(torch.isfinite(t1.grad).all())
                 and bool((err <= 1e-3 + 1e-3 * t2.grad.abs()).all())):
-            fail(f"ssd_scan gradient of {name}: max err {err.max().item()}")
+            fail(f"ssd_scan (N, P) = ({n}, {p}) gradient of {name}: max err "
+                 f"{err.max().item()}")
     del ins1, ins2, yr, hr
     ms = both_ms(lambda: ssd_scan_kernel(*ins, chunk), flush)
     plain = both_ms(lambda: ssd_chunked(*ins, chunk=chunk), flush)
@@ -975,13 +1021,15 @@ def check_ssd_scan(dev, flush, results):
     print(f"  ssd_scan b={b} S={s} H={h} P={p} N={n} Q={q} fp32: {ms[0]:.4f} ms, "
           f"device alone {ms[1]:.4f} (plain ssd_chunked {plain[0]:.4f} / "
           f"{plain[1]:.4f}; bound {bd:.4f} by {by}: 3 x {ops / 1e9:.2f} GFLOP "
-          f"at the TF32 rate); max err {worst:.3g}", flush=True)
-    results["ssd_scan"] = dict(
-        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan/kernel.py:74", max_abs_err=worst,
-        ms=ms[0], plain_ms=plain[0], bound_ms=bd, bound_by=by, library_ms=None,
-        device_ms=ms[1], plain_device_ms=plain[1],
-        shape=f"BH={b * h} S={s} P={p} N={n} Q={q} fp32")
+          f"at the TF32 rate); max err {worst:.3g}"
+          + (f"; largest error over the tolerance against a float64 ssd_chunked: "
+             + ", ".join(f"{k} {v:.3f}" for k, v in over.items()) if over else ""),
+          flush=True)
+    return dict(max_abs_err=worst, ms=ms[0], plain_ms=plain[0], bound_ms=bd,
+                bound_by=by, library_ms=None, device_ms=ms[1],
+                plain_device_ms=plain[1], gflop=ops / 1e9,
+                over_tolerance_vs_float64=over or None,
+                shape=f"BH={b * h} S={s} P={p} N={n} Q={q} fp32")
 
 
 # -- phases 3 and 4: the port's Engine ----------------------------------------
@@ -1156,10 +1204,13 @@ def profile_steps(dev, cfg, model, scfg, prompts, out_dir, picks=(2, 3, 6, 8),
     shares = {k: v / busy for k, v in groups.items()}
     print(f"  profile: {steps} steps, wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms (idle share {1 - busy / wall_us:.1%}); "
-          + ", ".join(f"{k} {v:.1%}" for k, v in sorted(shares.items())),
+          + ", ".join(f"{k} {v:.1%}" for k, v in sorted(shares.items()))
+          + "; top device operations: "
+          + "; ".join(f"{n[:60]} {us / busy:.1%}" for n, us in top[:5]),
           flush=True)
     return dict(steps=steps, wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                idle_share=1 - busy / wall_us, device_time_share=shares)
+                idle_share=1 - busy / wall_us, device_time_share=shares,
+                top=[(n, us / 1e3) for n, us in top])
 
 
 def kernel_vs_plain_parity(dev, out_dir):
@@ -1220,11 +1271,33 @@ def _top2_gaps(model, prompt, tokens, dev):
     """The top-2 logit gap at each greedy token of ``tokens`` (the
     continuation of ``prompt``), from one forward of ``model`` over both:
     how far each choice was from a tie."""
+    return _top2(model, prompt, tokens, dev)[1]
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _top2(model, prompt, tokens, dev):
+    """(the top logit, the top-2 gap) at each greedy token of ``tokens``,
+    from one forward of ``model`` over the prompt and them.  An MoE FFN runs
+    at full capacity, as the engine runs it (a capacity factor of experts /
+    top-k makes the capacity the group size)."""
     import torch
+    from repro_torch.nn.moe import MoEMLP
+    moe = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    kept = [m.capacity_factor for m in moe]
+    for m in moe:
+        m.capacity_factor = m.n_experts / m.top_k
     seq = torch.tensor([list(prompt) + list(tokens[:-1])], device=dev)
-    with torch.no_grad():
-        top = model(seq)[0, len(prompt) - 1:].float().topk(2, dim=-1).values
-    return (top[:, 0] - top[:, 1]).tolist()
+    try:
+        with torch.no_grad():
+            top = model(seq)[0, len(prompt) - 1:].float().topk(2, dim=-1).values
+    finally:
+        for m, cf in zip(moe, kept):
+            m.capacity_factor = cf
+    return top[:, 0].tolist(), (top[:, 0] - top[:, 1]).tolist()
 
 
 # -- phases 5 to 8: the BitDistill training path -------------------------------
@@ -1303,6 +1376,19 @@ def train_full_width(dev, out_dir, name, layers, seq, expect, tag, after=None):
                              distill_layer=default_distill_layer(scfg))
     corpus = _train_batches("corpus", 17, 3, dev, seq)
     task = _train_batches("mnli-syn", 0, 6, dev, seq)
+    # an MoE student's auxiliary loss of each step: the CE step's metrics
+    # carry it (``loss_moe``), the distill step's (as JAX's) do not, so the
+    # student's stack output is read in the step's forward
+    moe_losses = []
+    if any(sp.ffn == "moe" for sp in cfg.resolved_pattern()):
+        stack_forward = student.stack.forward
+
+        def tapped(*a, **kw):
+            out = stack_forward(*a, **kw)
+            if torch.is_grad_enabled():
+                moe_losses.append(out[2].detach())
+            return out
+        student.stack.forward = tapped
     opt = AdamW(AdamWConfig(weight_decay=0.01))
     ct_step = make_train_step(student, opt, lambda s: warmup_cosine(s, 3e-4, 1, 3))
     state = init_train_state(student, opt)
@@ -1363,6 +1449,11 @@ def train_full_width(dev, out_dir, name, layers, seq, expect, tag, after=None):
         host.update(gc_ms=gc_ms[0], reserved_gib=mem1["reserved_bytes.all.current"]
                     / 2 ** 30, start_unix=t_wall)
         vals = {k: float(v) for k, v in m.items()}
+        if moe_losses:
+            vals.setdefault("loss_moe", float(moe_losses[-1]))
+            moe_losses.clear()
+            if vals["loss_moe"] == 0.0:
+                fail(f"{name} {kind} step {len(log)}: the MoE auxiliary loss is 0")
         bad = [k for k, v in vals.items() if not math.isfinite(v)]
         if bad:
             fail(f"{name} {kind} step {len(log)}: non-finite {bad}: {vals}")
@@ -1372,7 +1463,8 @@ def train_full_width(dev, out_dir, name, layers, seq, expect, tag, after=None):
                  f"{expect[kind]} (remat recomputes each student forward)")
         log.append(dict(kind=kind, ms=ms, host=host, **vals))
         parts = " ".join(f"{k} {vals[k]:.5g}" for k in
-                         ("loss", "loss_ce", "loss_ld", "loss_ad", "grad_norm", "lr")
+                         ("loss", "loss_ce", "loss_ld", "loss_ad", "loss_moe",
+                          "grad_norm", "lr")
                          if k in vals)
         print(f"  {kind} step {len(log) - 1}: {parts}; {ms:.1f} ms (cudaMalloc "
               f"{host['num_device_alloc']}, cudaFree {host['num_device_free']}, "
@@ -2654,11 +2746,13 @@ def serve_mamba(dev, out_dir):
 
 # -- phase 12: the dense configs, gemma-7b at full width ------------------------------
 
-GEMMA_SERVE = dict(max_batch=8, max_len=1024, prefill_chunk=32, prefix_cache=True,
-                   cache_dtype="bfloat16")
+# phase 3's ServeConfig and tokens a request, for the full-width packed
+# models of phases 12a and 13a
+PACKED_SERVE = dict(max_batch=8, max_len=1024, prefill_chunk=32, prefix_cache=True,
+                    cache_dtype="bfloat16")
 GEMMA_CLI = ["--arch", "gemma-7b", "--packed", "--requests", "8",
              "--max-tokens", "16", "--prompt-len", "16"]
-GEMMA_TOKENS = 32
+PACKED_TOKENS = 32
 
 
 def _common_prefix(a, b):
@@ -2668,16 +2762,28 @@ def _common_prefix(a, b):
 def serve_gemma(dev, out_dir):
     """12a: gemma-7b at full width and depth (28 layers, d_model 3072, 16 kv
     heads of 256, d_ff 24576, a tied 256,000-word vocabulary, GeGLU,
-    embed_scale), packed ternary weights from the port's seeded init, bf16,
-    through the port's ``Engine``: phase 3's prompts at t=0 x 32 greedy
-    tokens.  Gates: the engine resolves ``"fused"``, every request gets its
-    tokens, w2a8 counts 7 x 28 = 196 launches a step and the paged kernels
-    28.  Prints step percentiles, tok/s, KV bytes, peak memory and a
-    profile's idle share, and the count of tokens the plain route
-    (``"gather"``, ``use_kernel=False``) gives alike before a request's
-    first difference: not a gate, since at bf16 over 28 layers the two
-    routes sum in other orders and a near tie may go either way.  Returns
-    the serving kernels' launches and the summary."""
+    embed_scale), as ``serve_packed`` serves it: w2a8 counted at 7 x 28 =
+    196 launches a step.  The plain route's tokens are not a gate: at bf16
+    over 28 layers the two routes sum in other orders and a near tie may go
+    either way."""
+    return serve_packed(dev, out_dir, "gemma-7b", 7, "gemma", gate_plain=False)
+
+
+def serve_packed(dev, out_dir, name, per_layer, tag, gate_plain):
+    """``name`` at full width and depth, packed ternary weights from the
+    port's seeded init, bf16, through the port's ``Engine``: phase 3's
+    prompts at t=0 x 32 greedy tokens.  Gates: the engine resolves
+    ``"fused"``, every request gets its tokens, w2a8 counts ``per_layer`` a
+    layer a step and the paged kernels one a layer a step.  Prints step
+    percentiles, tok/s, KV bytes, peak memory and a profile's idle share
+    and top device operations (``profile_<tag>.txt``), and the count of
+    tokens the plain route (``"gather"``, ``use_kernel=False``) gives alike
+    before a request's first difference; with ``gate_plain`` the two routes
+    must give identical tokens, and a difference fails with the plain
+    route's top-2 logit gap there (phase 4's diagnosis), unless that gap
+    is a bf16 tie (at most one bf16 ulp of the top logit: the logits are
+    bf16, and the paged kernels' other summation order decides a tie).
+    Returns the serving kernels' launches and the summary."""
     import torch
     from repro_torch.core import quant as Q
     from repro_torch.kernels.paged_attention import kernel as pa_k
@@ -2686,7 +2792,7 @@ def serve_gemma(dev, out_dir):
     from repro_torch.models import build_model, get_config
     from repro_torch.serving import ServeConfig
 
-    base = get_config("gemma-7b").replace(compute_dtype="bfloat16")
+    base = get_config(name).replace(compute_dtype="bfloat16")
     cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2697,36 +2803,36 @@ def serve_gemma(dev, out_dir):
           f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab}, {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB held", flush=True)
-    scfg = ServeConfig(**GEMMA_SERVE)
+    scfg = ServeConfig(**PACKED_SERVE)
     prompts = _engine_prompts(cfg.vocab, seed=3)
     counters = (w2_k.launches, pa_k.launches, pp_k.launches)
     for c in counters:
         c.reset()
     step_ms = []
     t_run = time.perf_counter()
-    want, eng = _serve_all(cfg, model, scfg, prompts, step_ms, tokens=GEMMA_TOKENS)
+    want, eng = _serve_all(cfg, model, scfg, prompts, step_ms, tokens=PACKED_TOKENS)
     wall = time.perf_counter() - t_run
     launches = {c.name: c.count for c in counters}
     st = eng.stats()
     steps = st.steps_committed
     if eng.attn_impl != "fused":
-        fail(f"gemma-7b: the engine resolved attn_impl={eng.attn_impl!r} on the card")
+        fail(f"{name}: the engine resolved attn_impl={eng.attn_impl!r} on the card")
     paged = launches["paged_attention_decode"] + launches["paged_prefill_chunk"]
-    per_step = 7 * cfg.n_layers
+    per_step = per_layer * cfg.n_layers
     if (launches["w2a8_gemv"] != per_step * steps or paged != cfg.n_layers * steps
             or not launches["paged_attention_decode"]
             or not launches["paged_prefill_chunk"]):
-        fail(f"gemma-7b: launches {launches} over {steps} steps; want w2a8_gemv "
+        fail(f"{name}: launches {launches} over {steps} steps; want w2a8_gemv "
              f"{per_step} a step and the paged kernels {cfg.n_layers} a step, each "
              "launched")
     for layer in eng._cache:
         for t in layer["attn"].values():
             if not bool(torch.isfinite(t).all()):
-                fail("gemma-7b: a KV pool holds non-finite values")
+                fail(f"{name}: a KV pool holds non-finite values")
     kv_bytes = eng.kv_cache_bytes()
     peak = torch.cuda.max_memory_allocated(dev)
     del eng
-    toks = GEMMA_TOKENS * len(prompts)
+    toks = PACKED_TOKENS * len(prompts)
     ordered = sorted(step_ms)
     pct = {q: ordered[min(len(ordered) - 1, int(q / 100 * len(ordered)))]
            for q in (50, 90, 99)}
@@ -2736,30 +2842,46 @@ def serve_gemma(dev, out_dir):
                    ttft_ms=st.ttft_ms, prefill_chunks=st.prefill_chunks,
                    kv_bytes=kv_bytes, peak_bytes=peak, launches=launches,
                    launches_per_step={k: v / steps for k, v in launches.items()})
-    print(f"    served {len(prompts)} requests x {GEMMA_TOKENS} tokens in {wall:.2f} s: "
+    print(f"    served {len(prompts)} requests x {PACKED_TOKENS} tokens in {wall:.2f} s: "
           f"{toks / wall:.1f} tok/s; {steps} steps, step ms p50 {pct[50]:.2f} p90 "
           f"{pct[90]:.2f} p99 {pct[99]:.2f}; KV pools {kv_bytes / 2**30:.2f} GiB; "
           f"peak {peak / 1e9:.2f} GB; launches {launches} "
           f"({launches['w2a8_gemv'] // steps} w2a8 and {paged // steps} paged a step)",
           flush=True)
     summary["profile"] = profile_steps(dev, cfg, model, scfg, prompts, out_dir,
-                                       name="profile_gemma.txt")
+                                       name=f"profile_{tag}.txt")
     plain_cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=False))
     plain = build_model(plain_cfg, device=dev)
     plain.load_state_dict(model.state_dict())
     del model
-    got, eng = _serve_all(plain_cfg, plain, ServeConfig(**dict(GEMMA_SERVE,
+    got, eng = _serve_all(plain_cfg, plain, ServeConfig(**dict(PACKED_SERVE,
                                                                 attn_impl="gather")),
-                          prompts, tokens=GEMMA_TOKENS)
-    del eng, plain
-    torch.cuda.empty_cache()
+                          prompts, tokens=PACKED_TOKENS)
+    del eng
     agree = [_common_prefix(a, b) for a, b in zip(want, got)]
     summary["plain_route"] = dict(tokens_before_first_difference=agree,
                                   identical_requests=sum(a == b for a, b in zip(want, got)))
     print(f"    plain route (gather, use_kernel=False): {sum(agree)} of {toks} tokens "
           f"alike before each request's first difference, "
           f"{summary['plain_route']['identical_requests']} of {len(prompts)} "
-          f"requests identical (not a gate)", flush=True)
+          f"requests identical" + ("" if gate_plain else " (not a gate)"), flush=True)
+    if gate_plain and want != got:
+        # where the routes part, the plain route's top two logits must tie
+        # in bf16 (a gap of at most one bf16 ulp of the top logit): the
+        # kernels' other summation order then decides the pick
+        diffs = []
+        for r, j in enumerate(agree):
+            if j < PACKED_TOKENS:
+                top, gaps = _top2(plain, prompts[r], got[r], dev)
+                diffs.append((r, j, gaps[j], _bf16_ulp(top[j])))
+        summary["plain_route"]["first_differences"] = diffs
+        print(f"    (request, first differing token, the plain route's top-2 logit "
+              f"gap there, one bf16 ulp of its top logit): {diffs}", flush=True)
+        if any(gap > ulp for _, _, gap, ulp in diffs):
+            fail(f"{name}: greedy tokens differ between the kernel and plain "
+                 f"routes away from a bf16 tie: {diffs}")
+    del plain
+    torch.cuda.empty_cache()
     return launches, summary
 
 
@@ -2934,26 +3056,31 @@ def gemma_kernel_vs_plain(dev):
 
 
 def gemma_launcher(out_dir):
-    """12c: ``python -m repro_torch.launch.serve --arch gemma-7b --packed``
-    (the QAT model built whole on the card, then packed) must exit 0 with
-    both paged kernels launched.  Returns its launches and peak line."""
+    """12c: ``python -m repro_torch.launch.serve --arch gemma-7b --packed``."""
+    return serve_launcher(out_dir, GEMMA_CLI, "gemma")
+
+
+def serve_launcher(out_dir, cli_args, tag):
+    """``python -m repro_torch.launch.serve <cli_args>`` (the QAT model built
+    whole on the card, then packed) must exit 0 with both paged kernels and
+    w2a8 launched.  Returns its launches and peak line."""
     import os
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *GEMMA_CLI]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *cli_args]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True, timeout=600)
-    (out_dir / "serve_cli_gemma.txt").write_text(out.stdout)
+    (out_dir / f"serve_cli_{tag}.txt").write_text(out.stdout)
     lines = out.stdout.splitlines()
     kl = [ln for ln in lines if ln.startswith("[kernels] launches")]
     mem = [ln for ln in lines if ln.startswith("[memory]")]
     if out.returncode != 0 or not kl:
-        fail(f"the gemma-7b serve launcher exited {out.returncode}: "
+        fail(f"the serve launcher {cli_args} exited {out.returncode}: "
              f"{out.stdout[-2000:]}")
     cli = {k: int(v) for k, v in (kv.split("=") for kv in kl[0].split()[2:])}
     if not (cli["paged_attention_decode"] and cli["paged_prefill_chunk"]
             and cli["w2a8_gemv"]):
-        fail(f"the gemma-7b launcher's launches {cli}")
+        fail(f"the serve launcher {cli_args}: launches {cli}")
     print(f"    exit 0 in {time.perf_counter() - t0:.1f} s; {kl[0]}; "
           f"{mem[0] if mem else '(no [memory] line)'}", flush=True)
     return cli, (mem[0] if mem else None)
@@ -3014,6 +3141,350 @@ def attention_variants_full_width(dev):
     print(f"    bf16 scores: output within {e:.3g} of fp32 scores (bound 5e-2); "
           f"forward peak {p / 2**20:.0f} MiB", flush=True)
     return out
+
+
+# -- phase 13: the MoE and hybrid families -----------------------------------------
+
+GRANITE, JAMBA = "granite-moe-1b-a400m", "jamba-1.5-large-398b"
+GRANITE_CLI = ["--arch", GRANITE, "--packed", "--requests", "8",
+               "--max-tokens", "16", "--prompt-len", "16"]
+# the whole jamba block's kernel route against its plain route, in bf16: the
+# plain route rounds its dequantized operands to bf16 where the kernels sum
+# int8 products exactly, so the two agree to bf16's scale, not to phase 8's
+# 1e-4 (which the block's SSD is held to, fed the same operands)
+BLOCK_BF16_OUT, BLOCK_BF16_GRAD = 2.0 ** -4, 2.0 ** -3
+# 13d's QAT step, kernel vs plain route: grad_norm and loss_moe move with
+# the int8 codes and expert picks the routes' fp32 differences round either
+# way (first set at phase 6's 1e-3 for grad_norm; the first card run read
+# 1.1e-3 with codes and picks flipped); the kernels themselves are held on
+# their own operands
+STEP_FLIP_RTOL = 1e-2
+
+
+class _Route:
+    """The kernel or the plain route of a QAT forward and backward inside a
+    ``with``: on the kernel route every bitlinear launch's operands and
+    output (``kernels/bitlinear/ops.py::_fwd_2d``) and every SSD call's
+    operands (``nn/ssm.py``'s ``ssd_scan``) are recorded for ``check``; on
+    the plain route the SSD runs the plain version (``ssd_chunked``, what a
+    CPU tensor runs) instead of the kernel."""
+
+    def __init__(self, kernel: bool):
+        self.kernel, self.bitlinear, self.ssd = kernel, [], []
+
+    def __enter__(self):
+        import repro_torch.nn.ssm as ssm_mod
+        from repro_torch.kernels.bitlinear import ops as bl_ops
+        from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+        self._ssd, self._fwd = ssm_mod.ssd_scan, bl_ops._fwd_2d
+        ssd_inner, fwd_inner = self._ssd, self._fwd
+
+        def ssd_tap(x, a, dt, B, C, chunk):
+            self.ssd.append(([t.detach() for t in (x, a, dt, B, C)], chunk))
+            return ssd_inner(x, a, dt, B, C, chunk)
+
+        def fwd_tap(x2d, wt, scheme):
+            out = fwd_inner(x2d, wt, scheme)
+            self.bitlinear.append((x2d.detach(), wt.detach(), out[0].detach()))
+            return out
+
+        if self.kernel:
+            ssm_mod.ssd_scan, bl_ops._fwd_2d = ssd_tap, fwd_tap
+        else:
+            ssm_mod.ssd_scan = lambda x, a, dt, B, C, chunk: ssd_chunked(
+                x, a, dt, B, C, chunk=chunk)[0]
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.nn.ssm as ssm_mod
+        from repro_torch.kernels.bitlinear import ops as bl_ops
+        ssm_mod.ssd_scan, bl_ops._fwd_2d = self._ssd, self._fwd
+
+    def check(self, what):
+        """Each recorded bitlinear launch equals, bit for bit, its plain
+        version on its operands (int8 codes and absmean Δ as the CPU route
+        computes them, ``bitlinear_ref``); each recorded SSD call's operands
+        through the kernel are within phase 8's tolerances of
+        ``ssd_chunked``: y and the final state rtol 1e-4 atol 1e-4, the
+        five gradients under a random upstream gradient 1e-3 of their
+        largest entries.  Returns (the bitlinear shapes, the SSD's largest
+        errors: y and state absolute, gradients over the largest entry)."""
+        import torch
+        from repro_torch.core import quant as Q
+        from repro_torch.kernels.bitlinear.ref import bitlinear_ref
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+        from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+        from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+        shapes = []
+        for x2d, wt, y in self.bitlinear:
+            xq, gamma = Q.act_quant_absmax_int8(x2d)
+            qw, delta = Q.weight_quant_absmean(wt)
+            if not torch.equal(y, bitlinear_ref(x2d, qw.to(torch.int8), gamma, delta)):
+                fail(f"{what}: the bitlinear launch at K={wt.shape[0]} "
+                     f"N={wt.shape[1]} differs from its plain version")
+            shapes.append(tuple(wt.shape))
+        self.bitlinear = []
+        worst = {}
+        for ins, chunk in self.ssd:
+            ins = [t.contiguous() for t in ins]
+            yk, hk = ssd_scan_kernel(*ins, chunk)
+            yc, hc = ssd_chunked(*ins, chunk=chunk)
+            b, s, h, p = ins[0].shape
+            n = ins[3].shape[-1]
+            hc = hc.transpose(-1, -2).reshape(b * h, n, p)
+            errs = {}
+            for name, got, want in (("y", yk, yc), ("state", hk, hc)):
+                e = (got - want).abs()
+                if not (bool(torch.isfinite(got).all())
+                        and bool((e <= 1e-4 + 1e-4 * want.abs()).all())):
+                    fail(f"{what}: SSD ({n}, {p}) {name} vs ssd_chunked on the "
+                         f"step's operands: max err {e.max().item()}")
+                errs[name] = e.max().item()
+            g = torch.randn_like(yk)
+            ins1 = [t.clone().requires_grad_() for t in ins]
+            (ssd_ops.ssd_scan(*ins1, chunk=chunk) * g).sum().backward()
+            ins2 = [t.clone().requires_grad_() for t in ins]
+            (ssd_chunked(*ins2, chunk=chunk)[0] * g).sum().backward()
+            for name, t1, t2 in zip("x a dt B C".split(), ins1, ins2):
+                e = (t1.grad - t2.grad).abs()
+                scale = t2.grad.abs().max().item()
+                if not (bool(torch.isfinite(t1.grad).all())
+                        and bool((e <= 1e-3 * scale + 1e-3 * t2.grad.abs()).all())):
+                    fail(f"{what}: SSD ({n}, {p}) gradient of {name}: max err "
+                         f"{e.max().item()} (largest entry {scale})")
+                errs[f"d{name}"] = e.max().item() / max(scale, 1e-30)
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+        self.ssd = []
+        return shapes, worst
+
+
+def jamba_block_parity(dev):
+    """13c: one ``LayerSpec("mamba", "dense")`` block of jamba-1.5-large-398b
+    at full width (d_model 8192, 128 SSD heads of 128, state 128, chunk
+    256, d_ff 24576; SubLN; bf16 parameters and compute, its config's) as a
+    QAT student, batch 2 x 512, forward and backward on the kernel route
+    (bitlinear for its five projections, ssd_scan at (N, P) = (128, 128))
+    and on the plain route (``use_kernel=False``, the SSD through
+    ``ssd_chunked``) from the same weights and input.  Gates: the kernel
+    route launches bitlinear 5 times and ssd_scan once; each launch holds
+    to its plain version on the operands the block gave it
+    (``_Route.check``: bitlinear bitwise, the SSD at phase 8's
+    tolerances); and the whole block's two routes within bf16's scale
+    (``BLOCK_BF16_*`` of the largest entry, output and every parameter's
+    gradient), all finite.  Prints the peak memory.  Returns the kernel
+    route's launches and the numbers."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.models import get_config
+    from repro_torch.nn.transformer import Block, LayerSpec
+
+    spec = LayerSpec("mamba", "dense")
+    base = get_config(JAMBA).replace(compute_dtype="bfloat16")
+    if spec not in base.resolved_pattern():
+        fail(f"{JAMBA} has no {spec} layer")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    u = torch.randn((2, MAMBA_SEQ, base.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    w = torch.randn((2, MAMBA_SEQ, base.d_model), generator=gen, device=dev)
+    out, grads, state = {}, {}, None
+    counters = (bl_k.launches, ssd_k.launches)
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        cfg = base.with_quant(Q.QuantConfig(mode="qat", use_kernel=use_kernel))
+        blk = Block(cfg.block_config(), spec, device=dev,
+                    gen=torch.Generator(device=dev).manual_seed(2) if state is None
+                    else None)
+        if state is None:
+            state = blk.state_dict()
+        else:
+            blk.load_state_dict(state)
+        for c in counters:
+            c.reset()
+        with _Route(use_kernel) as route:
+            y, _, _ = blk(u)
+            (y.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        if use_kernel:
+            launches = {c.name: c.count for c in counters}
+            kernel_route = route
+        out[tag] = y.detach().float()
+        grads[tag] = {k: p.grad.detach().float() for k, p in blk.named_parameters()}
+        del blk, y
+    n_params = sum(t.numel() for t in state.values())
+    del state
+    if launches != {"bitlinear": 5, "ssd_scan": 1}:
+        fail(f"jamba block, kernel route: launches {launches}; want bitlinear 5 "
+             "(in_proj, out_proj, up, gate, down) and ssd_scan 1")
+    shapes, ssd_err = kernel_route.check("jamba block")
+    rel_out = ((out["kernels"] - out["plain"]).abs().max()
+               / out["plain"].abs().max()).item()
+    rel_grad = {}
+    for k, gp in grads["plain"].items():
+        gk = grads["kernels"][k]
+        if not bool(torch.isfinite(gk).all()):
+            fail(f"jamba block, kernel route: gradient of {k} is not finite")
+        rel_grad[k] = ((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  jamba (mamba, dense) block, {n_params / 1e9:.3f} B parameters, bf16 "
+          f"QAT, 2 x {MAMBA_SEQ}: launches {launches}; bitlinear bitwise at "
+          f"{shapes}; SSD (128, 128) vs ssd_chunked on the block's operands: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ssd_err.items())
+          + f"; kernel vs plain route: output max err / max|y| {rel_out:.3g}, "
+          "gradients max err / largest entry: "
+          + ", ".join(f"{k} {v:.2g}" for k, v in rel_grad.items())
+          + f"; peak memory {peak / 1e9:.2f} GB", flush=True)
+    bad = {k: v for k, v in rel_grad.items() if not v <= BLOCK_BF16_GRAD}
+    if not (math.isfinite(rel_out) and rel_out <= BLOCK_BF16_OUT) or bad:
+        fail(f"jamba block: kernel vs plain route beyond bf16's scale: output "
+             f"{rel_out} (limit {BLOCK_BF16_OUT}), gradients {bad} (limit "
+             f"{BLOCK_BF16_GRAD})")
+    del out, grads, kernel_route
+    torch.cuda.empty_cache()
+    return launches, dict(params=n_params, bitlinear_shapes=shapes, ssd=ssd_err,
+                          output_rel_err=rel_out, grad_rel_err=rel_grad,
+                          peak_bytes=peak)
+
+
+def jamba_reduced(dev):
+    """13d: jamba-1.5-large-398b reduced to one repeat of its eight-layer
+    pattern (attention + dense, then seven mamba layers alternating MoE and
+    dense; the reduced widths, fp32) on the card.  (a) Served packed on the
+    contiguous cache (attention K/V beside the mamba state), 4 prompts of
+    9..40 tokens x 12 greedy tokens, on the kernel route (w2a8 counted at
+    30 launches a decode pass: 4 + 3 for the attention + dense layer, 2 for
+    each mamba mixer, 3 for each dense FFN) and on the plain route: the
+    tokens must be identical.  (b) One QAT CE step on the kernel route
+    (bitlinear 30 launches, ssd_scan 7) and on the plain route (the SSD
+    through ``ssd_chunked``) from the same weights and batch.  Each launch
+    holds to its plain version on the operands the step gave it
+    (``_Route.check``), the step's loss to phase 6's rtol 1e-4, its
+    grad_norm and loss_moe to ``STEP_FLIP_RTOL``: the two routes' fp32
+    differences round int8 activation codes and the capacity-limited
+    expert picks either way (both counts printed), and a flipped pick moves
+    a token's FFN output as a whole.  Returns the launches of (a) and (b)
+    and the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.serving import ServeConfig
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import init_train_state, make_train_step
+
+    base = get_config(JAMBA).reduced(layers=8)
+    per_pass = 30
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, base.vocab, int(k)).tolist() for k in (9, 40, 17, 23)]
+    scfg = ServeConfig(max_batch=4, max_len=64, prefill_chunk=8)
+    toks, state = {}, None
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=use_kernel))
+        model = build_model(cfg, device=dev, gen=None if state else
+                            torch.Generator(device=dev).manual_seed(0))
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        if use_kernel:
+            counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+            passes = _PassCounter(model)
+            for c in counters:
+                c.reset()
+        toks[tag], eng = _serve_all(cfg, model, scfg, prompts, tokens=12)
+        if use_kernel:
+            serve_launches = {c.name: c.count for c in counters}
+            n_pass = passes.n
+            passes.close()
+            if eng.paged or eng._ring is None:
+                fail(f"jamba reduced resolved to paged={eng.paged}, ring {eng._ring}")
+        del eng, model
+    if serve_launches["w2a8_gemv"] != per_pass * n_pass or \
+            serve_launches["paged_attention_decode"] or \
+            serve_launches["paged_prefill_chunk"]:
+        fail(f"jamba reduced serving: launches {serve_launches} over {n_pass} "
+             f"decode passes; want w2a8 {per_pass} a pass and no paged kernel")
+    if toks["kernels"] != toks["plain"]:
+        fail(f"jamba reduced: greedy tokens differ between the routes: "
+             f"{toks['kernels']} vs {toks['plain']}")
+    print(f"  (a) served {len(prompts)} requests x 12 tokens on the contiguous "
+          f"cache: {n_pass} decode passes, launches {serve_launches}; plain route's "
+          "tokens identical", flush=True)
+
+    batch = _train_batches("corpus", 17, 1, dev, base.max_seq)[0]
+    metrics, codes, picks, state = {}, {}, {}, None
+    route_fn = moe_mod.route
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        cfg = base.with_quant(Q.QuantConfig(mode="qat", use_kernel=use_kernel))
+        model = build_model(cfg, device=dev, gen=None if state else
+                            torch.Generator(device=dev).manual_seed(1))
+        if state is None:   # a copy: the step updates the parameters in place
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        opt = AdamW(AdamWConfig(weight_decay=0.01))
+        step = make_train_step(model, opt, lambda s: constant(s, 1e-4))
+        picks[tag] = []
+
+        def record(logits, k, cap):
+            out = route_fn(logits, k, cap)
+            picks[tag].append(out[2].detach())
+            return out
+
+        for c in (bl_k.launches, ssd_k.launches):
+            c.reset()
+        moe_mod.route = record
+        try:
+            with _Route(use_kernel) as route:
+                _, m = step(init_train_state(model, opt), batch)
+                torch.cuda.synchronize()
+        finally:
+            moe_mod.route = route_fn
+        if use_kernel:
+            train_launches = {c.name: c.count for c in (bl_k.launches, ssd_k.launches)}
+            kernel_route = route
+        metrics[tag] = {k: float(v) for k, v in m.items()}
+        model.load_state_dict(state)
+        with _Route(use_kernel):
+            codes[tag] = _activation_codes(model, batch)
+        del model, opt, step
+    if train_launches != {"bitlinear": per_pass, "ssd_scan": 7}:
+        fail(f"jamba reduced QAT step: launches {train_launches}; want bitlinear "
+             f"{per_pass} and ssd_scan 7")
+    shapes, ssd_err = kernel_route.check("jamba reduced QAT step")
+    n_codes = sum(c.numel() for c in codes["kernels"])
+    d_codes = sum(int((x != y).sum()) for x, y in zip(codes["kernels"], codes["plain"]))
+    n_picks = sum(t.numel() for t in picks["kernels"])
+    d_picks = sum(int((x != y).sum()) for x, y in zip(picks["kernels"], picks["plain"]))
+    a, b = metrics["kernels"], metrics["plain"]
+    rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "loss_moe", "grad_norm")}
+    print("  (b) QAT CE step, kernels / plain (relative difference): " + ", ".join(
+        f"{k} {a[k]:.7g} / {b[k]:.7g} ({rel[k]:.2g})" for k in rel)
+        + f"; launches {train_launches}, each held to its plain version on its "
+        f"operands ({len(shapes)} bitlinear bitwise; SSD "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ssd_err.items())
+        + f"); int8 activation codes differing {d_codes} of {n_codes}, expert "
+        f"picks differing {d_picks} of {n_picks}", flush=True)
+    for k, rtol in (("loss", 1e-4), ("loss_moe", STEP_FLIP_RTOL),
+                    ("grad_norm", STEP_FLIP_RTOL)):
+        if not (math.isfinite(a[k]) and rel[k] <= rtol):
+            fail(f"jamba reduced QAT step {k}: kernels {a[k]!r} vs plain "
+                 f"{b[k]!r} (rtol {rtol})")
+    torch.cuda.empty_cache()
+    return (serve_launches, train_launches), dict(
+        passes=n_pass, serve_launches=serve_launches, train=metrics,
+        train_launches=train_launches, ssd=ssd_err, codes_differing=d_codes / n_codes,
+        picks_differing=d_picks / n_picks)
 
 
 def kernels_of(root: Path) -> None:
@@ -3186,6 +3657,32 @@ def main() -> None:
     phase("phase 12d: blocked forward and bf16 scores, qwen3-0.6b widths, S=4096")
     phase12["12d"] = attention_variants_full_width(dev)
     (out_dir / "smoke_gemma.json").write_text(json.dumps(phase12, indent=1))
+    # 13. the MoE and hybrid families: granite served (the serving kernels'
+    # counters reset just before 13a's kernel-route run and read after it)
+    # and distilled at full width (the training kernels' counters reset
+    # before its steps), jamba's mamba + dense block at full width and its
+    # reduced stack (each route's counters reset before it), the launcher
+    phase("phase 13a: serving granite-moe-1b-a400m at full width (MoE, head_dim 64)")
+    by_path["serve granite-moe-1b-a400m (13a)"], phase13 = serve_packed(
+        dev, out_dir, GRANITE, 4, "granite", gate_plain=True)
+    phase("phase 13b: BitDistill training, granite-moe-1b-a400m full width")
+    per_fwd = 4 * 24                       # q, k, v, o; the experts are einsums
+    by_path["train granite-moe-1b-a400m (13b)"] = train_full_width(
+        dev, out_dir, GRANITE, 24, QWEN_SEQ,
+        {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
+         "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train_granite")
+    phase("phase 13c: jamba's mamba + dense block at full width, kernel vs plain "
+          "route (ssd_scan at (128, 128))")
+    by_path["jamba mamba + dense block (13c)"], phase13["13c"] = \
+        jamba_block_parity(dev)
+    phase("phase 13d: jamba reduced (one repeat, 8 layers): contiguous serving, "
+          "a QAT step, kernel vs plain route")
+    ((by_path["serve jamba reduced (13d)"], by_path["train jamba reduced (13d)"]),
+     phase13["13d"]) = jamba_reduced(dev)
+    phase("phase 13e: the launcher, --arch granite-moe-1b-a400m --packed")
+    by_path["serve entry point granite-moe-1b-a400m (13e)"], phase13["13e_memory"] = \
+        serve_launcher(out_dir, GRANITE_CLI, "granite")
+    (out_dir / "smoke_moe.json").write_text(json.dumps(phase13, indent=1))
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

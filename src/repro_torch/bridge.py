@@ -145,14 +145,25 @@ def jax_params_to_torch(cfg: ModelConfig, params_np: Mapping,
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: JAX shape {a.shape} != port "
                                  f"{tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(a)).to(t.dtype))
+            t.copy_(_tensor(a).to(t.dtype))
     return model
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor; JAX's bfloat16 arrays (numpy has the
+    dtype only through ml_dtypes) by their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def jax_params_from_torch(cfg: ModelConfig, model: CausalLM) -> Dict:
     """The port model's tensors as the JAX param tree (nested dicts of numpy
-    arrays, block leaves stacked ``[repeats, ...]``)."""
-    state = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    arrays, block leaves stacked ``[repeats, ...]``; a bf16 tensor comes
+    back as its exact fp32 values, numpy having no bfloat16 of its own)."""
+    state = {k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+             for k, v in model.state_dict().items()}
     return _jax_tree(cfg, state, np.stack)
 
 

@@ -1,6 +1,6 @@
 """Architecture registry: importing this package registers every config,
 JAX's ten assigned architectures and the paper's Qwen3 backbones.  The port
-builds the dense attention and SSM families; the MoE, hybrid, VLM and
+builds the dense attention, SSM, MoE and hybrid families; the VLM and
 encoder-decoder configs are data only here, and ``build_model`` refuses
 them naming the feature they lack."""
 from repro_torch.configs import shapes  # noqa: F401

@@ -107,12 +107,16 @@ def weight_quant_awq(w: torch.Tensor, act_scale: Optional[torch.Tensor] = None,
     s_c = act_scale_c ** alpha (normalized to unit geometric mean) before
     absmean ternarization; ``act_scale`` (mean |x| per input channel)
     defaults to ones, so s = 1.  Returns (q, delta, s) with dequantized
-    weight (q * delta) / s[:, None]."""
+    weight (q * delta) / s[:, None].  s (the power, the logs, their mean and
+    the exponential) is computed in float64 and rounded to fp32 once: fp32
+    ``pow``, ``log`` and ``exp`` differ in the last bit between the card
+    and the CPU."""
     in_dim = w.shape[0]
     if act_scale is None:
         act_scale = torch.ones((in_dim,), dtype=torch.float32, device=w.device)
-    s = torch.pow(torch.clamp(act_scale.to(torch.float32), min=EPS), alpha)
-    s = s / torch.exp(_mean32(torch.log(s)))  # unit geometric mean
+    s = torch.pow(torch.clamp(act_scale.to(torch.float32), min=EPS)
+                  .to(torch.float64), alpha)
+    s = (s / torch.exp(torch.log(s).mean())).to(torch.float32)  # unit geometric mean
     ws = w.to(torch.float32) * s[:, None]
     delta = _mean32(ws.abs())
     q = round_clip(ws / (delta + EPS), -1.0, 1.0)

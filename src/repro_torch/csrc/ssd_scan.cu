@@ -407,7 +407,7 @@ __host__ __device__ constexpr int out_smem_floats() {
 
 // grid (ceil(Q / 64), chunks, b * H); dynamic shared memory
 // out_smem_floats + 2 * Q floats (la and dt of the chunk): 56 KB at N =
-// 128, P = 64, Q = 256, so four CTAs share an SM
+// 128, P = 64, Q = 256, so four CTAs share an SM; 87 KB at P = 128, two
 template <int N, int P>
 __global__ void __launch_bounds__(THREADS)
 ssd_kernel_out(const float* __restrict__ x, const float* __restrict__ Cm,
@@ -599,16 +599,20 @@ int launch(const float* x, const float* a, const float* dt, const float* B,
 extern "C" long long ssd_scan_workspace(int batch, int S, int H, int P, int N,
                                         int Q) {
   if (Q <= 0 || S % Q != 0) return -1;
-  if (!((N == 128 && P == 64) || (N == 16 && P == 16))) return -1;
+  const size_t out = N == 128 && P == 128 ? out_smem_floats<128, 128>()
+                     : N == 128 && P == 64 ? out_smem_floats<128, 64>()
+                     : N == 16 && P == 16  ? out_smem_floats<16, 16>()
+                                           : 0;
+  if (out == 0) return -1;
   const size_t most = 227 * 1024;
-  const size_t out = N == 128 ? out_smem_floats<128, 64>() : out_smem_floats<16, 16>();
   if ((size_t)2 * Q * (HG + 1) * sizeof(float) > most ||
       (out + 2 * (size_t)Q) * sizeof(float) > most)
     return -1;
   return (long long)carve(nullptr, batch, S, H, P, N, Q).floats;
 }
 
-// (N, P) = (128, 64): mamba2-780m; (16, 16): its reduced test config.
+// (N, P) = (128, 64): mamba2-780m; (128, 128): jamba-1.5-large-398b's
+// mamba layers; (16, 16): the reduced test configs.
 // Other sizes, and a chunk whose shared memory exceeds a CTA's, return
 // cudaErrorInvalidValue, which the Python wrapper raises.
 extern "C" int ssd_scan_launch(const void* x, const void* a, const void* dt,
@@ -619,6 +623,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* a, const void* dt,
   if (Q <= 0 || S % Q != 0) return (int)cudaErrorInvalidValue;
   const float *xf = (const float*)x, *af = (const float*)a, *df = (const float*)dt,
               *bf = (const float*)B, *cf = (const float*)C;
+  if (N == 128 && P == 128)
+    return launch<128, 128>(xf, af, df, bf, cf, (float*)y, (float*)hout, (float*)ws,
+                            batch, S, H, Q, s);
   if (N == 128 && P == 64)
     return launch<128, 64>(xf, af, df, bf, cf, (float*)y, (float*)hout, (float*)ws,
                            batch, S, H, Q, s);

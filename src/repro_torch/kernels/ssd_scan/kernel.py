@@ -37,12 +37,15 @@ from repro_torch.kernels.ssd_scan.ref import chunk_len
 launches = build.LaunchCounter("ssd_scan")
 
 _REFUSED = 1   # cudaErrorInvalidValue: a size the launcher is not built for
+# the (d_state, head_dim) instances of the .cu: mamba2-780m's, jamba's, the
+# reduced configs'
+BUILT = ((128, 64), (128, 128), (16, 16))
 
 
 def _refused(n: int, p: int, q: int) -> ValueError:
     return ValueError(f"ssd_scan_kernel: (d_state, head_dim) = ({n}, {p}) with "
                       f"chunk length {q} is not built or does not fit in shared "
-                      "memory (csrc/ssd_scan.cu::ssd_scan_launch)")
+                      f"memory; built: {BUILT} (csrc/ssd_scan.cu::ssd_scan_launch)")
 
 
 def ssd_scan_kernel(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,

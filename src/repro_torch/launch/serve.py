@@ -22,8 +22,9 @@ The student is the QAT model from a ``torch.Generator`` seeded with 0;
 ``convert_to_packed``, so every projection runs the w2a8 kernel on the card.
 Compute and KV cache take the config's compute dtype (bf16 at full width,
 fp32 for ``--reduced``).  The cache layout is chosen as in JAX: the paged
-pools for attention-only stacks, the contiguous per-slot cache for an SSM
-stack (``--arch mamba2-780m``) or with ``--contiguous-kv``.
+pools for attention-only stacks (``--arch granite-moe-1b-a400m`` among
+them), the contiguous per-slot cache for an SSM or hybrid stack (``--arch
+mamba2-780m``, ``jamba-1.5-large-398b``) or with ``--contiguous-kv``.
 
 ``--prefix-cache`` / ``--shared-prefixes``, ``--prefill-chunk`` /
 ``--prefill-budget``, ``--max-queue``, ``--deadline-ms``, ``--supervise``
@@ -104,7 +105,7 @@ def build_engine(args) -> Engine:
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
                        # None = auto: paged for attention-only stacks,
-                       # contiguous for SSM caches
+                       # contiguous for SSM and hybrid caches
                        paged=False if args.contiguous_kv else None,
                        kv_block_size=args.kv_block_size,
                        num_kv_blocks=args.num_kv_blocks,

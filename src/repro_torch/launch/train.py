@@ -112,9 +112,10 @@ def main(argv=None):
                       f"(median {flag.median:.3f}s)", flush=True)
             if i % args.log_every == 0 or i == args.steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
-                print(f"step {i}  loss {m['loss']:.4f}  grad_norm "
-                      f"{m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
-                      f"({time.time() - t_start:.1f}s)", flush=True)
+                print(f"step {i}  loss {m['loss']:.4f}  loss_moe "
+                      f"{m['loss_moe']:.4f}  grad_norm {m['grad_norm']:.3f}  "
+                      f"lr {m['lr']:.2e}  ({time.time() - t_start:.1f}s)",
+                      flush=True)
             if mgr.should_save(i + 1):
                 mgr.save_async(i + 1, tree(),
                                extra={"loader": loader.state_dict()})

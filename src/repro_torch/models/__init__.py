@@ -4,8 +4,9 @@ from repro_torch.nn.module import resolve_device
 
 
 def build_model(cfg: ModelConfig, gen=None, device=None) -> CausalLM:
-    """Family-dispatching constructor (decoder-only families in this slice)
-    on ``device`` (default ``cuda``; ``"cpu"`` must be asked for).  With a
+    """Family-dispatching constructor (the decoder-only families; an
+    encoder-decoder config raises, and so does a cross-attention layer) on
+    ``device`` (default ``cuda``; ``"cpu"`` must be asked for).  With a
     ``torch.Generator`` the weights are a seeded init; without one they are
     zeros to be loaded (``repro_torch.bridge``)."""
     if cfg.n_encoder_layers > 0:

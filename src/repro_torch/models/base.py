@@ -1,12 +1,12 @@
 """ModelConfig: one dataclass describing an architecture — port of
 ``repro/models/base.py``.  The fields are the JAX config's, so a config
 compares field for field with its JAX counterpart; ``policy()`` returns
-torch dtypes.  The port runs the dense attention families (the ``attn`` +
-``dense`` pattern; ``qwen3-*``, ``qwen1.5-0.5b``, ``qwen2.5-3b``,
-``gemma-7b``, ``mistral-large-123b``) and the SSM family (the ``mamba`` +
-``none`` pattern; ``mamba2-780m``); the MoE, hybrid, VLM and
-encoder-decoder configs are registered as data and refused by
-``build_model``.
+torch dtypes.  The port runs the dense attention families (``qwen3-*``,
+``qwen1.5-0.5b``, ``qwen2.5-3b``, ``gemma-7b``, ``mistral-large-123b``),
+the SSM family (``mamba2-780m``), the MoE family (``granite-moe-1b-a400m``,
+``grok-1-314b``) and the hybrid one (``jamba-1.5-large-398b``); the VLM and
+encoder-decoder configs are registered as data and refused when built
+(cross-attention, ``build_model``).
 """
 from __future__ import annotations
 
@@ -100,6 +100,9 @@ class ModelConfig:
             activation=self.activation, mlp_gated=self.mlp_gated,
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, logit_softcap=self.logit_softcap,
+            n_experts=self.n_experts, top_k=self.top_k,
+            moe_group_size=self.moe_group_size,
+            capacity_factor=self.capacity_factor,
             ssm_state=self.ssm_state, ssm_head_dim=self.ssm_head_dim,
             ssm_chunk=self.ssm_chunk, subln=self.subln, quant=self.quant,
             attn_scores_dtype=self.attn_scores_dtype,
@@ -143,6 +146,52 @@ class ModelConfig:
         if layers is not None:
             kw["n_layers"] = layers
         return self.replace(**kw)
+
+    # -- analytics ----------------------------------------------------------------
+
+    def param_count(self) -> int:
+        """Analytic parameter count (JAX's, used for roofline 6ND)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        qd = self.n_heads * self.head_dim
+        kvd = self.n_kv_heads * self.head_dim
+        attn = d * qd + 2 * d * kvd + qd * d
+        if self.qkv_bias:
+            attn += qd + 2 * kvd
+        dense_ffn = d * f * (3 if self.mlp_gated else 2)
+        moe_ffn = self.n_experts * d * f * 3 + d * self.n_experts
+        d_inner = 2 * d
+        nheads_ssm = d_inner // self.ssm_head_dim
+        ssm = (d * (2 * d_inner + 2 * self.ssm_state + nheads_ssm)
+               + d_inner * d + 4 * (d_inner + 2 * self.ssm_state)
+               + 3 * nheads_ssm + d_inner)
+        total = 0
+        for spec in self.resolved_pattern():
+            if spec.mixer in ("attn", "attn_cross"):
+                total += attn
+            if spec.mixer in ("cross", "attn_cross"):
+                total += attn
+            if spec.mixer == "mamba":
+                total += ssm
+            if spec.ffn == "dense":
+                total += dense_ffn
+            elif spec.ffn == "moe":
+                total += moe_ffn
+            total += 2 * d  # norms (approx)
+        total *= self.repeats
+        total += v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        if self.n_encoder_layers:
+            total += self.n_encoder_layers * (attn + dense_ffn + 2 * d)
+        return total
+
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (for 6·N_active·D roofline)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        n_moe = sum(1 for s in self.resolved_pattern() if s.ffn == "moe") * self.repeats
+        return self.param_count() - n_moe * (self.n_experts - self.top_k) * d * f * 3
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

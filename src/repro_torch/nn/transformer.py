@@ -1,6 +1,7 @@
-"""Transformer blocks and stacks — port of ``repro/nn/transformer.py`` for the
-``attn`` + ``dense`` and ``mamba`` + ``none`` patterns (a block of any other
-pattern, MoE or cross-attention, raises naming the feature).
+"""Transformer blocks and stacks — port of ``repro/nn/transformer.py``: a
+block is a self-attention or Mamba2 mixer followed by a dense gated MLP, an
+MoE FFN (``nn/moe.py``) or nothing (a cross-attention mixer raises, naming
+the feature).
 
 The JAX ``Stack`` keeps each pattern position's params stacked over repeats
 and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
@@ -15,7 +16,9 @@ each block in the backward with ``torch.utils.checkpoint``
 ``"none"`` does not rematerialize.  The decode cache is a per-layer list
 of ``{"attn": {"k","v"}}`` (paged pools [N, Hkv, bs, Dh] or the contiguous
 [B, Hkv, max_len, Dh]) or ``{"mamba": {"state","conv"}}``, which the layers
-update in place.
+update in place.  ``forward`` runs an MoE FFN capacity-limited (also when
+evaluating, as JAX's ``Block.apply``), the decode paths at full capacity;
+the stack sums the layers' auxiliary MoE losses in fp32.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.nn.attention import Attention
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
 from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+from repro_torch.nn.moe import MoEMLP
 from repro_torch.nn.ssm import Mamba2Block
 
 LayerCache = Dict[str, Dict[str, torch.Tensor]]
@@ -59,6 +63,11 @@ class BlockConfig:
     attn_impl: str = "dense"        # "dense" | "blocked" (flash-style)
     block_kv: int = 1024            # KV block length for the blocked impl
     seq_shard_activations: bool = False   # Megatron-SP residual sharding
+    # MoE
+    n_experts: int = 0
+    top_k: int = 2
+    moe_group_size: int = 2048
+    capacity_factor: float = 1.25
     # SSM
     ssm_state: int = 128
     ssm_head_dim: int = 64
@@ -70,20 +79,23 @@ class BlockConfig:
 
 
 class Block(nn.Module):
-    """One residual block: pre-norm self-attention + pre-norm gated MLP, or
-    pre-norm Mamba2 alone."""
+    """One residual block: a pre-norm mixer (self-attention or Mamba2), then
+    a pre-norm FFN (gated MLP or MoE) unless the spec's ffn is ``none``.
+    The modules are named as JAX's ``Block.init`` names its params:
+    ``norm1``, ``attn`` | ``mamba``, ``norm2``, ``mlp``."""
 
     def __init__(self, cfg: BlockConfig, spec: LayerSpec,
                  gen: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if spec not in (LayerSpec("attn", "dense"), LayerSpec("mamba", "none")):
-            what = ("the MoE FFN (nn/moe.py)" if spec.ffn == "moe" else
-                    "cross-attention" if "cross" in spec.mixer else
-                    f"mixer {spec.mixer!r} with ffn {spec.ffn!r}")
+        if "cross" in spec.mixer:
             raise NotImplementedError(
-                f"layer {spec}: {what} is not ported; only the attn + dense "
-                "and mamba + none patterns are")
+                f"layer {spec}: cross-attention (mixer {spec.mixer!r}) is not "
+                "ported (ROADMAP Queue A, item 23)")
+        if spec.mixer not in ("attn", "mamba") or \
+                spec.ffn not in ("dense", "moe", "none"):
+            raise ValueError(f"layer {spec}: unknown mixer {spec.mixer!r} or "
+                             f"ffn {spec.ffn!r}")
         c = cfg
         if c.seq_shard_activations:
             raise ValueError(
@@ -106,32 +118,51 @@ class Block(nn.Module):
                 c.d_model, d_state=c.ssm_state, head_dim=c.ssm_head_dim,
                 chunk=c.ssm_chunk, subln=True, quant=c.quant, policy=c.policy,
                 gen=gen, device=device)
-        if spec.ffn == "dense":
+        if spec.ffn != "none":
             self.norm2 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
+        if spec.ffn == "dense":
             self.mlp = GatedMLP(c.d_model, c.d_ff, c.activation, gated=c.mlp_gated,
                                 subln=c.subln, quant=c.quant, policy=c.policy,
                                 gen=gen, device=device)
+        elif spec.ffn == "moe":
+            self.mlp = MoEMLP(c.d_model, c.d_ff, c.n_experts, c.top_k,
+                              c.activation, capacity_factor=c.capacity_factor,
+                              group_size=c.moe_group_size, subln=c.subln,
+                              quant=c.quant, policy=c.policy, gen=gen,
+                              device=device)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.mlp is None else x + self.mlp(self.norm2(x))
+    def _ffn(self, x: torch.Tensor, full_capacity: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (x + FFN(norm2(x)), the MoE auxiliary loss or None)."""
+        if self.mlp is None:
+            return x, None
+        if self.spec.ffn == "moe":
+            h, aux = self.mlp(self.norm2(x), full_capacity=full_capacity)
+            return x + h, aux["moe_aux_loss"]
+        return x + self.mlp(self.norm2(x)), None
 
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                collect_states: bool = False):
-        """-> x, or (x, qkv states [3, B, H, S, Dh]) with ``collect_states``
-        (attention blocks only)."""
+                collect_states: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        """-> (x, qkv states [3, B, H, S, Dh] with ``collect_states``
+        (attention blocks only) else None, fp32 MoE auxiliary loss (0
+        without an MoE FFN))."""
+        states = None
         if self.mamba is not None:
             if collect_states:
                 raise ValueError("a mamba block has no qkv states")
-            return self._ffn(x + self.mamba(self.norm1(x)))
-        if collect_states:
+            x = x + self.mamba(self.norm1(x))
+        elif collect_states:
             h, aux = self.attn(self.norm1(x), positions, collect_states=True)
+            x = x + h
+            states = torch.stack([aux["q"], aux["k"], aux["v"]])
         else:
-            h = self.attn(self.norm1(x), positions)
-        x = self._ffn(x + h)
-        if not collect_states:
-            return x
-        return x, torch.stack([aux["q"], aux["k"], aux["v"]])
+            x = x + self.attn(self.norm1(x), positions)
+        x, moe = self._ffn(x)
+        if moe is None:
+            moe = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, states, moe
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> LayerCache:
@@ -144,17 +175,18 @@ class Block(nn.Module):
                block_tables: Optional[torch.Tensor] = None,
                attn_impl: str = "gather",
                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One token per row, the cache updated in place.  ``keep`` (bool
-        [B]) reaches the mamba mixer only: a row where it is False leaves
-        its recurrent state as it was.  Attention writes need no mask: the
-        engine replays a masked row's last (token, position), which
-        rewrites the same K/V."""
+        """One token per row, the cache updated in place, an MoE FFN at full
+        capacity.  ``keep`` (bool [B]) reaches the mamba mixer only: a row
+        where it is False leaves its recurrent state as it was.  Attention
+        writes need no mask: the engine replays a masked row's last (token,
+        position), which rewrites the same K/V."""
         if self.mamba is not None:
-            return self._ffn(x + self.mamba.decode(self.norm1(x), cache["mamba"],
-                                                   keep))
-        h, _ = self.attn.decode(self.norm1(x), cache["attn"], cache_index,
-                                block_tables, attn_impl=attn_impl)
-        return self._ffn(x + h)
+            x = x + self.mamba.decode(self.norm1(x), cache["mamba"], keep)
+        else:
+            h, _ = self.attn.decode(self.norm1(x), cache["attn"], cache_index,
+                                    block_tables, attn_impl=attn_impl)
+            x = x + h
+        return self._ffn(x, full_capacity=True)[0]
 
     def decode_chunk(self, x: torch.Tensor, cache: LayerCache,
                      start: torch.Tensor, lens: torch.Tensor,
@@ -162,14 +194,15 @@ class Block(nn.Module):
                      attn_impl: str = "gather") -> torch.Tensor:
         """Chunked-prefill step over the paged pools: self-attention blocks
         only, as in JAX (the engine serves other mixers by a scan of
-        decode steps)."""
+        decode steps); an MoE FFN at full capacity, so the chunk's pad rows
+        change no other row's output."""
         if self.attn is None:
             raise ValueError(
                 f"decode_chunk supports pure self-attention blocks; mixer "
                 f"{self.spec.mixer!r} has no chunked paged path")
         h, _ = self.attn.decode_chunk(self.norm1(x), cache["attn"], start,
                                       lens, block_tables, attn_impl=attn_impl)
-        return self._ffn(x + h)
+        return self._ffn(x + h, full_capacity=True)[0]
 
 
 # matmuls with no batch dimensions (a 3-d ``x @ w`` reaches ``aten.mm``);
@@ -214,8 +247,7 @@ class Stack(nn.Module):
                 distill_layer: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """Returns (x, fp32 qkv states [3, B, H, S, Dh] of ``distill_layer``
-        or None, moe loss).  The moe loss is 0: the MoE layers are not
-        ported, so no block has an MoE FFN."""
+        or None, the layers' MoE auxiliary losses summed in fp32)."""
         n = len(self.layers)
         if distill_layer is not None:
             if not 0 <= distill_layer < n:
@@ -228,21 +260,20 @@ class Stack(nn.Module):
                     "attention-relation distillation needs an attention layer")
         remat = self.remat and torch.is_grad_enabled()
         states = None
+        moe = torch.zeros((), dtype=torch.float32, device=x.device)
         for li, blk in enumerate(self.layers):
             want = li == distill_layer
             if remat:
                 ctx = ({"context_fn": _save_dots}
                        if self.remat_policy == "dots" else {})
-                out = torch.utils.checkpoint.checkpoint(
+                x, st, ml = torch.utils.checkpoint.checkpoint(
                     blk, x, positions, want, use_reentrant=False, **ctx)
             else:
-                out = blk(x, positions, want)
+                x, st, ml = blk(x, positions, want)
             if want:
-                x, st = out
                 states = st.to(torch.float32)
-            else:
-                x = out
-        return x, states, torch.zeros((), dtype=torch.float32, device=x.device)
+            moe = moe + ml
+        return x, states, moe
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: Optional[torch.device] = None) -> List[LayerCache]:

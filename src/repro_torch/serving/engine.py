@@ -34,7 +34,10 @@ step's one sync (:meth:`Engine.sync_tokens`) waits on that event alone.
 
 ``ServeConfig.paged`` picks the cache layout as in JAX: paged for
 attention-only stacks, contiguous [slots, max_len] otherwise (an SSM stack
-such as ``mamba2-780m`` keeps a recurrent state and a conv tail per slot).
+such as ``mamba2-780m`` keeps a recurrent state and a conv tail per slot; a
+hybrid one such as ``jamba-1.5-large-398b`` keeps attention K/V beside
+them).  An MoE FFN runs at full capacity in every step, so the pad rows of
+a chunk step change no other row's routing.
 On the contiguous cache every chunk step is a sequential scan of decode
 steps with per-row masking.  Three faults of the JAX engine on this path
 are repaired here (ROADMAP Queue C): a request whose first chunk starts at
@@ -56,6 +59,7 @@ import torch
 from repro_torch.core.bitlinear import convert_linear_params_fp_to_packed
 from repro_torch.models import CausalLM, ModelConfig, build_model
 from repro_torch.nn.module import torch_dtype
+from repro_torch.nn.moe import MoEMLP, quantize_experts
 from repro_torch.serving.api import (EngineStats, FinishReason, GenerationRequest,
                                      SamplingParams, StepFailure, StepOutput,
                                      make_request)
@@ -1284,18 +1288,26 @@ def convert_to_packed(cfg: ModelConfig, qat_model: CausalLM
     """QAT student -> packed ternary serving model on the same device.
 
     Every quantized BitLinear weight ``w`` [K, N] becomes ``w_packed`` uint8
-    [K/4, N] plus a per-layer scalar ``delta``; every other tensor is copied.
-    Each layer is converted on its own (the JAX ``convert_to_packed`` walks
-    the repeat-stacked leaves, see ROADMAP Queue C)."""
+    [K/4, N] plus a per-layer scalar ``delta``; an MoE FFN's expert weights
+    are stored quantized, expert by expert (``nn/moe.py::
+    quantize_experts``), so the packed model runs the weights the QAT
+    forward ran (JAX's copies them latent: ROADMAP Queue C); every other
+    tensor, the router included, is copied.  Each layer is converted on its
+    own (the JAX ``convert_to_packed`` walks the repeat-stacked leaves, see
+    ROADMAP Queue C)."""
     packed_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="packed"))
     dev = qat_model.vocab_mask.device
     model = build_model(packed_cfg, device=dev)
     src = qat_model.state_dict()
+    experts = {f"{name}.{part}.w" for name, mod in model.named_modules()
+               if isinstance(mod, MoEMLP) for part in ("up", "gate", "down")}
     with torch.no_grad():
         for key, t in model.state_dict().items():
             if key.endswith(".w_packed") or key.endswith(".delta"):
                 w = src[key.rsplit(".", 1)[0] + ".w"]
                 t.copy_(convert_linear_params_fp_to_packed(w)[key.rsplit(".", 1)[1]])
+            elif key in experts:
+                t.copy_(quantize_experts(src[key], cfg.quant.scheme, cfg.quant.block))
             else:
                 t.copy_(src[key])
     return packed_cfg, model

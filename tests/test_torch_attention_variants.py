@@ -214,6 +214,26 @@ def test_config_values_not_taken_raise(field, value, match):
         build_model(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "jamba-1.5-large-398b"])
+def test_block_config_carries_the_moe_fields(name):
+    """n_experts, top_k, moe_group_size and capacity_factor reach the port's
+    ``BlockConfig`` as JAX's ``block_config`` passes them, and each MoE
+    block's ``MoEMLP``."""
+    fields = ("n_experts", "top_k", "moe_group_size", "capacity_factor")
+    cfg = get_config(name).reduced(layers=8).replace(moe_group_size=48,
+                                                     capacity_factor=1.5)
+    jbc = jget(name).reduced(layers=8).replace(
+        moe_group_size=48, capacity_factor=1.5).block_config()
+    bc = cfg.block_config()
+    assert {f: getattr(bc, f) for f in fields} == {f: getattr(jbc, f) for f in fields}
+    assert (bc.n_experts, bc.top_k, bc.moe_group_size, bc.capacity_factor) == \
+        (min(get_config(name).n_experts, 4), 2, 48, 1.5)
+    model = build_model(cfg, device="cpu")
+    moe = [blk.mlp for blk in model.stack.layers if blk.spec.ffn == "moe"]
+    assert moe and {(m.n_experts, m.top_k, m.group_size, m.capacity_factor)
+                    for m in moe} == {(bc.n_experts, 2, 48, 1.5)}
+
+
 def test_attn_impl_and_block_kv_reach_attention():
     cfg = get_config("qwen3-0.6b").reduced().replace(attn_impl="blocked",
                                                      block_kv=5)

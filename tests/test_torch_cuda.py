@@ -57,8 +57,10 @@ def _atol(dtype):
 
 
 # the serving path's five projection shapes (qwen3-0.6b: q/o, k/v, down's
-# input, gate/up, down) and M on both sides of the route threshold
-W2A8_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
+# input, gate/up, down), granite's k/v, and M on both sides of the route
+# threshold
+W2A8_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024),
+               (1024, 512)]   # granite-moe-1b-a400m's k/v (q/o: (1024, 1024))
 SPLIT_K_MAX_M = 8     # held to the .cu's by test_w2a8_route_threshold
 
 
@@ -280,11 +282,24 @@ def test_paged_decode_split_walk(cuda, dtype, dh, softcap):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_kernels_at_gemma_heads(cuda, dtype):
     """gemma-7b's attention (16 kv heads of 256, g = 1: one query row per
-    (row, head)): a decode step and a T = 32 chunk step of one prefilling
-    row among decode rows, over mixed depths with an idle row, against the
-    plain versions; a head dim of 96 raises naming it."""
-    rng = np.random.default_rng(256)
-    Hkv, g, dh, bs, L, T = 16, 1, 256, 16, 64, 32
+    (row, head)); a head dim of 96 raises naming it."""
+    _paged_kernels_at_heads(cuda, dtype, 16, 1, 256)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        pa_kernel.plan(5, 16, 1, 1, 96, 16, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_granite_heads(cuda, dtype):
+    """granite-moe-1b-a400m's attention: 8 kv heads of 64, g = 2."""
+    _paged_kernels_at_heads(cuda, dtype, 8, 2, 64)
+
+
+def _paged_kernels_at_heads(cuda, dtype, Hkv, g, dh):
+    """A decode step and a T = 32 chunk step of one prefilling row among
+    decode rows, over mixed depths with an idle row, against the plain
+    versions."""
+    rng = np.random.default_rng(dh)
+    bs, L, T = 16, 64, 32
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dtype)
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
     idx = [1023, 512, 17, 0, L * bs - 1]
@@ -324,8 +339,6 @@ def test_paged_kernels_at_gemma_heads(cuda, dtype):
                                    ref[b, :, :lens[b] * g].float(),
                                    rtol=0, atol=_atol(dtype))
     assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
-    with pytest.raises(ValueError, match="head_dim 96"):
-        pa_kernel.plan(B, Hkv, g, 1, 96, bs, L)
 
 
 def test_paged_plan_caps_the_splits(cuda):
@@ -675,6 +688,38 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
         torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("b,s,h,chunk", [(2, 512, 128, 256), (1, 37, 2, 256),
+                                         (1, 320, 5, 128)])
+def test_ssd_scan_kernel_at_jamba_heads_matches_chunked(cuda, b, s, h, chunk):
+    """jamba-1.5-large-398b's (N, P) = (128, 128) instance (its 128 heads at
+    batch 2, a short ragged chunk, several chunks) against ``ssd_chunked``,
+    the plain version of the same chunked algorithm: y and the final state
+    rtol 1e-4 atol 1e-4, the five gradients 1e-3.  The sequential oracle is
+    left out here: at this size the chunked algorithm in fp32 (the in-chunk
+    cumsum of the log-decays reaches ~-500), ``ssd_chunked`` and the kernel
+    alike, sits near that tolerance of the exact result, where the
+    sequential oracle sits far inside it (chip_smoke.py phase 2 prints all
+    three against a float64 evaluation and holds the kernel to both)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = n = 128
+    x, a, dt, B, C = _ssd_problem(cuda, b, s, h, p, n, b + s + h)
+    before = ssd_kernel.launches.count
+    y, hT = ssd_kernel.ssd_scan_kernel(x, a, dt, B, C, chunk)
+    assert ssd_kernel.launches.count == before + 1
+    yc, hc = ssd_chunked(x, a, dt, B, C, chunk=chunk)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, yc, **tol)
+    torch.testing.assert_close(hT, hc.transpose(-1, -2).reshape(b * h, n, p), **tol)
+    g = torch.randn_like(y)
+    ins1 = [t.clone().requires_grad_() for t in (x, a, dt, B, C)]
+    (ssd_ops.ssd_scan(*ins1, chunk=chunk) * g).sum().backward()
+    ins2 = [t.clone().requires_grad_() for t in (x, a, dt, B, C)]
+    (ssd_chunked(*ins2, chunk=chunk)[0] * g).sum().backward()
+    for t1, t2 in zip(ins1, ins2):
+        assert bool(torch.isfinite(t1.grad).all())
+        torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-3, atol=1e-3)
+
+
 def test_kernels_raise_on_a_bad_operand(cuda):
     """The wrappers check what the kernels take and raise, never fall back."""
     x = torch.zeros((2, 128), device=cuda)
@@ -828,3 +873,21 @@ def test_table4_schemes_on_the_card_equal_the_cpu(cuda):
     wb = w.to(torch.bfloat16)
     assert torch.equal(Q.fake_quant_weight_lp(wb.to(cuda)).cpu(),
                        Q.fake_quant_weight_lp(wb))
+
+
+def test_packed_moe_runs_the_qat_experts_on_the_card(cuda):
+    """convert_to_packed stores the experts quantized, so a packed MoE
+    block's output equals the QAT block's at full capacity, on the card
+    as on the CPU (tests/test_torch_moe_configs.py)."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.engine import convert_to_packed
+    cfg = get_config("granite-moe-1b-a400m").reduced().with_quant(Q.QAT)
+    qat = build_model(cfg, gen=torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    _, packed = convert_to_packed(cfg, qat)
+    x = torch.randn((3, 5, cfg.d_model), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    with torch.no_grad():
+        want, _ = qat.stack.layers[0].mlp(x, full_capacity=True)
+        got, _ = packed.stack.layers[0].mlp(x, full_capacity=True)
+    assert torch.equal(got, want)

@@ -1,6 +1,7 @@
 """Port vs JAX: the registered configs, ``configs/shapes.py``, and the dense
 configs the port builds (gemma-7b, qwen2.5-3b, mistral-large-123b) on
-reduced fp32 configs, on the CPU.
+reduced fp32 configs, on the CPU (the MoE and hybrid ones:
+tests/test_torch_moe_configs.py).
 
 Params come from the JAX ``init`` (PRNGKey(0)) through ``repro_torch.bridge``
 and inputs from numpy seeds.  Tolerances: FP logits rtol/atol 1e-4 as in
@@ -84,9 +85,6 @@ def test_assigned_shapes_and_cells_match_jax():
 
 
 @pytest.mark.parametrize("name,match", [
-    ("granite-moe-1b-a400m", "MoE"),
-    ("grok-1-314b", "MoE"),
-    ("jamba-1.5-large-398b", "MoE"),
     ("llama-3.2-vision-11b", "cross-attention"),
     ("whisper-medium", "encoder-decoder"),
 ])
