@@ -20,7 +20,7 @@ result line):
      g = 1), the prefill kernel at two shapes (the original one, and a
      mixed step of one prefilling and seven decode rows), each paged launch with its split and CTA counts,
      its device time alone beside the time a caller sees, and its host
-     time per call; bitlinear bitwise in both dtypes at seven shapes, timed
+     time per call; bitlinear bitwise in both dtypes at eight shapes, timed
      the same way, with its three device kernels (quantizing pass, K-major
      weight, GEMM) alone; w2a8 bitwise at the five projection shapes of
      qwen3-0.6b, mamba2-780m's two (in_proj N=6448 with its ragged last
@@ -28,7 +28,9 @@ result line):
      24576) on both sides of its route threshold (each route forced at the
      mamba shapes, M = 8, 16, 256, and at the dense ones, M = 8, 256), timed the
      same way at the decode rows (M=8) and a chunk step's (M=256) beside
-     ``torch._int_mm``;
+     ``torch._int_mm``, then whisper-medium's and llama-3.2-vision-11b's
+     projection shapes, the image memory's 6,404 rows at (4096, 1024), and
+     all-zero rows on both routes (exact zeros);
      relation_kd within rtol 1e-5 at L = 256, 300 and 4096 on two input
      recipes and three temperatures, bitwise from run to run, with its
      split plan, timed on both timers with its host time at L = 256 and
@@ -67,8 +69,8 @@ result line):
      were; the async loop's tok/s and step gap beside the synchronous
      loop's, and its device idle share from a profile;
  10. the training launcher and the rest of the training path: (a) ``python
-     -m repro_torch.launch.train`` at full width and depth (qwen3-0.6b, 6 CE
-     steps at 8 x 256) uninterrupted, then sent SIGTERM after its first
+     -m repro_torch.launch.train`` at full width (qwen3-0.6b cut to 4 of
+     its 28 layers, 6 CE steps at 8 x 256) uninterrupted, then sent SIGTERM after its first
      step lines (it must save and exit 0), then restarted in that
      directory (it must resume and reach step 6): the resumed run's final
      checkpoint held leaf by leaf to the uninterrupted run's, with the
@@ -107,6 +109,25 @@ result line):
      over 4096 positions: the blocked forward (block_kv 1024 and 1000)
      against the dense one, outputs and input gradients, bf16 scores
      against fp32, and each forward's peak memory;
+ 13. the MoE and hybrid families: granite-moe-1b-a400m served (a) and
+     distilled (b; 12 of its 24 layers) at full width, one full-width jamba
+     (mamba, dense) block on both routes (c), jamba reduced served and
+     stepped on both routes (d), and ``--arch granite-moe-1b-a400m``
+     through the launcher (e);
+ 14. the cross-attention families: (a) ``whisper-medium`` at full width
+     (24 + 24 layers, packed, bf16) served through the port's ``Engine`` on
+     the contiguous cache, 8 prompts of 8–48 tokens x 24 greedy tokens, 192
+     w2a8 launches a decode pass, the plain route alike but at bf16 ties;
+     (b) its cross caches seeded from frames [4, 1500, 1024] through
+     ``encode`` (w2a8 at M = 6,000), bitwise on both routes, 16 forced and
+     16 greedy tokens; (c) it distilled (fp32 master weights, remat, 4 x
+     256 with those frames), 768 bitlinear and 3 relation_kd launches a
+     step, both routes within phase 6's bound; (d)
+     ``llama-3.2-vision-11b`` at full width and depth served as (a), 264
+     w2a8 a pass, then image embeddings [4, 1601, 4096] as (b); (e) one
+     full-width (cross, dense) block, bf16 QAT, both routes; (f) its reduced
+     stack (one repeat) served and stepped with ``image_embeds`` on both
+     routes;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -236,6 +257,13 @@ W2A8_DENSE_SHAPES = [(3072, 4096), (4096, 3072), (3072, 24576), (24576, 3072),
                      (2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 # granite-moe-1b-a400m's q/o and k/v (phase 13; its experts are einsums)
 W2A8_MOE_SHAPES = [(1024, 1024), (1024, 512)]
+# whisper-medium's up and down (its q/k/v/o are (1024, 1024)) and
+# llama-3.2-vision-11b's q/o, k/v, gate/up and down (phase 14)
+W2A8_CROSS_SHAPES = [(1024, 4096), (4096, 1024), (4096, 4096), (4096, 14336),
+                     (14336, 4096)]
+# the memory projections' rows: llama-vision's image embeddings, 4 x 1601
+# (phase 14d), at its k/v shape; neither a multiple of 64
+W2A8_MEMORY = (6404, 4096, 1024)
 
 
 def _int_mm_ms(xq, wq, scale, dt, flush):
@@ -286,7 +314,8 @@ def check_w2a8(dev, flush, results):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     shapes = W2A8_SHAPES + W2A8_MAMBA_SHAPES + W2A8_DENSE_SHAPES + [
-        kn for kn in W2A8_MOE_SHAPES if kn not in W2A8_SHAPES]
+        kn for kn in W2A8_MOE_SHAPES if kn not in W2A8_SHAPES] + [
+        kn for kn in W2A8_CROSS_SHAPES if kn not in W2A8_DENSE_SHAPES]
     for (k, n) in shapes:
         w = torch.randn((k, n), generator=gen, device=dev) * 0.02
         qw, delta = Q.weight_quant_absmean(w)
@@ -342,6 +371,49 @@ def check_w2a8(dev, flush, results):
                 routes.append(dict(m=m, k=k, n=n, **t))
                 print(f"  w2a8 routes M={m} K={k} N={n} bf16, device alone: split-K "
                       f"{t['splitk']:.4f} ms, wgmma {t['wgmma']:.4f} ms", flush=True)
+    # the memory projection at its ragged row count, and all-zero rows (the
+    # engine's cross layers feed wo zero rows: γ = 0 there) on both routes
+    m, k, n = W2A8_MEMORY
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+    qw, delta = Q.weight_quant_absmean(w)
+    wq = qw.to(torch.int8)
+    wp = Q.pack_ternary(wq)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        y, r = wk.w2a8_kernel(x, wp, delta), w2a8_ref(x, wp, delta)
+        if not torch.equal(y, r):
+            fail(f"w2a8 M={m} K={k} N={n} {dt}: max err "
+                 f"{(y.float() - r.float()).abs().max().item()} (must be bitwise)")
+    ms = both_ms(lambda: wk.w2a8_kernel(x, wp, delta), flush)
+    plain = both_ms(lambda: w2a8_ref(x, wp, delta), flush)
+    xq, gamma = Q.act_quant_absmax_int8(x.float())
+    lib, why = _int_mm_ms(xq.to(torch.int8), wq, Q.div(gamma, 127.0) * delta,
+                          torch.bfloat16, flush)
+    b, by = bound_ms(x.numel() * 2 + wp.numel() + 4 + m * n * 2, 2.0 * m * k * n, "int8")
+    memory_row = dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1], plain_ms=plain[0],
+                      plain_device_ms=plain[1], library_ms=lib[0],
+                      library_device_ms=lib[1], bound_ms=b, bound_by=by)
+    print(f"  w2a8 M={m} K={k} N={n} bf16 (the image memory's rows): {ms[0]:.4f} ms, "
+          f"device alone {ms[1]:.4f} (plain {plain[0]:.4f} / {plain[1]:.4f}, _int_mm "
+          f"{_fmt(lib[0])} / {_fmt(lib[1])}, bound {b:.5f} by {by}); bitwise in "
+          "fp32 and bf16", flush=True)
+    zero_rows = 0
+    for m in (8, 256):
+        x = torch.randn((m, 1024), generator=gen, device=dev).to(torch.bfloat16)
+        x[::2] = 0
+        w = torch.randn((1024, 1024), generator=gen, device=dev) * 0.02
+        qw, delta = Q.weight_quant_absmean(w)
+        wp = Q.pack_ternary(qw.to(torch.int8))
+        for route in ((None,) if thr is None else ("splitk", "wgmma")):
+            y = (wk.w2a8_kernel(x, wp, delta) if route is None
+                 else wk.w2a8_kernel(x, wp, delta, route=route))
+            if not (torch.equal(y, w2a8_ref(x, wp, delta))
+                    and bool(torch.isfinite(y).all()) and not y[::2].any()):
+                fail(f"w2a8 M={m} route {route}: all-zero rows do not give exact "
+                     "zeros equal to the plain version's")
+            zero_rows += m // 2
+    print(f"  w2a8 all-zero rows: {zero_rows} rows on both routes give exact zeros, "
+          "bitwise the plain version's", flush=True)
     # the headline row: the decode step's largest projection (gate/up) at
     # M=8, with the chunk step's (M=256) beside it
     head = next(r for r in rows if r["m"] == 8 and (r["k"], r["n"]) == (1024, 3072))
@@ -356,7 +428,9 @@ def check_w2a8(dev, flush, results):
         mamba_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_MAMBA_SHAPES],
         dense_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_DENSE_SHAPES],
         moe_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_MOE_SHAPES],
-        rows=rows, routes=routes)
+        cross_rows=[r for r in rows if (r["k"], r["n"]) in W2A8_CROSS_SHAPES
+                    or (r["k"], r["n"]) == (1024, 1024)],
+        memory_row=memory_row, rows=rows, routes=routes)
 
 
 def _paged_problem(dev, dt, b, hkv, g, dh, bs, depths, t, gen):
@@ -645,9 +719,11 @@ def check_bitlinear(dev, flush, results):
             fail(f"bitlinear {what} M={m} K={k} N={n} {dt}: max err {err} "
                  "(must be bitwise)")
     gen = torch.Generator(device=dev).manual_seed(3)
+    # the last: whisper-medium's encoder projections (1024, 1024) at its 4 x
+    # 1500 audio frames (phase 14): the last 128-row tile holds 112 rows
     shapes = [(2048, 1024, 2048), (2048, 1024, 1024), (2048, 2048, 1024),
               (2048, 1024, 3072), (2048, 3072, 1024),
-              (4096, 1536, 6448), (4096, 3072, 1536)]
+              (4096, 1536, 6448), (4096, 3072, 1536), (6000, 1024, 1024)]
     worst = 0.0
     rows = []
     for (m, k, n) in shapes:
@@ -1149,7 +1225,7 @@ SERVE_KERNELS = {"w2a8_kernel": ("w2a8_kernel", "bitlinear_kernel_quant_rows"),
 def profile_steps(dev, cfg, model, scfg, prompts, out_dir, picks=(2, 3, 6, 8),
                   name="profile_engine.txt"):
     """Where the device time of a serving workload goes: fresh engines on
-    the same model serve four of its prompts (``picks``) twice, 8 tokens
+    the same model serve some of its prompts (``picks``) twice, 8 tokens
     each, once timed on the host clock and once under ``torch.profiler``
     (both after the counted run, so the counts and step times above carry
     no profiler cost).  Device time is summed per kernel name from the
@@ -1335,7 +1411,8 @@ def _student_from(teacher, cfg, use_kernel: bool, dev):
 
 
 def train_full_width(dev, out_dir, name, layers, seq, expect, tag, after=None):
-    """Phases 5 and 7: ``name`` at full width and depth (``layers``), bf16
+    """Phases 5, 7 and 13b: ``name`` at full width and ``layers`` deep (its
+    depth, or cut to that), bf16
     compute with fp32 master weights and remat; an FP teacher from a seeded
     init (no teacher training: the path is what is checked), refine, 3 CE
     steps on the corpus and 5 distillation steps on mnli-syn at batch 8 x
@@ -1359,8 +1436,9 @@ def train_full_width(dev, out_dir, name, layers, seq, expect, tag, after=None):
                                               make_distill_step, make_train_step)
 
     cfg = get_config(name).replace(compute_dtype="bfloat16")
-    if not (cfg.remat and cfg.param_dtype == "float32" and cfg.n_layers == layers):
+    if not (cfg.remat and cfg.param_dtype == "float32" and layers <= cfg.n_layers):
         fail(f"unexpected {name} training config: {cfg}")
+    cfg = cfg.replace(n_layers=layers)
     t0 = time.perf_counter()
     teacher = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
                           device=dev)
@@ -2097,8 +2175,13 @@ def _kv_corruption(cfg, model, base, prompts, want):
 
 # -- phase 10: the training launcher, checkpoints, remat policies, Table 4 -------
 
-# the launcher as a user starts it: full width and depth, 6 CE steps
-LAUNCH_CLI = ["--arch", "qwen3-0.6b", "--steps", "6", "--batch", "8", "--seq", "256",
+# the launcher as a user starts it: full width, 6 CE steps; the depth cut
+# to 4 of qwen3-0.6b's 28 layers (``--layers``), which cuts the checkpoints
+# the phase writes and reads (~7 of them) from 7.15 GB to ~2.3 GB each, to
+# leave the run room for phase 14
+LAUNCH_LAYERS = 4
+LAUNCH_CLI = ["--arch", "qwen3-0.6b", "--layers", str(LAUNCH_LAYERS), "--steps", "6",
+              "--batch", "8", "--seq", "256",
               "--task", "corpus", "--log-every", "1"]
 # a resumed run must end where the uninterrupted run ended: the same leaves,
 # steps and loader state, and every float leaf within this relative
@@ -2181,8 +2264,8 @@ def _leaf_groups(a, b):
 
 
 def launcher_checkpoints(dev, out_dir):
-    """10a: the training launcher as a user starts it, at full width and
-    depth (qwen3-0.6b, 28 layers, 6 CE steps at 8 x 256): run 1
+    """10a: the training launcher as a user starts it, at full width
+    (qwen3-0.6b cut to ``LAUNCH_LAYERS`` layers, 6 CE steps at 8 x 256): run 1
     uninterrupted; run 2 sent SIGTERM after its ``step 1`` line (it must
     save and exit 0); run 3 restarting run 2's directory (it must resume
     and reach step 6).  Run 3's final checkpoint is held to run 1's leaf by
@@ -2202,7 +2285,7 @@ def launcher_checkpoints(dev, out_dir):
     from repro_torch.training.optimizer import AdamW, AdamWConfig
     from repro_torch.training.trainer import init_train_state
 
-    cfg = get_config("qwen3-0.6b").with_quant(Q.QAT)
+    cfg = get_config("qwen3-0.6b").replace(n_layers=LAUNCH_LAYERS).with_quant(Q.QAT)
     tmpl = _qwen_qat_template(cfg)
     ckpt_bytes = tree_bytes(tmpl)
     base = out_dir / "launcher_ckpt"
@@ -3185,7 +3268,10 @@ class _Route:
 
         def fwd_tap(x2d, wt, scheme):
             out = fwd_inner(x2d, wt, scheme)
-            self.bitlinear.append((x2d.detach(), wt.detach(), out[0].detach()))
+            # a copy of the weight: an fp32 master weight reaches the kernel
+            # as the parameter itself, which the optimizer then updates
+            self.bitlinear.append((x2d.detach(), wt.detach().clone(),
+                                   out[0].detach()))
             return out
 
         if self.kernel:
@@ -3487,6 +3573,639 @@ def jamba_reduced(dev):
         picks_differing=d_picks / n_picks)
 
 
+# -- phase 14: the cross-attention families -----------------------------------------
+
+WHISPER, VISION = "whisper-medium", "llama-3.2-vision-11b"
+# 14a and 14d: the engine's config, 8 prompts of 8..48 tokens x 24 greedy tokens
+CROSS_SERVE = dict(max_batch=8, max_len=128, prefill_chunk=16, cache_dtype="bfloat16")
+CROSS_TOKENS = 24
+# 14b and 14d at the model level: rows of audio or image memory, and the
+# prompt tokens teacher-forced before as many greedy ones
+MEMORY_ROWS, FORCED = 4, 16
+# 14c: the distillation steps' batch and decoder length
+CROSS_TRAIN_BATCH, CROSS_TRAIN_SEQ = 4, 256
+
+
+def _cross_prompts(vocab: int, seed: int = 14):
+    """Eight prompts of 8..48 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(8, 49, 8)]
+
+
+def _w2a8_per_pass(cfg) -> int:
+    """w2a8 launches of one decode pass, from the config: a self-attention
+    projects q, k, v and o; a cross layer q and o alone (its K/V are the
+    static cache); a dense FFN gate, up and down (up and down ungated)."""
+    from repro_torch.models.encdec import decoder_config
+    dec = decoder_config(cfg) if cfg.n_encoder_layers else cfg
+    ffn = 3 if cfg.mlp_gated else 2
+    per = [(4 if s.mixer in ("attn", "attn_cross") else 0)
+           + (2 if s.mixer in ("cross", "attn_cross") else 0) + ffn
+           for s in dec.resolved_pattern()]
+    return sum(per) * dec.repeats
+
+
+def _decode_top2(model, prompt, tokens, dev):
+    """(the top logit, the top-2 gap) at each greedy token of ``tokens``
+    (the continuation of ``prompt``), from decode steps over a cache built
+    without memory: what the engine runs (its prefill is a scan of decode
+    steps on the contiguous cache)."""
+    import torch
+    seq = list(prompt) + list(tokens[:-1])
+    cache = model.init_cache(1, len(seq), torch.bfloat16, dev)
+    tops, gaps = [], []
+    with torch.no_grad():
+        for t, tok in enumerate(seq):
+            logits, _ = model.decode_step(
+                torch.tensor([tok], device=dev), cache,
+                torch.tensor([t], dtype=torch.int32, device=dev))
+            if t >= len(prompt) - 1:
+                v = logits[0].float().topk(2).values
+                tops.append(v[0].item())
+                gaps.append((v[0] - v[1]).item())
+    return tops, gaps
+
+
+def _ties_only(what, want, got, gaps_at):
+    """Where two routes' greedy tokens part, the plain route's top two
+    logits there must tie in bf16 (a gap of at most one bf16 ulp of the top
+    logit; phase 13a's rule).  ``gaps_at(r, j)`` gives the plain route's
+    (top, gap) at row r's token j.  Returns the differences."""
+    diffs = []
+    for r, (a, b) in enumerate(zip(want, got)):
+        j = _common_prefix(a, b)
+        if j < min(len(a), len(b)):
+            top, gap = gaps_at(r, j)
+            diffs.append((r, j, gap, _bf16_ulp(top)))
+    if any(gap > ulp for _, _, gap, ulp in diffs):
+        fail(f"{what}: greedy tokens differ between the kernel and plain routes "
+             f"away from a bf16 tie (row, token, gap, ulp): {diffs}")
+    return diffs
+
+
+def serve_cross(dev, out_dir, name, per_pass, tag):
+    """14a / 14d: ``name`` at full width and depth, packed ternary weights
+    from the port's seeded init, bf16, through the port's ``Engine``: 8
+    prompts of 8..48 tokens x 24 greedy tokens at ``CROSS_SERVE``.  Gates:
+    the engine picks the contiguous cache (the decoder's pattern has cross
+    layers), w2a8 counts ``per_pass`` launches a decode pass (reckoned from
+    the config by ``_w2a8_per_pass`` too) and the paged kernels none, every
+    request gets its tokens, the self-attention caches stay finite; the
+    plain route (``use_kernel=False``) gives the same tokens but where its
+    top two logits tie in bf16.  Prints step percentiles, ms a decode pass,
+    tok/s, the memory held and the idle share of a profile.  Returns the
+    launches, the summary, and the two models (kernel and plain route)."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import ServeConfig
+
+    base = get_config(name).replace(compute_dtype="bfloat16")
+    if _w2a8_per_pass(base) != per_pass:
+        fail(f"{name}: the config gives {_w2a8_per_pass(base)} w2a8 launches a "
+             f"pass, not {per_pass}")
+    cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    print(f"  init {cfg.name}: {cfg.n_layers} decoder layers"
+          + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else "")
+          + f", d_model {cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{time.perf_counter() - t0:.1f} s; {held / 1e9:.2f} GB held packed "
+          f"({n_params / 1e9:.3f} B stored elements)", flush=True)
+    scfg = ServeConfig(**CROSS_SERVE)
+    prompts = _cross_prompts(cfg.vocab)
+    counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+    passes = _PassCounter(model)
+    for c in counters:
+        c.reset()
+    step_ms = []
+    t_run = time.perf_counter()
+    want, eng = _serve_all(cfg, model, scfg, prompts, step_ms, tokens=CROSS_TOKENS)
+    wall = time.perf_counter() - t_run
+    launches = {c.name: c.count for c in counters}
+    n_pass = passes.n
+    passes.close()
+    st = eng.stats()
+    if eng.paged or eng._ring is not None:
+        fail(f"{name}: the engine resolved paged={eng.paged}, ring {eng._ring}")
+    if launches["w2a8_gemv"] != per_pass * n_pass or \
+            launches["paged_attention_decode"] or launches["paged_prefill_chunk"]:
+        fail(f"{name}: launches {launches} over {n_pass} decode passes; want "
+             f"w2a8 {per_pass} a pass and no paged kernel")
+    for layer in eng._cache:
+        for t in layer.get("attn", {}).values():
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{name}: a self-attention cache holds non-finite values")
+    kv_bytes = eng.kv_cache_bytes()
+    del eng
+    toks = CROSS_TOKENS * len(prompts)
+    ordered = sorted(step_ms)
+    pct = {q: ordered[min(len(ordered) - 1, int(q / 100 * len(ordered)))]
+           for q in (50, 90, 99)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    summary = dict(model=cfg.name, requests=len(prompts),
+                   prompt_lens=[len(p) for p in prompts], tokens=toks, wall_s=wall,
+                   tok_per_s=toks / wall, steps=len(step_ms), passes=n_pass,
+                   ms_per_pass=wall * 1e3 / n_pass, step_ms_p50=pct[50],
+                   step_ms_p90=pct[90], step_ms_p99=pct[99], ttft_ms=st.ttft_ms,
+                   kv_bytes=kv_bytes, held_bytes=held, peak_bytes=peak,
+                   launches=launches, w2a8_per_pass=launches["w2a8_gemv"] / n_pass)
+    print(f"    served {len(prompts)} requests x {CROSS_TOKENS} tokens in {wall:.2f} s: "
+          f"{toks / wall:.1f} tok/s; {len(step_ms)} steps, {n_pass} decode passes "
+          f"({wall * 1e3 / n_pass:.2f} ms a pass); step ms p50 {pct[50]:.2f} p90 "
+          f"{pct[90]:.2f} p99 {pct[99]:.2f}; contiguous KV {kv_bytes / 2**20:.1f} MiB; "
+          f"peak {peak / 1e9:.2f} GB; launches {launches} "
+          f"({launches['w2a8_gemv'] // n_pass} w2a8 a pass)", flush=True)
+    # the profile serves the shortest prompt alone: the trace's events are
+    # what the profiler costs to read, ~1 s for every ~2 decode passes here
+    shortest = min(range(len(prompts)), key=lambda i: len(prompts[i]))
+    summary["profile"] = profile_steps(dev, cfg, model, scfg, prompts, out_dir,
+                                       picks=(shortest,), name=f"profile_{tag}.txt")
+    plain_cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=False))
+    plain = build_model(plain_cfg, device=dev)
+    plain.load_state_dict(model.state_dict())
+    got, eng = _serve_all(plain_cfg, plain, scfg, prompts, tokens=CROSS_TOKENS)
+    del eng
+    diffs = _ties_only(f"{name} served", want, got, lambda r, j: tuple(
+        v[j] for v in _decode_top2(plain, prompts[r], got[r], dev)))
+    agree = [_common_prefix(a, b) for a, b in zip(want, got)]
+    summary["plain_route"] = dict(tokens_before_first_difference=agree,
+                                  first_differences=diffs)
+    print(f"    plain route: {sum(agree)} of {toks} tokens alike before each "
+          f"request's first difference; differences at bf16 ties (row, token, "
+          f"gap, ulp): {diffs}", flush=True)
+    return launches, summary, (cfg, model), (plain_cfg, plain)
+
+
+def cross_memory(dev, kernel, plain, seed_launches):
+    """14b / 14d at the model level: ``MEMORY_ROWS`` rows of seeded memory
+    (whisper: audio frames [4, 1500, 1024] through ``encode``; llama-vision:
+    image embeddings [4, 1601, 4096]) seed every cross cache through
+    ``init_cache`` on the kernel route (w2a8 counted at ``seed_launches``,
+    each at M = 4 x T rows) and on the plain route; then ``FORCED`` prompt
+    tokens are teacher-forced and as many greedy tokens decoded, each route
+    on its own caches.  Gates: the two routes' seeded cross caches are
+    bitwise equal (the same w2a8 launch and plain version, the encoder's
+    attention the same PyTorch ops), finite; the greedy tokens alike but
+    where the plain route's top two logits tie in bf16.  Returns the
+    launches and the numbers."""
+    import torch
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import EncDecLM
+    (cfg, model), (_, plain_model) = kernel, plain
+    enc = isinstance(model, EncDecLM)
+    t = cfg.encoder_seq if enc else cfg.num_image_tokens
+    gen = torch.Generator(device=dev).manual_seed(15)
+    mem = torch.randn((MEMORY_ROWS, t, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab, (MEMORY_ROWS, FORCED), generator=gen,
+                           device=dev)
+    key = "frames" if enc else "memory"
+    n = 2 * FORCED
+    out = {}
+    for tag, m in (("kernels", model), ("plain", plain_model)):
+        w2_k.launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache = m.init_cache(MEMORY_ROWS, n, torch.bfloat16, dev, **{key: mem})
+        torch.cuda.synchronize()
+        seed_ms = (time.perf_counter() - t0) * 1e3
+        seeded = w2_k.launches.count
+        xc = [layer["xattn"] for layer in cache if "xattn" in layer]
+        tok, toks, tops, gaps = prompt[:, 0], [], [], []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for j in range(n - 1):
+                logits, _ = m.decode_step(tok, cache, torch.full(
+                    (MEMORY_ROWS,), j, dtype=torch.int32, device=dev))
+                if j + 1 < FORCED:
+                    tok = prompt[:, j + 1]
+                    continue
+                v = logits.float().topk(2, dim=-1).values
+                tops.append(v[:, 0].tolist())
+                gaps.append((v[:, 0] - v[:, 1]).tolist())
+                tok = logits.argmax(-1)
+                toks.append(tok.tolist())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+        out[tag] = dict(caches=xc, tokens=[list(r) for r in zip(*toks)],
+                        tops=[list(r) for r in zip(*tops)],
+                        gaps=[list(r) for r in zip(*gaps)], seed_ms=seed_ms,
+                        decode_ms=decode_ms, launches=seeded)
+    k, p = out["kernels"], out["plain"]
+    if k["launches"] != seed_launches:
+        fail(f"{cfg.name}: seeding the cross caches launched w2a8 {k['launches']} "
+             f"times; want {seed_launches}")
+    nbytes = 0
+    for i, (a, b) in enumerate(zip(k["caches"], p["caches"])):
+        for part in ("k", "v"):
+            if a[part].shape[2] != t or not bool(torch.isfinite(a[part]).all()):
+                fail(f"{cfg.name}: cross cache {i} {part} has shape "
+                     f"{tuple(a[part].shape)} or non-finite values")
+            if not torch.equal(a[part], b[part]):
+                err = (a[part].float() - b[part].float()).abs().max().item()
+                fail(f"{cfg.name}: cross cache {i} {part} differs between the "
+                     f"kernel and plain routes (max err {err}; must be bitwise)")
+            nbytes += a[part].numel() * a[part].element_size()
+    diffs = _ties_only(f"{cfg.name} with memory", k["tokens"], p["tokens"],
+                       lambda r, j: (p["tops"][r][j], p["gaps"][r][j]))
+    agree = [_common_prefix(a, b) for a, b in zip(k["tokens"], p["tokens"])]
+    print(f"    memory {tuple(mem.shape)} bf16 -> {len(k['caches'])} cross caches "
+          f"({nbytes / 1e9:.3f} GB), bitwise equal on both routes; w2a8 "
+          f"{k['launches']} launches at M = {MEMORY_ROWS * t} rows; seeding "
+          f"{k['seed_ms']:.1f} ms (plain {p['seed_ms']:.1f}); {FORCED} tokens "
+          f"forced + {FORCED} greedy, {k['decode_ms']:.2f} ms a step (plain "
+          f"{p['decode_ms']:.2f}); {sum(agree)} of {MEMORY_ROWS * FORCED} greedy "
+          f"tokens alike before each row's first difference; differences at bf16 "
+          f"ties (row, token, gap, ulp): {diffs}", flush=True)
+    launches = {"w2a8_gemv": k["launches"]}
+    return launches, dict(memory=list(mem.shape), cache_bytes=nbytes,
+                          seed_ms=k["seed_ms"], plain_seed_ms=p["seed_ms"],
+                          decode_ms=k["decode_ms"], plain_decode_ms=p["decode_ms"],
+                          tokens_before_first_difference=agree,
+                          first_differences=diffs, launches=launches)
+
+
+def train_whisper(dev, out_dir):
+    """14c: whisper-medium at full width and depth distilled: an FP teacher
+    from a seeded init, the refined QAT student (fp32 master weights, bf16
+    compute, remat), one CE step on the corpus and two distillation steps on
+    mnli-syn (logits KD and relation KD at the decoder's last
+    ``attn_cross`` layer) at batch 4 x decoder length 256, with frames
+    [4, 1500, 1024] from a seed, on the kernel route (bitlinear counted at
+    2 x 384 a step: the encoder's 24 x 6 projections and the decoder's
+    24 x 10, each forward recomputed once under remat; relation_kd 3 a
+    distill step) and on the plain route.  The CE step and the first
+    distillation step each start from the refined weights with a fresh
+    optimizer state, on both routes.  Gates: the counts, finite metrics and
+    parameters, and those two steps within phase 6's bound: the CE step's
+    loss rtol 1e-4; the distill step's parts and grad_norm 1e-3, and its
+    loss, ~97% γ·loss_ad, as its parts.  Prints each
+    step's time and the peak memory.  Returns the kernel route's launches
+    and the numbers."""
+    import torch
+    from repro_torch.core.distill import DistillConfig
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.kernels.relation_kd import kernel as rk_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import (default_distill_layer, init_train_state,
+                                              make_distill_step, make_train_step)
+
+    cfg = get_config(WHISPER).replace(compute_dtype="bfloat16")
+    if not (cfg.remat and cfg.param_dtype == "float32"):
+        fail(f"unexpected {WHISPER} training config: {cfg}")
+    torch.cuda.empty_cache()
+    teacher = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    b = CROSS_TRAIN_BATCH
+
+    def with_frames(batch):
+        batch = {k: v[:b] for k, v in batch.items()}
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device=dev)
+        return batch
+
+    batches = [("train", with_frames(_train_batches("corpus", 17, 1, dev,
+                                                    CROSS_TRAIN_SEQ)[0]))]
+    batches += [("distill", with_frames(x)) for x in
+                _train_batches("mnli-syn", 0, 2, dev, CROSS_TRAIN_SEQ)]
+    per_fwd = cfg.n_encoder_layers * 6 + cfg.n_layers * 10
+    expect = {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
+              "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}
+    counters = (bl_k.launches, rk_k.launches)
+    runs = {}
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        scfg, student = _student_from(teacher, cfg, use_kernel, dev)
+        dl = default_distill_layer(scfg)
+        opt = AdamW(AdamWConfig(weight_decay=0.01))
+        lr = lambda s: constant(s, 1e-4)
+        steps = {"train": make_train_step(student, opt, lr),
+                 "distill": make_distill_step(student, teacher, opt, lr, DistillConfig(
+                     use_kernel=use_kernel, distill_layer=dl))}
+        refined = {k: v.clone() for k, v in student.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        log = []
+        for kind, batch in batches:
+            if not log or kind != log[-1]["kind"]:
+                # each kind's first step from the refined weights and a
+                # fresh optimizer state, on both routes alike
+                student.load_state_dict(refined)
+                state = init_train_state(student, opt)
+            for c in counters:
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[kind](state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {c.name: c.count for c in counters}
+            vals = {k: float(v) for k, v in m.items()}
+            if not all(math.isfinite(v) for v in vals.values()):
+                fail(f"whisper {tag} {kind} step {len(log)}: non-finite {vals}")
+            if got != (expect[kind] if use_kernel else {"bitlinear": 0, "relation_kd": 0}):
+                fail(f"whisper {tag} {kind} step {len(log)}: launches {got}, expected "
+                     f"{expect[kind] if use_kernel else 'none'}")
+            log.append(dict(kind=kind, ms=ms, launches=got, **vals))
+            print(f"    {tag} {kind} step {len(log) - 1}: " + " ".join(
+                f"{k} {vals[k]:.6g}" for k in ("loss", "loss_ce", "loss_ld", "loss_ad",
+                                               "grad_norm") if k in vals)
+                  + f"; {ms:.1f} ms; launches {got}", flush=True)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for pname, p in student.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                fail(f"whisper {tag}: parameter {pname} holds non-finite values")
+        runs[tag] = dict(steps=log, peak_bytes=peak, distill_layer=dl)
+        print(f"    {tag} route: peak memory {peak / 1e9:.2f} GB", flush=True)
+        del student, steps, state, opt
+        torch.cuda.empty_cache()
+    rel = []
+    for a, p in zip(runs["kernels"]["steps"], runs["plain"]["steps"]):
+        rel.append({k: abs(a[k] - p[k]) / abs(p[k]) for k in
+                    ("loss", "loss_ce", "loss_ld", "loss_ad", "grad_norm") if k in p})
+    print("    kernels vs plain route, relative differences by step: " + "; ".join(
+        ", ".join(f"{k} {v:.2g}" for k, v in r.items()) for r in rel), flush=True)
+    # the first step of each kind starts from the same weights on both
+    # routes (the second distill step from weights the first moved apart:
+    # printed only).  Phase 6's bound: the CE step's loss (CE alone) rtol
+    # 1e-4; the distill step's parts and grad_norm 1e-3, and its loss too,
+    # since γ·loss_ad is ~97% of it here, so it moves as that part does
+    firsts = [i for i, (kind, _) in enumerate(batches)
+              if i == 0 or kind != batches[i - 1][0]]
+    bad = []
+    for i in firsts:
+        bounds = ({"loss": 1e-4} if batches[i][0] == "train" else
+                  dict.fromkeys(("loss", "loss_ce", "loss_ld", "loss_ad",
+                                 "grad_norm"), 1e-3))
+        bad += [(i, k, rel[i][k]) for k, rtol in bounds.items()
+                if not rel[i][k] <= rtol]
+    if bad:
+        fail(f"whisper distillation: the routes differ beyond phase 6's bound at "
+             f"(step, metric, relative difference) {bad}")
+    del teacher
+    torch.cuda.empty_cache()
+    launches = {c: sum(s["launches"][c] for s in runs["kernels"]["steps"])
+                for c in ("bitlinear", "relation_kd")}
+    (out_dir / "smoke_train_whisper.json").write_text(json.dumps(dict(
+        runs=runs, relative=rel), indent=1))
+    return launches, dict(runs=runs, relative=rel, bitlinear_per_step=2 * per_fwd)
+
+
+def vision_block_parity(dev):
+    """14e: one ``LayerSpec("cross", "dense")`` block of llama-3.2-vision-11b
+    at full width (d_model 4096, 32 heads with 8 kv heads of 128, d_ff
+    14336; SubLN; bf16 parameters and compute, its config's) as a QAT
+    student: x [2, 512, 4096] over memory [2, 1601, 4096], forward and
+    backward (input, memory and parameters) on the kernel route (bitlinear
+    for the cross-attention's q, k, v, o, k and v at the memory's M = 3,202
+    rows, and the FFN's gate, up, down) and on the plain route from the
+    same weights and inputs.  Gates as 13c's: 7 bitlinear launches, each
+    bitwise to its plain version on its operands, and the two routes within
+    bf16's scale (``BLOCK_BF16_*``), all finite.  Returns the launches and
+    the numbers."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.models import get_config
+    from repro_torch.nn.transformer import Block, LayerSpec
+
+    spec = LayerSpec("cross", "dense")
+    base = get_config(VISION).replace(compute_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x0 = torch.randn((2, 512, base.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    m0 = torch.randn((2, base.num_image_tokens, base.d_model), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    w = torch.randn((2, 512, base.d_model), generator=gen, device=dev)
+    out, grads, state = {}, {}, None
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        cfg = base.with_quant(Q.QuantConfig(mode="qat", use_kernel=use_kernel))
+        blk = Block(cfg.block_config(), spec, device=dev,
+                    gen=torch.Generator(device=dev).manual_seed(2) if state is None
+                    else None)
+        if state is None:
+            state = blk.state_dict()
+        else:
+            blk.load_state_dict(state)
+        x, mem = x0.clone().requires_grad_(), m0.clone().requires_grad_()
+        bl_k.launches.reset()
+        with _Route(use_kernel) as route:
+            y, _, _ = blk(x, None, mem)
+            (y.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        if use_kernel:
+            launches = {"bitlinear": bl_k.launches.count}
+            kernel_route = route
+        out[tag] = y.detach().float()
+        grads[tag] = dict({k: p.grad.detach().float() for k, p in blk.named_parameters()},
+                          x=x.grad.float(), memory=mem.grad.float())
+        del blk, y, x, mem
+    n_params = sum(t.numel() for t in state.values())
+    del state
+    if launches != {"bitlinear": 7}:
+        fail(f"llama-vision cross block, kernel route: launches {launches}; want "
+             "bitlinear 7 (q, k, v, o, gate, up, down)")
+    shapes, _ = kernel_route.check("llama-vision cross block")
+    rel_out = ((out["kernels"] - out["plain"]).abs().max()
+               / out["plain"].abs().max()).item()
+    rel_grad = {}
+    for k, gp in grads["plain"].items():
+        gk = grads["kernels"][k]
+        if not bool(torch.isfinite(gk).all()):
+            fail(f"llama-vision cross block, kernel route: gradient of {k} is not finite")
+        rel_grad[k] = ((gk - gp).abs().max() / gp.abs().max().clamp_min(1e-30)).item()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  llama-vision (cross, dense) block, {n_params / 1e9:.3f} B parameters, "
+          f"bf16 QAT, x 2 x 512 over memory 2 x {base.num_image_tokens}: launches "
+          f"{launches}; bitlinear bitwise at {shapes}; kernel vs plain route: output "
+          f"max err / max|y| {rel_out:.3g}, gradients max err / largest entry: "
+          + ", ".join(f"{k} {v:.2g}" for k, v in rel_grad.items())
+          + f"; peak memory {peak / 1e9:.2f} GB", flush=True)
+    bad = {k: v for k, v in rel_grad.items() if not v <= BLOCK_BF16_GRAD}
+    if not (math.isfinite(rel_out) and rel_out <= BLOCK_BF16_OUT) or bad:
+        fail(f"llama-vision cross block: kernel vs plain route beyond bf16's scale: "
+             f"output {rel_out} (limit {BLOCK_BF16_OUT}), gradients {bad} (limit "
+             f"{BLOCK_BF16_GRAD})")
+    del out, grads, kernel_route
+    torch.cuda.empty_cache()
+    return launches, dict(params=n_params, bitlinear_shapes=shapes,
+                          output_rel_err=rel_out, grad_rel_err=rel_grad,
+                          peak_bytes=peak)
+
+
+def vision_reduced(dev):
+    """14f: llama-3.2-vision-11b reduced to one repeat of its five-layer
+    pattern (four attention layers, then a cross one; the reduced widths,
+    fp32) on the card.  (a) Served packed on the contiguous cache, 4
+    prompts of 9..40 tokens x 12 greedy tokens, on the kernel route (w2a8
+    counted at 33 launches a decode pass: 7 for each attention + dense
+    layer, 5 for the cross + dense one) and on the plain route: the tokens
+    must be identical.  (b) One QAT CE step with ``image_embeds`` [8, 8,
+    128] on the kernel route (bitlinear 35 launches: no remat in the
+    reduced config) and on the plain route from the same weights and batch:
+    each launch bitwise to its plain version on its operands, the loss
+    within phase 6's rtol 1e-4, grad_norm within ``STEP_FLIP_RTOL``.
+    Returns the launches of (a) and (b) and the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import ServeConfig
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import init_train_state, make_train_step
+
+    base = get_config(VISION).reduced(layers=5)
+    per_pass = _w2a8_per_pass(base)
+    if per_pass != 33:
+        fail(f"llama-vision reduced: {per_pass} w2a8 launches a pass, not 33")
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, base.vocab, int(k)).tolist() for k in (9, 40, 17, 23)]
+    scfg = ServeConfig(max_batch=4, max_len=64, prefill_chunk=8)
+    toks, state = {}, None
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=use_kernel))
+        model = build_model(cfg, device=dev, gen=None if state else
+                            torch.Generator(device=dev).manual_seed(0))
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        if use_kernel:
+            counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+            passes = _PassCounter(model)
+            for c in counters:
+                c.reset()
+        toks[tag], eng = _serve_all(cfg, model, scfg, prompts, tokens=12)
+        if use_kernel:
+            serve_launches = {c.name: c.count for c in counters}
+            n_pass = passes.n
+            passes.close()
+            if eng.paged:
+                fail("llama-vision reduced resolved to the paged cache")
+        del eng, model
+    if serve_launches["w2a8_gemv"] != per_pass * n_pass or \
+            serve_launches["paged_attention_decode"] or \
+            serve_launches["paged_prefill_chunk"]:
+        fail(f"llama-vision reduced serving: launches {serve_launches} over {n_pass} "
+             f"decode passes; want w2a8 {per_pass} a pass and no paged kernel")
+    if toks["kernels"] != toks["plain"]:
+        fail(f"llama-vision reduced: greedy tokens differ between the routes: "
+             f"{toks['kernels']} vs {toks['plain']}")
+    print(f"  (a) served {len(prompts)} requests x 12 tokens on the contiguous "
+          f"cache: {n_pass} decode passes, launches {serve_launches}; plain route's "
+          "tokens identical", flush=True)
+
+    batch = _train_batches("corpus", 17, 1, dev, base.max_seq)[0]
+    batch["image_embeds"] = torch.randn(
+        (TRAIN_BATCH, base.num_image_tokens, base.d_model),
+        generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    metrics, state = {}, None
+    for tag, use_kernel in (("kernels", True), ("plain", False)):
+        cfg = base.with_quant(Q.QuantConfig(mode="qat", use_kernel=use_kernel))
+        model = build_model(cfg, device=dev, gen=None if state else
+                            torch.Generator(device=dev).manual_seed(1))
+        if state is None:   # a copy: the step updates the parameters in place
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        opt = AdamW(AdamWConfig(weight_decay=0.01))
+        step = make_train_step(model, opt, lambda s: constant(s, 1e-4))
+        bl_k.launches.reset()
+        with _Route(use_kernel) as route:
+            _, m = step(init_train_state(model, opt), batch)
+            torch.cuda.synchronize()
+        if use_kernel:
+            train_launches = {"bitlinear": bl_k.launches.count}
+            kernel_route = route
+        metrics[tag] = {k: float(v) for k, v in m.items()}
+        del model, opt, step
+    if train_launches != {"bitlinear": 35}:
+        fail(f"llama-vision reduced QAT step: launches {train_launches}; want "
+             "bitlinear 35")
+    shapes, _ = kernel_route.check("llama-vision reduced QAT step")
+    a, b = metrics["kernels"], metrics["plain"]
+    rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+    print("  (b) QAT CE step with image_embeds, kernels / plain (relative "
+          "difference): " + ", ".join(f"{k} {a[k]:.7g} / {b[k]:.7g} ({rel[k]:.2g})"
+                                      for k in rel)
+          + f"; launches {train_launches}, {len(shapes)} bitlinear bitwise on "
+          "their operands", flush=True)
+    for k, rtol in (("loss", 1e-4), ("grad_norm", STEP_FLIP_RTOL)):
+        if not (math.isfinite(a[k]) and rel[k] <= rtol):
+            fail(f"llama-vision reduced QAT step {k}: kernels {a[k]!r} vs plain "
+                 f"{b[k]!r} (rtol {rtol})")
+    torch.cuda.empty_cache()
+    return (serve_launches, train_launches), dict(
+        passes=n_pass, serve_launches=serve_launches, train=metrics,
+        train_launches=train_launches)
+
+
+def cross_families(dev, out_dir, by_path):
+    """Phase 14: whisper-medium served (a), over its audio memory (b) and
+    distilled (c) at full width; llama-3.2-vision-11b served at full width
+    and over its image memory (d), one full-width cross block (e) and its
+    reduced stack (f).  Each path's launches go into ``by_path``."""
+    import torch
+    phase14, t0 = {}, time.perf_counter()
+
+    def part(title):
+        print(f"  {title} [+{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    part("14a: whisper-medium served through the Engine (packed, full width)")
+    by_path["serve whisper-medium (14a)"], phase14["14a"], kernel, plain = \
+        serve_cross(dev, out_dir, WHISPER, 24 * 8, "whisper")
+    part("14b: whisper-medium over audio frames [4, 1500, 1024] at the model "
+         "level")
+    # the encoder's 24 x 6 projections and the decoder's 24 cross k and v
+    by_path["whisper audio memory (14b)"], phase14["14b"] = cross_memory(
+        dev, kernel, plain, 24 * 6 + 24 * 2)
+    del kernel, plain
+    torch.cuda.empty_cache()
+    part("14c: whisper-medium distilled (full width, B = 4, S = 256, frames "
+         "[4, 1500, 1024])")
+    by_path["train whisper-medium (14c)"], phase14["14c"] = train_whisper(dev, out_dir)
+    part("14d: llama-3.2-vision-11b served through the Engine (packed, full "
+         "width and depth)")
+    by_path["serve llama-3.2-vision-11b (14d)"], phase14["14d"], kernel, plain = \
+        serve_cross(dev, out_dir, VISION, 32 * 7 + 8 * 5, "vision")
+    part("14d: llama-3.2-vision-11b over image memory [4, 1601, 4096] at the "
+         "model level")
+    by_path["llama-vision image memory (14d)"], phase14["14d_memory"] = cross_memory(
+        dev, kernel, plain, 8 * 2)
+    del kernel, plain
+    torch.cuda.empty_cache()
+    part("14e: one full-width llama-vision (cross, dense) block, kernel vs plain "
+         "route")
+    by_path["llama-vision cross block (14e)"], phase14["14e"] = vision_block_parity(dev)
+    part("14f: llama-vision reduced (one repeat, 5 layers): contiguous serving, "
+         "a QAT step with image_embeds, kernel vs plain route")
+    ((by_path["serve llama-vision reduced (14f)"],
+      by_path["train llama-vision reduced (14f)"]), phase14["14f"]) = vision_reduced(dev)
+    part("phase 14 done")
+    (out_dir / "smoke_cross.json").write_text(json.dumps(phase14, indent=1, default=str))
+    return phase14
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -3665,10 +4384,12 @@ def main() -> None:
     phase("phase 13a: serving granite-moe-1b-a400m at full width (MoE, head_dim 64)")
     by_path["serve granite-moe-1b-a400m (13a)"], phase13 = serve_packed(
         dev, out_dir, GRANITE, 4, "granite", gate_plain=True)
-    phase("phase 13b: BitDistill training, granite-moe-1b-a400m full width")
-    per_fwd = 4 * 24                       # q, k, v, o; the experts are einsums
+    # 13b's depth cut to half of granite's 24 layers to leave room for phase 14
+    phase("phase 13b: BitDistill training, granite-moe-1b-a400m full width, 12 "
+          "of its 24 layers")
+    per_fwd = 4 * 12                       # q, k, v, o; the experts are einsums
     by_path["train granite-moe-1b-a400m (13b)"] = train_full_width(
-        dev, out_dir, GRANITE, 24, QWEN_SEQ,
+        dev, out_dir, GRANITE, 12, QWEN_SEQ,
         {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
          "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train_granite")
     phase("phase 13c: jamba's mamba + dense block at full width, kernel vs plain "
@@ -3683,6 +4404,11 @@ def main() -> None:
     by_path["serve entry point granite-moe-1b-a400m (13e)"], phase13["13e_memory"] = \
         serve_launcher(out_dir, GRANITE_CLI, "granite")
     (out_dir / "smoke_moe.json").write_text(json.dumps(phase13, indent=1))
+    # 14. the cross-attention families: whisper-medium and llama-3.2-vision-11b
+    # (each path's counters reset just before it and read after it)
+    phase("phase 14: the cross-attention families (whisper-medium, "
+          "llama-3.2-vision-11b)")
+    cross_families(dev, out_dir, by_path)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

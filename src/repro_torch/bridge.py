@@ -6,8 +6,12 @@ The JAX ``CausalLM`` keeps each pattern position's block params stacked over
 repeats (``stack/pos{i}/...`` leaves are ``[repeats, ...]``,
 ``repro/nn/transformer.py:285-293``); the port has one module per layer, so
 leaf ``stack/pos{i}/<path>`` row ``r`` becomes ``stack.layers.{l}.<path>``
-with ``l = r * len(pattern) + i``.  Every other leaf maps by path
-(``embed/table`` -> ``embed.table``).  FP, QAT (``w``, SubLN ``scale``)
+with ``l = r * len(pattern) + i``.  An ``EncDecLM`` has two such stacks,
+each of pattern length 1: ``encoder/pos0/...`` ``[n_encoder_layers, ...]``
+becomes ``encoder.layers.{l}.*`` and ``decoder/stack/pos0/...``
+``[n_layers, ...]`` becomes ``decoder.stack.layers.{l}.*``.  Every other
+leaf maps by path (``embed/table`` -> ``embed.table``, ``frontend/w`` ->
+``frontend.w``).  FP, QAT (``w``, SubLN ``scale``)
 and packed trees all map this way.  Both directions are checked: a JAX leaf
 with no port tensor, or a port tensor with no JAX leaf, raises.
 ``jax_params_from_torch`` is the reverse map, so tests can compare trained
@@ -24,12 +28,14 @@ checkpoint of either package resumes in the port.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
-from repro_torch.models import CausalLM, ModelConfig, build_model
+from repro_torch.models import ModelConfig, build_model
+from repro_torch.models.encdec import decoder_config
 from repro_torch.nn.module import resolve_device
 from repro_torch.training.optimizer import Moment8
 from repro_torch.training.trainer import TrainState
@@ -67,24 +73,37 @@ def _rows(leaf, r: int):
     return leaf[r]
 
 
+def _stacks(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], str, int, int]]:
+    """(JAX path of the stack, the port's name of its layer list, pattern
+    length, repeats) of each stack of ``cfg``'s model."""
+    if cfg.n_encoder_layers > 0:
+        dec = decoder_config(cfg)
+        return [(("encoder",), "encoder.layers", 1, cfg.n_encoder_layers),
+                (("decoder", "stack"), "decoder.stack.layers",
+                 len(dec.resolved_pattern()), dec.repeats)]
+    return [(("stack",), "stack.layers", len(cfg.resolved_pattern()), cfg.repeats)]
+
+
 def _port_leaves(cfg: ModelConfig, tree: Mapping) -> Dict[str, Any]:
     """JAX-layout tree -> {port state-dict key: leaf}; stacked leaves are
     split into their rows (views)."""
-    n_pat = len(cfg.resolved_pattern())
+    stacks = _stacks(cfg)
     state: Dict[str, Any] = {}
     for path, leaf in _flatten(tree).items():
         parts = path.split("/")
-        if parts[0] == "stack":
-            pos = int(parts[1][len("pos"):])
-            rest = ".".join(parts[2:])
-            lead = (leaf.code if isinstance(leaf, Moment8) else leaf).shape[0]
-            if lead != cfg.repeats:
-                raise ValueError(f"{path}: leading dim {lead} != "
-                                 f"repeats {cfg.repeats}")
-            for r in range(cfg.repeats):
-                state[f"stack.layers.{r * n_pat + pos}.{rest}"] = _rows(leaf, r)
+        for jax_at, port_at, n_pat, repeats in stacks:
+            if tuple(parts[:len(jax_at)]) == jax_at:
+                break
         else:
             state[".".join(parts)] = leaf
+            continue
+        pos = int(parts[len(jax_at)][len("pos"):])
+        rest = ".".join(parts[len(jax_at) + 1:])
+        lead = (leaf.code if isinstance(leaf, Moment8) else leaf).shape[0]
+        if lead != repeats:
+            raise ValueError(f"{path}: leading dim {lead} != repeats {repeats}")
+        for r in range(repeats):
+            state[f"{port_at}.{r * n_pat + pos}.{rest}"] = _rows(leaf, r)
     return state
 
 
@@ -92,7 +111,7 @@ def _jax_tree(cfg: ModelConfig, named: Mapping[str, Any],
               stack: Callable[[list], Any]) -> Dict:
     """{port key: leaf} -> the JAX-layout nested dict, block leaves joined
     over repeats by ``stack``."""
-    n_pat = len(cfg.resolved_pattern())
+    stacks = _stacks(cfg)
     tree: Dict = {}
 
     def put(path, leaf):
@@ -103,13 +122,15 @@ def _jax_tree(cfg: ModelConfig, named: Mapping[str, Any],
 
     stacked: Dict[tuple, list] = {}
     for key, leaf in named.items():
-        parts = key.split(".")
-        if parts[:2] == ["stack", "layers"]:
-            rep, pos = divmod(int(parts[2]), n_pat)
-            path = ("stack", f"pos{pos}", *parts[3:])
-            stacked.setdefault(path, [None] * cfg.repeats)[rep] = leaf
+        for jax_at, port_at, n_pat, repeats in stacks:
+            if key.startswith(port_at + "."):
+                layer, *rest = key[len(port_at) + 1:].split(".")
+                rep, pos = divmod(int(layer), n_pat)
+                path = (*jax_at, f"pos{pos}", *rest)
+                stacked.setdefault(path, [None] * repeats)[rep] = leaf
+                break
         else:
-            put(tuple(parts), leaf)
+            put(tuple(key.split(".")), leaf)
     for path, rows in stacked.items():
         put(path, stack(rows))
     return tree
@@ -130,9 +151,10 @@ def torch_state_from_jax(cfg: ModelConfig, params_np: Mapping) -> Dict[str, np.n
 
 def jax_params_to_torch(cfg: ModelConfig, params_np: Mapping,
                         device: Union[str, torch.device, None] = None,
-                        model: Optional[CausalLM] = None) -> CausalLM:
-    """Build the port's ``CausalLM`` for ``cfg`` on ``device`` (default
-    ``cuda``) holding the JAX params ``params_np`` (numpy leaves)."""
+                        model: Optional[nn.Module] = None) -> nn.Module:
+    """Build the port's model for ``cfg`` (``build_model``: a ``CausalLM``
+    or an ``EncDecLM``) on ``device`` (default ``cuda``) holding the JAX
+    params ``params_np`` (numpy leaves)."""
     dev = resolve_device(device)
     if model is None:
         model = build_model(cfg, device=dev)
@@ -158,7 +180,7 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def jax_params_from_torch(cfg: ModelConfig, model: CausalLM) -> Dict:
+def jax_params_from_torch(cfg: ModelConfig, model: nn.Module) -> Dict:
     """The port model's tensors as the JAX param tree (nested dicts of numpy
     arrays, block leaves stacked ``[repeats, ...]``; a bf16 tensor comes
     back as its exact fp32 values, numpy having no bfloat16 of its own)."""

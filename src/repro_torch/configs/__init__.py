@@ -1,8 +1,6 @@
 """Architecture registry: importing this package registers every config,
-JAX's ten assigned architectures and the paper's Qwen3 backbones.  The port
-builds the dense attention, SSM, MoE and hybrid families; the VLM and
-encoder-decoder configs are data only here, and ``build_model`` refuses
-them naming the feature they lack."""
+JAX's ten assigned architectures and the paper's Qwen3 backbones, every
+one of which ``build_model`` builds."""
 from repro_torch.configs import shapes  # noqa: F401
 from repro_torch.configs.mamba2_780m import CONFIG as MAMBA2_780M
 from repro_torch.configs.llama32_vision_11b import CONFIG as LLAMA32_VISION_11B

@@ -14,6 +14,11 @@ state in the JAX ``TrainState`` layout by ``bridge.py``).  A directory that
 holds one resumes from its latest step, whichever package wrote it; SIGTERM
 saves the state after the running step and exits 0.  Data/tensor
 parallelism (``--dp/--tp/--pods``) is not ported: the parser rejects it.
+The encoder-decoder (``whisper-medium``) and VLM (``llama-3.2-vision-11b``)
+configs are refused with a ``ValueError``: the synthetic data pipeline makes
+no ``frames`` or ``image_embeds`` (the JAX launcher fails there with a
+``KeyError``); their step functions take such batches
+(``training/trainer.py::forward``).
 """
 from __future__ import annotations
 
@@ -51,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (a multiple of "
+                         "its pattern length): its width at less depth")
     ap.add_argument("--quant", default="qat", choices=["fp", "qat"])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
@@ -58,8 +66,19 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.n_encoder_layers > 0 or any(s.mixer in ("cross", "attn_cross")
+                                       for s in cfg.resolved_pattern()):
+        raise ValueError(
+            f"--arch {args.arch}: the model reads "
+            + ("audio frames ('frames')" if cfg.n_encoder_layers > 0
+               else "image embeddings ('image_embeds')")
+            + ", and the data pipeline makes no frames or image_embeds; "
+            "train it through training/trainer.py's step functions with "
+            "batches that hold them")
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     if args.quant == "qat":
         cfg = cfg.with_quant(Q.QAT)
     cfg = cfg.replace(max_seq=max(cfg.max_seq, args.seq))

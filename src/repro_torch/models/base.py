@@ -1,12 +1,12 @@
 """ModelConfig: one dataclass describing an architecture — port of
 ``repro/models/base.py``.  The fields are the JAX config's, so a config
 compares field for field with its JAX counterpart; ``policy()`` returns
-torch dtypes.  The port runs the dense attention families (``qwen3-*``,
+torch dtypes.  The port runs every family: dense attention (``qwen3-*``,
 ``qwen1.5-0.5b``, ``qwen2.5-3b``, ``gemma-7b``, ``mistral-large-123b``),
-the SSM family (``mamba2-780m``), the MoE family (``granite-moe-1b-a400m``,
-``grok-1-314b``) and the hybrid one (``jamba-1.5-large-398b``); the VLM and
-encoder-decoder configs are registered as data and refused when built
-(cross-attention, ``build_model``).
+SSM (``mamba2-780m``), MoE (``granite-moe-1b-a400m``, ``grok-1-314b``),
+hybrid (``jamba-1.5-large-398b``), VLM (``llama-3.2-vision-11b``, cross
+layers over image embeddings) and encoder-decoder audio
+(``whisper-medium``, ``models/encdec.py``).
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """CausalLM: decoder-only language model over the layer stack — port of
-``repro/models/lm.py`` (apply, decode_step, decode_chunk, init_cache and the
-padded-vocab logits mask).  ``apply`` is the JAX training contract
-``(logits, qkv_states | None, moe_loss)``; ``forward`` returns the logits
-alone, for the serving engine."""
+``repro/models/lm.py`` (apply, decode_step, decode_chunk, init_cache with the
+cross caches seeded from a memory, and the padded-vocab logits mask).
+``apply`` is the JAX training contract ``(logits, qkv_states | None,
+moe_loss)``; ``forward`` returns the logits alone.  A VLM stack (cross
+layers among its self-attention ones) reads ``memory``, precomputed image
+embeddings [B, T, d_model] (the vision tower is a stub, as in JAX)."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -57,13 +59,17 @@ class CausalLM(nn.Module):
     def apply(self, tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None,
               memory: Optional[torch.Tensor] = None,
+              memory_mask: Optional[torch.Tensor] = None,
               distill_layer: Optional[int] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V] in the compute dtype, fp32 qkv
-        states [3, B, H, S, Dh] of ``distill_layer`` or None, moe loss)."""
+        states [3, B, H, S, Dh] of ``distill_layer`` or None, moe loss).
+        ``memory`` [B, T, D] (cast to the activation dtype) and
+        ``memory_mask`` [B, T] reach the cross-attention layers."""
+        x = self._embed_tokens(tokens)
         if memory is not None:
-            raise NotImplementedError("cross-attention memory (VLM) is not ported")
-        x, states, moe_loss = self.stack(self._embed_tokens(tokens), positions,
+            memory = memory.to(x.dtype)
+        x, states, moe_loss = self.stack(x, positions, memory, memory_mask,
                                          distill_layer=distill_layer)
         return self._logits(self.final_norm(x)), states, moe_loss
 
@@ -73,11 +79,24 @@ class CausalLM(nn.Module):
         return self.apply(tokens, positions)[0]
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
-                   device: Optional[torch.device] = None) -> List[LayerCache]:
-        """Per layer ``{"attn": {"k","v"} [batch, Hkv, max_len, Dh]}`` or
-        ``{"mamba": {"state","conv"}}``; the serving engine builds its block
-        pools with batch = num_blocks and max_len = block_size."""
-        return self.stack.init_cache(batch, max_len, dtype, device)
+                   device: Optional[torch.device] = None,
+                   memory: Optional[torch.Tensor] = None) -> List[LayerCache]:
+        """Per layer ``{"attn": {"k","v"} [batch, Hkv, max_len, Dh]}``,
+        ``{"mamba": {"state","conv"}}`` or, for a cross layer,
+        ``{"xattn": {"k","v"}}`` [batch, Hkv, T, Dh]: ``memory`` [batch, T,
+        D] (cast to ``dtype``) projected by each cross layer's wk and wv
+        (JAX ``_seed_cross``), or one zero position without memory, as the
+        engine serves.  The serving engine builds its block pools with
+        batch = num_blocks and max_len = block_size."""
+        cache = self.stack.init_cache(batch, max_len, dtype, device, memory)
+        if memory is not None:
+            memory = memory.to(dtype)
+            with torch.no_grad():
+                for blk, layer in zip(self.stack.layers, cache):
+                    if blk.xattn is not None:
+                        for k, t in blk.xattn.project_memory(memory).items():
+                            layer["xattn"][k].copy_(t)
+        return cache
 
     def decode_step(self, token: torch.Tensor, cache: List[LayerCache],
                     cache_index: torch.Tensor,

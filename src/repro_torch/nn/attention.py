@@ -1,6 +1,6 @@
-"""Grouped-query self-attention with BitLinear projections, qk_norm, RoPE,
-SubLN, and decode over the paged KV pools or the contiguous cache — port of
-``repro/nn/attention.py``.
+"""Grouped-query attention with BitLinear projections, qk_norm, RoPE, SubLN,
+cross-attention, and decode over the paged KV pools or the contiguous cache
+— port of ``repro/nn/attention.py``.
 
 Layouts: activations [B, S, D]; per-head tensors [B, S, H, Dh]; paged pools
 ``{"k","v"}`` [num_blocks, Hkv, block_size, Dh] and the contiguous cache
@@ -11,7 +11,10 @@ JAX's bf16 scores mode (the operands of both products rounded to bf16,
 fp32 accumulation, the exp and the weights in bf16); ``impl="blocked"`` is
 JAX's flash-style forward, which streams ``block_kv`` keys at a time with
 an online softmax in fp32 and runs only in the full-sequence forward.
-Cross-attention is not ported.
+``causal=False`` is the encoder's unmasked self-attention; ``cross=True``
+takes K/V from a memory (encoder output, image embeddings) without RoPE or
+a causal mask, and decodes over a static cache [B, Hkv, T, Dh] holding the
+projected memory (``models/lm.py::CausalLM.init_cache``).
 """
 from __future__ import annotations
 
@@ -39,8 +42,10 @@ _SCORES_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, qkv_bias: bool = False, qk_norm: bool = False,
-                 rope_theta: float = 10000.0, logit_softcap: float = 0.0,
-                 subln: bool = False, scores_dtype: str = "float32",
+                 rope_theta: float = 10000.0, use_rope: bool = True,
+                 causal: bool = True, cross: bool = False,
+                 logit_softcap: float = 0.0, subln: bool = False,
+                 scores_dtype: str = "float32",
                  impl: str = "dense", block_kv: int = 1024,
                  quant: Q.QuantConfig = Q.FP,
                  policy: DTypePolicy = DEFAULT_POLICY,
@@ -61,6 +66,9 @@ class Attention(nn.Module):
         self.scores_dtype = _SCORES_DTYPES[scores_dtype]
         self.impl, self.block_kv = impl, block_kv
         self.rope_theta, self.logit_softcap = rope_theta, logit_softcap
+        # a cross layer's K/V come from the memory: no RoPE and no causal mask
+        self.rope = use_rope and not cross
+        self.causal, self.cross = causal, cross
         q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
         self.q_dim = q_dim
         lin = dict(quant=quant, policy=policy, gen=gen, device=device)
@@ -82,7 +90,7 @@ class Attention(nn.Module):
         q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
         if self.q_norm is not None:
             q = self.q_norm(q)
-        return apply_rope(q, positions, self.rope_theta)
+        return apply_rope(q, positions, self.rope_theta) if self.rope else q
 
     def _project_kv(self, x: torch.Tensor, positions: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,7 +99,15 @@ class Attention(nn.Module):
         v = self.wv(x).reshape(b, s, self.n_kv_heads, self.head_dim)
         if self.k_norm is not None:
             k = self.k_norm(k)
-        return apply_rope(k, positions, self.rope_theta), v
+        if self.rope:
+            k = apply_rope(k, positions, self.rope_theta)
+        return k, v
+
+    def project_memory(self, memory: torch.Tensor) -> Cache:
+        """A cross layer's static cache: the memory [B, T, D] projected to
+        ``{"k","v"}`` [B, Hkv, T, Dh] (JAX ``CausalLM._seed_cross``)."""
+        k, v = self._project_kv(memory, None)
+        return {"k": k.permute(0, 2, 1, 3), "v": v.permute(0, 2, 1, 3)}
 
     # -- attention core --------------------------------------------------------
 
@@ -193,8 +209,14 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
                 collect_states: bool = False):
-        """Causal self-attention over x [B, S, D] (the JAX ``apply``).
+        """Attention over x [B, S, D] (the JAX ``apply``): causal
+        self-attention, unmasked with ``causal=False``, or with ``cross``
+        over K/V projected from ``memory`` [B, T, D], keeping the memory
+        positions where ``memory_mask`` [B, T] (bool) is True (all of them
+        when it is None).
 
         With ``collect_states`` returns ``(y, {"q","k","v"})``, each
         [B, H, S, Dh] with the kv heads repeated to n_heads: the layout
@@ -203,9 +225,17 @@ class Attention(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q = self._project_q(x, positions)
-        k, v = self._project_kv(x, positions)
-        ar = torch.arange(s, device=x.device)
-        mask = (ar[None, :] <= ar[:, None])[None, None].expand(b, 1, s, s)
+        if self.cross:
+            if memory is None:
+                raise ValueError("cross-attention needs memory [B, T, D]")
+            k, v = self._project_kv(memory, None)
+            mask = None if memory_mask is None else memory_mask[:, None, None, :]
+        else:
+            k, v = self._project_kv(x, positions)
+            mask = None
+            if self.causal:
+                ar = torch.arange(s, device=x.device)
+                mask = (ar[None, :] <= ar[:, None])[None, None].expand(b, 1, s, s)
         attend = (self._attend_blocked if self.impl == "blocked" and s > 1
                   else self._attend)
         y = self._out(attend(q, k, v, mask))
@@ -236,11 +266,17 @@ class Attention(nn.Module):
         new K/V, gathers the whole table into a dense window and runs masked
         dense attention: with fp32 scores through the kernel's plain version
         (on any device), with bf16 scores through :meth:`_attend`, as JAX's
-        gather route does."""
+        gather route does.  A cross layer projects q alone and attends its
+        whole static cache [B, Hkv, T, Dh] without a mask; it writes
+        nothing."""
         b = x.shape[0]
         idx = cache_index.to(torch.int32).reshape(-1).expand(b).contiguous()
         positions = idx[:, None]
         q = self._project_q(x, positions)
+        if self.cross:
+            # the static cache of the projected memory, read whole, unmasked
+            ctx = self._attend(q, cache["k"], cache["v"], None, kv_layout="bhsd")
+            return self._out(ctx), cache
         k_new, v_new = self._project_kv(x, positions)           # [B, 1, Hkv, Dh]
         if block_tables is None:
             kc, vc = cache["k"], cache["v"]
@@ -275,7 +311,11 @@ class Attention(nn.Module):
         ``<= start[b] + j``.  Decode rows are ``lens == 1``.  ``attn_impl`` as
         in :meth:`decode` (``"fused"``: the paged prefill kernel, fp32
         scores; ``"gather"`` with bf16 scores: :meth:`_attend` over the
-        gathered window, pad tokens stored into the trash block)."""
+        gathered window, pad tokens stored into the trash block).  A cross
+        layer raises, as in JAX: the paged pools have no cross layout."""
+        if self.cross:
+            raise ValueError("decode_chunk is self-attention only (the paged "
+                             "cache has no cross-attention layout)")
         b, t, _ = x.shape
         start = start.to(torch.int32).reshape(-1).expand(b).contiguous()
         lens = lens.to(torch.int32).reshape(-1).expand(b).contiguous()

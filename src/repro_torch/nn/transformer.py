@@ -1,7 +1,7 @@
 """Transformer blocks and stacks — port of ``repro/nn/transformer.py``: a
-block is a self-attention or Mamba2 mixer followed by a dense gated MLP, an
-MoE FFN (``nn/moe.py``) or nothing (a cross-attention mixer raises, naming
-the feature).
+block is a mixer (self-attention ``attn``, cross-attention ``cross``, both
+in turn ``attn_cross``, or Mamba2 ``mamba``) followed by a dense gated MLP,
+an MoE FFN (``nn/moe.py``) or nothing.
 
 The JAX ``Stack`` keeps each pattern position's params stacked over repeats
 and runs a ``lax.scan``; here the stack is an ``nn.ModuleList`` of
@@ -15,10 +15,14 @@ each block in the backward with ``torch.utils.checkpoint``
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, and
 ``"none"`` does not rematerialize.  The decode cache is a per-layer list
 of ``{"attn": {"k","v"}}`` (paged pools [N, Hkv, bs, Dh] or the contiguous
-[B, Hkv, max_len, Dh]) or ``{"mamba": {"state","conv"}}``, which the layers
-update in place.  ``forward`` runs an MoE FFN capacity-limited (also when
-evaluating, as JAX's ``Block.apply``), the decode paths at full capacity;
-the stack sums the layers' auxiliary MoE losses in fp32.
+[B, Hkv, max_len, Dh]), ``{"xattn": {"k","v"}}`` (the static projected
+memory [B, Hkv, T, Dh]; both for ``attn_cross``) or ``{"mamba": {"state",
+"conv"}}``, which the layers update in place.  The memory reaches each
+block as an input of its ``torch.utils.checkpoint``, so remat does not
+recompute what produced it and its gradient flows.  ``forward`` runs an
+MoE FFN capacity-limited (also when evaluating, as JAX's ``Block.apply``),
+the decode paths at full capacity; the stack sums the layers' auxiliary
+MoE losses in fp32.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ class BlockConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    causal: bool = True
     logit_softcap: float = 0.0
     attn_scores_dtype: str = "float32"
     attn_impl: str = "dense"        # "dense" | "blocked" (flash-style)
@@ -79,20 +84,18 @@ class BlockConfig:
 
 
 class Block(nn.Module):
-    """One residual block: a pre-norm mixer (self-attention or Mamba2), then
-    a pre-norm FFN (gated MLP or MoE) unless the spec's ffn is ``none``.
-    The modules are named as JAX's ``Block.init`` names its params:
-    ``norm1``, ``attn`` | ``mamba``, ``norm2``, ``mlp``."""
+    """One residual block: a pre-norm mixer, then a pre-norm FFN (gated MLP
+    or MoE) unless the spec's ffn is ``none``.  ``attn_cross`` runs the
+    self-attention (``norm1``) and then the cross-attention (``norm_x``);
+    ``cross`` runs the cross-attention alone on ``norm1``.  The modules are
+    named as JAX's ``Block.init`` names its params: ``norm1``, ``attn`` |
+    ``mamba``, ``norm_x``, ``xattn``, ``norm2``, ``mlp``."""
 
     def __init__(self, cfg: BlockConfig, spec: LayerSpec,
                  gen: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if "cross" in spec.mixer:
-            raise NotImplementedError(
-                f"layer {spec}: cross-attention (mixer {spec.mixer!r}) is not "
-                "ported (ROADMAP Queue A, item 23)")
-        if spec.mixer not in ("attn", "mamba") or \
+        if spec.mixer not in ("attn", "attn_cross", "cross", "mamba") or \
                 spec.ffn not in ("dense", "moe", "none"):
             raise ValueError(f"layer {spec}: unknown mixer {spec.mixer!r} or "
                              f"ffn {spec.ffn!r}")
@@ -104,16 +107,28 @@ class Block(nn.Module):
                 "with distributed/sharding.py (ROADMAP Queue A, item 25)")
         self.spec = spec
         self.norm1 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
-        self.attn = self.mamba = self.norm2 = self.mlp = None
-        if spec.mixer == "attn":
+        self.attn = self.mamba = self.norm_x = self.xattn = None
+        self.norm2 = self.mlp = None
+        if spec.mixer in ("attn", "attn_cross"):
             self.attn = Attention(
                 c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
                 qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope_theta=c.rope_theta,
-                logit_softcap=c.logit_softcap, subln=c.subln,
+                causal=c.causal, logit_softcap=c.logit_softcap, subln=c.subln,
                 scores_dtype=c.attn_scores_dtype, impl=c.attn_impl,
                 block_kv=c.block_kv, quant=c.quant, policy=c.policy,
                 gen=gen, device=device)
-        else:
+        if spec.mixer in ("cross", "attn_cross"):
+            if spec.mixer == "attn_cross":
+                self.norm_x = RMSNorm(c.d_model, c.rms_eps, policy=c.policy,
+                                      device=device)
+            self.xattn = Attention(
+                c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+                qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, use_rope=False,
+                causal=False, cross=True, subln=c.subln,
+                scores_dtype=c.attn_scores_dtype, impl=c.attn_impl,
+                block_kv=c.block_kv, quant=c.quant, policy=c.policy,
+                gen=gen, device=device)
+        if spec.mixer == "mamba":
             self.mamba = Mamba2Block(
                 c.d_model, d_state=c.ssm_state, head_dim=c.ssm_head_dim,
                 chunk=c.ssm_chunk, subln=True, quant=c.quant, policy=c.policy,
@@ -131,6 +146,11 @@ class Block(nn.Module):
                               quant=c.quant, policy=c.policy, gen=gen,
                               device=device)
 
+    def _xnorm(self, x: torch.Tensor) -> torch.Tensor:
+        """The cross-attention's input: ``norm_x`` in an ``attn_cross``
+        block, ``norm1`` in a ``cross`` one."""
+        return (self.norm_x if self.norm_x is not None else self.norm1)(x)
+
     def _ffn(self, x: torch.Tensor, full_capacity: bool = False
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (x + FFN(norm2(x)), the MoE auxiliary loss or None)."""
@@ -143,32 +163,51 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
                 collect_states: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
-        """-> (x, qkv states [3, B, H, S, Dh] with ``collect_states``
-        (attention blocks only) else None, fp32 MoE auxiliary loss (0
-        without an MoE FFN))."""
+        """-> (x, the self-attention's qkv states [3, B, H, S, Dh] with
+        ``collect_states`` else None, fp32 MoE auxiliary loss (0 without an
+        MoE FFN)).  A cross-attention mixer attends ``memory`` [B, T, D]
+        under ``memory_mask`` [B, T]."""
         states = None
         if self.mamba is not None:
             if collect_states:
                 raise ValueError("a mamba block has no qkv states")
             x = x + self.mamba(self.norm1(x))
-        elif collect_states:
-            h, aux = self.attn(self.norm1(x), positions, collect_states=True)
+        elif self.attn is not None:
+            if collect_states:
+                h, aux = self.attn(self.norm1(x), positions, collect_states=True)
+                states = torch.stack([aux["q"], aux["k"], aux["v"]])
+            else:
+                h = self.attn(self.norm1(x), positions)
             x = x + h
-            states = torch.stack([aux["q"], aux["k"], aux["v"]])
-        else:
-            x = x + self.attn(self.norm1(x), positions)
+        elif collect_states:
+            raise ValueError("a cross block has no self-attention qkv states")
+        if self.xattn is not None:
+            x = x + self.xattn(self._xnorm(x), memory=memory,
+                               memory_mask=memory_mask)
         x, moe = self._ffn(x)
         if moe is None:
             moe = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, states, moe
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
-                   device: Optional[torch.device] = None) -> LayerCache:
+                   device: Optional[torch.device] = None,
+                   memory: Optional[torch.Tensor] = None) -> LayerCache:
+        """The layer's decode cache; a cross layer's holds ``T =
+        memory.shape[1]`` positions (1 without memory), zero until
+        ``CausalLM.init_cache`` seeds it."""
         if self.mamba is not None:
             return {"mamba": self.mamba.init_cache(batch, dtype, device)}
-        return {"attn": self.attn.init_cache(batch, max_len, dtype, device)}
+        cache: LayerCache = {}
+        if self.attn is not None:
+            cache["attn"] = self.attn.init_cache(batch, max_len, dtype, device)
+        if self.xattn is not None:
+            t = 1 if memory is None else memory.shape[1]
+            cache["xattn"] = self.xattn.init_cache(batch, t, dtype, device)
+        return cache
 
     def decode(self, x: torch.Tensor, cache: LayerCache,
                cache_index: torch.Tensor,
@@ -179,12 +218,16 @@ class Block(nn.Module):
         capacity.  ``keep`` (bool [B]) reaches the mamba mixer only: a row
         where it is False leaves its recurrent state as it was.  Attention
         writes need no mask: the engine replays a masked row's last (token,
-        position), which rewrites the same K/V."""
+        position), which rewrites the same K/V; a cross layer writes
+        nothing."""
         if self.mamba is not None:
             x = x + self.mamba.decode(self.norm1(x), cache["mamba"], keep)
-        else:
+        if self.attn is not None:
             h, _ = self.attn.decode(self.norm1(x), cache["attn"], cache_index,
                                     block_tables, attn_impl=attn_impl)
+            x = x + h
+        if self.xattn is not None:
+            h, _ = self.xattn.decode(self._xnorm(x), cache["xattn"], cache_index)
             x = x + h
         return self._ffn(x, full_capacity=True)[0]
 
@@ -196,7 +239,7 @@ class Block(nn.Module):
         only, as in JAX (the engine serves other mixers by a scan of
         decode steps); an MoE FFN at full capacity, so the chunk's pad rows
         change no other row's output."""
-        if self.attn is None:
+        if self.spec.mixer != "attn":
             raise ValueError(
                 f"decode_chunk supports pure self-attention blocks; mixer "
                 f"{self.spec.mixer!r} has no chunked paged path")
@@ -244,20 +287,31 @@ class Stack(nn.Module):
             for i in range(len(pattern) * repeats))
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                memory: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
                 distill_layer: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
         """Returns (x, fp32 qkv states [3, B, H, S, Dh] of ``distill_layer``
-        or None, the layers' MoE auxiliary losses summed in fp32)."""
+        (its self-attention's) or None, the layers' MoE auxiliary losses
+        summed in fp32).  ``memory`` [B, T, D] and ``memory_mask`` [B, T]
+        reach the cross-attention layers, which raise without memory."""
         n = len(self.layers)
         if distill_layer is not None:
             if not 0 <= distill_layer < n:
                 raise ValueError(f"distill_layer {distill_layer} outside the "
                                  f"stack's {n} layers")
             mixer = self.layers[distill_layer].spec.mixer
-            if mixer != "attn":
+            if mixer not in ("attn", "attn_cross"):
                 raise ValueError(
                     f"distill layer {distill_layer} is a {mixer!r} layer; "
                     "attention-relation distillation needs an attention layer")
+        if memory is None:
+            cross = [li for li, blk in enumerate(self.layers) if blk.xattn is not None]
+            if cross:
+                raise ValueError(
+                    f"layer {cross[0]} is a {self.layers[cross[0]].spec.mixer!r} "
+                    "layer: its cross-attention needs memory [B, T, D] (encoder "
+                    "output or image embeddings), and none was given")
         remat = self.remat and torch.is_grad_enabled()
         states = None
         moe = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -267,17 +321,19 @@ class Stack(nn.Module):
                 ctx = ({"context_fn": _save_dots}
                        if self.remat_policy == "dots" else {})
                 x, st, ml = torch.utils.checkpoint.checkpoint(
-                    blk, x, positions, want, use_reentrant=False, **ctx)
+                    blk, x, positions, memory, memory_mask, want,
+                    use_reentrant=False, **ctx)
             else:
-                x, st, ml = blk(x, positions, want)
+                x, st, ml = blk(x, positions, memory, memory_mask, want)
             if want:
                 states = st.to(torch.float32)
             moe = moe + ml
         return x, states, moe
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
-                   device: Optional[torch.device] = None) -> List[LayerCache]:
-        return [blk.init_cache(batch, max_len, dtype, device)
+                   device: Optional[torch.device] = None,
+                   memory: Optional[torch.Tensor] = None) -> List[LayerCache]:
+        return [blk.init_cache(batch, max_len, dtype, device, memory)
                 for blk in self.layers]
 
     def decode(self, x: torch.Tensor, cache: List[LayerCache],

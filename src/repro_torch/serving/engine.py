@@ -36,7 +36,13 @@ step's one sync (:meth:`Engine.sync_tokens`) waits on that event alone.
 attention-only stacks, contiguous [slots, max_len] otherwise (an SSM stack
 such as ``mamba2-780m`` keeps a recurrent state and a conv tail per slot; a
 hybrid one such as ``jamba-1.5-large-398b`` keeps attention K/V beside
-them).  An MoE FFN runs at full capacity in every step, so the pad rows of
+them; a cross layer keeps its static memory cache).  The decision reads the
+pattern of the model's own decoder: an encoder-decoder model's is
+``attn_cross``, where JAX reads the config's ``[attn]`` and picks the paged
+pools, which its ``EncDecLM`` cannot serve (ROADMAP Queue C).  As in JAX,
+the cross caches are built without memory: each holds one zero position,
+so a served token sees no image or audio (a request API that carries
+memory is a later item).  An MoE FFN runs at full capacity in every step, so the pad rows of
 a chunk step change no other row's routing.
 On the contiguous cache every chunk step is a sequential scan of decode
 steps with per-row masking.  Three faults of the JAX engine on this path
@@ -57,7 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bitlinear import convert_linear_params_fp_to_packed
-from repro_torch.models import CausalLM, ModelConfig, build_model
+from repro_torch.models import ModelConfig, build_model, decoder_of
 from repro_torch.nn.module import torch_dtype
 from repro_torch.nn.moe import MoEMLP, quantize_experts
 from repro_torch.serving.api import (EngineStats, FinishReason, GenerationRequest,
@@ -247,24 +253,25 @@ class RecurrentRing:
 
 class Engine:
     """Continuous-batching facade: ``submit() / step() / stream()`` plus the
-    blocking ``generate()`` wrapper.  ``model`` is a ``CausalLM``; the engine
-    runs on its device."""
+    blocking ``generate()`` wrapper.  ``model`` is a ``CausalLM`` or an
+    ``EncDecLM``; the engine runs on its device."""
 
-    def __init__(self, cfg: ModelConfig, model: CausalLM,
+    def __init__(self, cfg: ModelConfig, model: torch.nn.Module,
                  scfg: Optional[ServeConfig] = None,
                  clock: Optional[Clock] = None):
         self.clock = clock if clock is not None else Clock()
         self.scfg = scfg if scfg is not None else ServeConfig()
-        attn_only = all(s.mixer == "attn" for s in cfg.resolved_pattern())
+        decoder = decoder_of(model)
+        mixers = [s.mixer for s in decoder.stack.pattern]
+        attn_only = all(m == "attn" for m in mixers)
         if self.scfg.paged and not attn_only:
             raise ValueError(
                 "paged KV cache supports attention-only decoder stacks; "
-                f"config {cfg.name!r} has mixers "
-                f"{[s.mixer for s in cfg.resolved_pattern()]} — pass "
+                f"config {cfg.name!r} has mixers {mixers} — pass "
                 "ServeConfig(paged=False) for the contiguous cache")
         self.paged = attn_only if self.scfg.paged is None else self.scfg.paged
         self.cfg, self.model = cfg, model
-        self.device = model.vocab_mask.device
+        self.device = decoder.vocab_mask.device
         impl = self.scfg.attn_impl
         if impl == "auto":
             impl = ("fused" if self.paged and self.device.type == "cuda"
@@ -1283,8 +1290,8 @@ class Engine:
 
 # -- packed-weight conversion ------------------------------------------------------
 
-def convert_to_packed(cfg: ModelConfig, qat_model: CausalLM
-                      ) -> Tuple[ModelConfig, CausalLM]:
+def convert_to_packed(cfg: ModelConfig, qat_model: torch.nn.Module
+                      ) -> Tuple[ModelConfig, torch.nn.Module]:
     """QAT student -> packed ternary serving model on the same device.
 
     Every quantized BitLinear weight ``w`` [K, N] becomes ``w_packed`` uint8
@@ -1294,9 +1301,10 @@ def convert_to_packed(cfg: ModelConfig, qat_model: CausalLM
     forward ran (JAX's copies them latent: ROADMAP Queue C); every other
     tensor, the router included, is copied.  Each layer is converted on its
     own (the JAX ``convert_to_packed`` walks the repeat-stacked leaves, see
-    ROADMAP Queue C)."""
+    ROADMAP Queue C).  An encoder-decoder model's encoder and decoder are
+    packed the same way, and its ``frontend.w`` copied."""
     packed_cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, mode="packed"))
-    dev = qat_model.vocab_mask.device
+    dev = decoder_of(qat_model).vocab_mask.device
     model = build_model(packed_cfg, device=dev)
     src = qat_model.state_dict()
     experts = {f"{name}.{part}.w" for name, mod in model.named_modules()

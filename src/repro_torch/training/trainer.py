@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch.core.distill import (DistillConfig, bitdistill_loss,
                                       softmax_cross_entropy)
 from repro_torch.models.base import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 Batch = Dict[str, torch.Tensor]
@@ -40,12 +41,18 @@ def init_train_state(model: nn.Module, optimizer: AdamW) -> TrainState:
     return TrainState(params, optimizer.init(params, jax_ranks(params)), 0)
 
 
+# the port's names of the stacks whose block tensors JAX stacks over repeats:
+# a CausalLM's, and an EncDecLM's encoder and decoder
+STACKED = ("stack.layers.", "encoder.layers.", "decoder.stack.layers.")
+
+
 def jax_ranks(params: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """Rank of each tensor in the JAX param tree, where the blocks' tensors
-    (``stack.layers.<l>.*``) are stacked over repeats: one axis more.  So,
-    as in the JAX package, the blocks' norm scales are weight-decayed and
-    the final norm's scale is not."""
-    return {k: p.dim() + (1 if k.startswith("stack.layers.") else 0)
+    (``stack.layers.<l>.*``, and an encoder-decoder's ``encoder.layers.<l>.*``
+    and ``decoder.stack.layers.<l>.*``) are stacked over repeats: one axis
+    more.  So, as in the JAX package, the blocks' norm scales are
+    weight-decayed and the final norms' scales (``enc_norm`` too) are not."""
+    return {k: p.dim() + (1 if k.startswith(STACKED) else 0)
             for k, p in params.items()}
 
 
@@ -54,8 +61,11 @@ def jax_ranks(params: Dict[str, torch.Tensor]) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def forward(model, batch: Batch, distill_layer: Optional[int] = None):
-    """-> (logits, qkv_states|None, moe_loss) for the ported (decoder-only)
-    families."""
+    """-> (logits, qkv_states|None, moe_loss) for any model family: an
+    encoder-decoder reads ``batch["frames"]``, a VLM ``batch["image_embeds"]``."""
+    if isinstance(model, EncDecLM):
+        return model.apply(batch["frames"], batch["tokens"],
+                           distill_layer=distill_layer)
     return model.apply(batch["tokens"], memory=batch.get("image_embeds"),
                        distill_layer=distill_layer)
 

@@ -1,6 +1,7 @@
 """Port vs JAX: the attention variants — the blocked (flash-style) forward,
 bf16 scores, and the config values that select them — on the causal cases
-of tests/test_attention_variants.py (the port has no ``causal=False`` yet).
+of tests/test_attention_variants.py (the non-causal and cross-attention
+ones: tests/test_torch_cross_attention.py).
 
 Inputs are seeded numpy; both sides run fp32 compute with the same params
 (the JAX ``init`` copied into the port's module).  Tolerances:

@@ -464,3 +464,24 @@ def test_launcher_prints_straggler_flags_and_restores_sigterm(tmp_path, capsys,
     assert "[straggler] step 2: 9.000s (median 1.000s)" in out
     assert signal.getsignal(signal.SIGTERM) is before
     assert latest_step(tmp_path) == 2
+
+
+def test_launcher_layers_cuts_the_depth(tmp_path):
+    """``--layers`` keeps the config's width and cuts its depth: the saved
+    train state stacks one layer (qwen3-0.6b reduced has two), and a count
+    the pattern does not divide raises (jamba's pattern has eight)."""
+    from repro_torch.launch import train as launch_train
+    launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--layers", "1",
+                       "--device", "cpu", "--steps", "1", "--batch", "2",
+                       "--seq", "16", "--ckpt-dir", str(tmp_path / "a")])
+    cfg = get_config("qwen3-0.6b").reduced(layers=1).with_quant(TQ.QAT)
+    model = bridge.build_model(cfg, device="cpu")
+    state = TTr.init_train_state(model, TO.AdamW(TO.AdamWConfig()))
+    loaded, _, step = load_checkpoint(tmp_path / "a",
+                                      bridge.train_state_to_jax(cfg, state, device="meta"))
+    assert step == 1
+    assert loaded.params["stack"]["pos0"]["attn"]["wq"]["w"].shape[0] == 1
+    with pytest.raises(ValueError, match="not a multiple of the pattern length"):
+        launch_train.main(["--arch", "jamba-1.5-large-398b", "--reduced",
+                           "--layers", "4", "--device", "cpu", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path / "b")])

@@ -891,3 +891,81 @@ def test_packed_moe_runs_the_qat_experts_on_the_card(cuda):
         want, _ = qat.stack.layers[0].mlp(x, full_capacity=True)
         got, _ = packed.stack.layers[0].mlp(x, full_capacity=True)
     assert torch.equal(got, want)
+
+
+# -- the cross-attention families (whisper-medium, llama-3.2-vision-11b) ----------
+
+# the memory projections' row counts: 4 x 1500 audio frames and 4 x 1601
+# image tokens, neither a multiple of the wgmma route's 64-row tiles or
+# bitlinear's 128-row ones, at whisper's (1024, 1024) and llama-vision's
+# k/v (4096, 1024)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(6000, 1024, 1024), (6404, 4096, 1024),
+                                   (6404, 1024, 1024)])
+def test_w2a8_and_bitlinear_at_memory_rows(cuda, dtype, m, k, n):
+    x, wp, delta = _w2a8_operands(cuda, m, k, n, dtype)
+    torch.testing.assert_close(w2_kernel.w2a8_kernel(x, wp, delta),
+                               w2_ref.w2a8_ref(x, wp, delta), rtol=0, atol=0)
+    x, w = _bitlinear_operands(cuda, m, k, n, dtype, m + k)
+    q, delta = Q.weight_quant_absmean(w)
+    wq = q.to(torch.int8)
+    gamma = x.float().abs().amax(-1, keepdim=True)
+    torch.testing.assert_close(bl_kernel.bitlinear_kernel(x, wq, gamma, delta),
+                               bl_ref.bitlinear_ref(x, wq, gamma, delta),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", ["splitk", "wgmma"])
+@pytest.mark.parametrize("m", [8, 256])
+def test_w2a8_all_zero_rows_give_zeros(cuda, route, m):
+    """The engine's cross layers feed ``wo`` all-zero rows (their cache is
+    one zero position): γ is 0 there, and the kernel gives exact zeros, as
+    its plain version does, never NaN."""
+    x, wp, delta = _w2a8_operands(cuda, m, 1024, 1024, torch.bfloat16)
+    x[::2] = 0
+    y = w2_kernel.w2a8_kernel(x, wp, delta, route=route)
+    assert torch.equal(y, w2_ref.w2a8_ref(x, wp, delta))
+    assert bool(torch.isfinite(y).all()) and not y[::2].any()
+    assert not w2_kernel.w2a8_kernel(torch.zeros_like(x), wp, delta, route=route).any()
+
+
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-medium"])
+def test_cross_caches_and_decode_on_the_card_match_the_cpu(cuda, name):
+    """The reduced packed model on the card (w2a8 kernel) and on the CPU
+    (its plain version), same weights: the cross caches seeded from the
+    same memory are bitwise equal; whisper's encoder output within 1e-4 (its
+    attention sums in another order); decode logits over the seeded caches
+    within 1e-4."""
+    from repro_torch.models import EncDecLM, build_model, get_config
+    from repro_torch.serving.engine import convert_to_packed
+    base = get_config(name).reduced(layers=5 if "vision" in name else None)
+    qcfg = base.with_quant(Q.QuantConfig(mode="qat", use_kernel=True))
+    qat = build_model(qcfg, gen=torch.Generator().manual_seed(0), device="cpu")
+    _, cpu = convert_to_packed(qcfg, qat)
+    pcfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
+    card = build_model(pcfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    t = base.encoder_seq if base.n_encoder_layers else base.num_image_tokens
+    mem = torch.randn((2, t, base.d_model), generator=torch.Generator().manual_seed(1))
+    dec_cpu = cpu.decoder if isinstance(cpu, EncDecLM) else cpu
+    dec_card = card.decoder if isinstance(card, EncDecLM) else card
+    with torch.no_grad():
+        if isinstance(cpu, EncDecLM):
+            enc = cpu.encode(mem)
+            torch.testing.assert_close(card.encode(mem.to(cuda)).cpu(), enc,
+                                       rtol=1e-4, atol=1e-4)
+            mem = enc
+        c_cpu = dec_cpu.init_cache(2, 8, torch.float32, "cpu", memory=mem)
+        before = w2_kernel.launches.count
+        c_card = dec_card.init_cache(2, 8, torch.float32, cuda, memory=mem.to(cuda))
+        assert w2_kernel.launches.count > before
+        for a, b in zip(c_cpu, c_card):
+            if "xattn" in a:
+                for k in ("k", "v"):
+                    assert torch.equal(b["xattn"][k].cpu(), a["xattn"][k]), k
+        for step, tok in enumerate([3, 7, 1]):
+            idx = torch.full((2,), step, dtype=torch.int32)
+            la, _ = dec_cpu.decode_step(torch.tensor([tok, tok + 1]), c_cpu, idx)
+            lb, _ = dec_card.decode_step(torch.tensor([tok, tok + 1], device=cuda),
+                                         c_card, idx.to(cuda))
+            torch.testing.assert_close(lb.cpu(), la, rtol=1e-4, atol=1e-4)

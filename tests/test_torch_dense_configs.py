@@ -84,15 +84,6 @@ def test_assigned_shapes_and_cells_match_jax():
         jshapes.all_cells(jconfigs.ASSIGNED, ["long_500k"])
 
 
-@pytest.mark.parametrize("name,match", [
-    ("llama-3.2-vision-11b", "cross-attention"),
-    ("whisper-medium", "encoder-decoder"),
-])
-def test_build_model_refuses_unported_families(name, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(get_config(name).reduced(), device="cpu")
-
-
 @pytest.mark.parametrize("name", DENSE)
 def test_forward_and_qat_step_match_jax(name):
     """FP logits, then one CE train step of the QAT student (the plain
