@@ -128,6 +128,16 @@ result line):
      full-width (cross, dense) block, bf16 QAT, both routes; (f) its reduced
      stack (one repeat) served and stepped with ``image_embeds`` on both
      routes;
+ 15. the distributed layer on a one-rank NCCL group: (a) ``qwen3-0.6b`` at
+     full width and 4 layers, QAT on the kernel route, 3 CE steps under a
+     sharding plan (parameters and moments DTensors) against the same
+     steps without one: losses and parameters bitwise, 56 bitlinear
+     launches a step on both; (b) ``python -m torch.distributed.run
+     --standalone --nproc-per-node 1 -m repro_torch.launch.train ... --dp 1
+     --tp 1`` exits 0 with its step lines and checkpoint; (c)
+     ``compressed_psum`` over 16 M values, two rounds, card bitwise its CPU
+     evaluation, timed; (d) GPipe at one stage, a toy stage within 2e-5 of
+     tanh(x @ w) and qwen3-0.6b's 4-layer stack bitwise ``Stack.forward``;
   then summary lines: card, kernels (JSON), and the result line last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
@@ -4206,6 +4216,201 @@ def cross_families(dev, out_dir, by_path):
     return phase14
 
 
+# -- phase 15: the distributed layer at world size 1 ------------------------------
+
+# 15a: qwen3-0.6b's width at 10a's depth, 3 CE steps with and without a plan
+DIST_LAYERS, DIST_STEPS = 4, 3
+# 15b: the launcher under torch.distributed.run, at two layers (its final
+# checkpoint, ~2 GB, is written and removed)
+DIST_CLI = ["--arch", "qwen3-0.6b", "--layers", "2", "--steps", "2", "--batch", "8",
+            "--seq", "256", "--log-every", "1", "--dp", "1", "--tp", "1",
+            "--ckpt-every", "100"]
+# 15c: compressed_psum's length; 15d: GPipe's micro-batches at qwen3's width
+PSUM_N = 16 << 20
+GPIPE_MICRO, GPIPE_ROWS = 4, 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _plan_vs_plain(dev, plan):
+    """15a: the same seeded model, batches and AdamW, ``DIST_STEPS`` CE
+    steps without a plan and under ``plan``, on the kernel route; ->
+    ({route: (losses, grad norms, bitlinear launches a step)}, the
+    parameters' largest difference, the bitlinear launches under the plan)."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.distributed.sharding import set_plan
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import init_train_state, make_train_step
+    cfg = get_config("qwen3-0.6b").replace(n_layers=DIST_LAYERS).with_quant(
+        Q.QuantConfig(mode="qat", use_kernel=True))
+    batches = _train_batches("corpus", 17, DIST_STEPS, dev, QWEN_SEQ)
+    runs, params = {}, {}
+    for tag, p in (("plain", None), ("plan", plan)):
+        model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        opt = AdamW(AdamWConfig())
+        state = init_train_state(model, opt, p)
+        step = make_train_step(model, opt, lambda s: constant(s, 1e-4), plan=p)
+        set_plan(p)
+        losses, norms, per_step = [], [], []
+        try:
+            bl_k.launches.reset()
+            for b in batches:
+                before = bl_k.launches.count
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                per_step.append(bl_k.launches.count - before)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            launches = bl_k.launches.count
+        finally:
+            set_plan(None)
+        if tag == "plan":
+            plan_launches = launches
+            local = {k: v.to_local().shape for k, v in state.params.items()}
+            if any(tuple(s) != tuple(v.shape) for s, v in zip(local.values(),
+                                                             state.params.values())):
+                fail("15a: at world size 1 a rank must hold every leaf whole")
+        params[tag] = {k: (v.full_tensor() if tag == "plan" else v).detach().clone()
+                       for k, v in state.params.items()}
+        runs[tag] = (losses, norms, per_step)
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    diff = max(float((params["plan"][k].float() - v.float()).abs().max())
+               for k, v in params["plain"].items())
+    bitwise = all(torch.equal(params["plan"][k], v) for k, v in params["plain"].items())
+    return runs, diff, bitwise, plan_launches
+
+
+def distributed_layer(dev, out_dir, card):
+    """Phase 15: the distributed layer on a one-rank NCCL group: (a) the CE
+    step under a sharding plan against the same steps without one, at full
+    width, bitlinear on the kernel route; (b) the launcher under
+    ``torch.distributed.run`` with ``--dp 1 --tp 1``; (c) ``compressed_psum``
+    over 16 M values, card against CPU; (d) GPipe at one stage against the
+    dense composition.  -> (the plan run's launches, a summary)."""
+    import os
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.distributed.pipeline_parallel import (
+        gpipe_forward, pipeline_stage_from_stack)
+    from repro_torch.distributed.sharding import ShardingPlan, default_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, get_config
+    out, t0 = {}, time.perf_counter()
+
+    def part(title):
+        print(f"  {title} [+{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    torch.cuda.set_device(dev.index or 0)    # the rank's card, before its mesh
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        part(f"15a: qwen3-0.6b (full width, {DIST_LAYERS} layers, QAT, kernel route), "
+             f"{DIST_STEPS} CE steps without and under a plan on mesh (data 1, model 1)")
+        plan = ShardingPlan(make_mesh(1, 1), default_rules(False))
+        runs, diff, bitwise, plan_launches = _plan_vs_plain(dev, plan)
+        want = 2 * 7 * DIST_LAYERS               # forward + the remat recompute
+        for tag, (losses, norms, per_step) in runs.items():
+            print(f"  (a) {tag}: losses {losses}, grad_norm {norms}, bitlinear "
+                  f"launches a step {per_step}", flush=True)
+            if per_step != [want] * DIST_STEPS or not all(map(math.isfinite, losses)):
+                fail(f"15a {tag}: bitlinear launches a step {per_step} (want {want}) "
+                     f"or losses {losses} not finite")
+        print(f"  (a) parameters after step {DIST_STEPS}: largest difference "
+              f"{diff!r}, bitwise {bitwise} (bound 0: at one rank the plan's step "
+              f"runs the same operations)", flush=True)
+        if runs["plan"][0] != runs["plain"][0] or not bitwise:
+            fail(f"15a: the plan's losses {runs['plan'][0]} vs {runs['plain'][0]}, "
+                 f"parameters {diff!r} apart: want them equal")
+        out["15a"] = dict(runs=runs, param_diff=diff, bitwise=bitwise,
+                          launches=plan_launches)
+
+        part("15b: the launcher under torch.distributed.run --nproc-per-node 1, "
+             "--dp 1 --tp 1, 2 steps")
+        ckpt = out_dir / "dist_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *DIST_CLI,
+             "--ckpt-dir", str(ckpt)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=600)
+        secs = time.perf_counter() - t1
+        (out_dir / "dist_launcher.log").write_text(r.stdout)
+        lines = _step_lines(r.stdout)
+        saved = (ckpt / "step_00000002").is_dir()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if r.returncode != 0 or len(lines) != 2 or not saved or \
+                not r.stdout.strip().endswith("done"):
+            fail(f"15b: launcher exit {r.returncode}, step lines {lines}, checkpoint "
+                 f"saved {saved}:\n{r.stdout[-3000:]}")
+        print(f"  (b) exit 0 in {secs:.1f} s ({card}): " + " | ".join(lines),
+              flush=True)
+        out["15b"] = dict(seconds=secs, lines=lines)
+
+        part(f"15c: compressed_psum over {PSUM_N} values, card vs CPU, two rounds")
+        gen = torch.Generator(device=dev).manual_seed(15)
+        group = dist.group.WORLD
+        x = [torch.randn(PSUM_N, generator=gen, device=dev) * 3 for _ in range(2)]
+        e_card = torch.zeros(PSUM_N, device=dev)
+        e_cpu = e_card.cpu()
+        for rnd in range(2):
+            y_card, e_card = compressed_psum(x[rnd], group, e_card)
+            y_cpu, e_cpu = compressed_psum(x[rnd].cpu(), group, e_cpu)
+            if rnd == 0:
+                rel = float(torch.linalg.norm(y_card - x[0]) / torch.linalg.norm(x[0]))
+            if not (torch.equal(y_card.cpu(), y_cpu) and torch.equal(e_card.cpu(), e_cpu)):
+                fail(f"15c round {rnd}: card and CPU differ by "
+                     f"{float((y_card.cpu() - y_cpu).abs().max())!r} (mean), "
+                     f"{float((e_card.cpu() - e_cpu).abs().max())!r} (residual)")
+        ms = time_ms(lambda: compressed_psum(x[0], group, e_card), iters=10)
+        print(f"  (c) both rounds bitwise card vs CPU; {ms:.3f} ms a call on the card "
+              f"({card}); relative error of the one-rank mean {rel:.3g}", flush=True)
+        out["15c"] = dict(ms=ms, rel_err=rel)
+
+        part("15d: GPipe at one stage: toy tanh stage and qwen3-0.6b's 4-layer "
+             f"stack over {GPIPE_MICRO} micro-batches of {GPIPE_ROWS} x {QWEN_SEQ}")
+        w = torch.randn((16, 16), generator=gen, device=dev) * 0.3
+        xs = torch.randn((8, 4, 16), generator=gen, device=dev)
+        toy = gpipe_forward(lambda p, h: torch.tanh(h @ p), group, 1)(w, xs)
+        if not torch.allclose(toy, torch.tanh(xs @ w), rtol=2e-5, atol=2e-5):
+            fail("15d: one-stage GPipe differs from tanh(x @ w)")
+        cfg = get_config("qwen3-0.6b").replace(n_layers=DIST_LAYERS)
+        model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        hs = torch.randn((GPIPE_MICRO, GPIPE_ROWS, QWEN_SEQ, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            got = gpipe_forward(pipeline_stage_from_stack(model.stack, DIST_LAYERS),
+                                group, 1)(0, hs)
+            dense = torch.stack([model.stack(h)[0] for h in hs])
+        if not torch.equal(got, dense):
+            fail(f"15d: GPipe's stack differs from Stack.forward by "
+                 f"{float((got.float() - dense.float()).abs().max())!r}")
+        print("  (d) toy stage within 2e-5 of the dense composition; the stack's "
+              "stage bitwise Stack.forward", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    part("phase 15 done")
+    (out_dir / "smoke_distributed.json").write_text(json.dumps(out, indent=1, default=str))
+    return {"bitlinear": plan_launches}, out
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -4409,6 +4614,12 @@ def main() -> None:
     phase("phase 14: the cross-attention families (whisper-medium, "
           "llama-3.2-vision-11b)")
     cross_families(dev, out_dir, by_path)
+    # 15. the distributed layer on a one-rank NCCL group (the bitlinear
+    # counter reset just before 15a's run under the plan and read after it)
+    phase("phase 15: the distributed layer at world size 1 (a sharded CE step, "
+          "the launcher, compressed_psum, GPipe)")
+    by_path["train qwen3-0.6b under a plan (15a)"], _ = distributed_layer(
+        dev, out_dir, card)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -24,7 +24,10 @@ TrainState``: ``params/...``, ``opt_state/step``, ``opt_state/m/...`` and
 int32 0-d.  ``train_state_to_jax`` builds that tree (``device="meta"``
 gives a shape-only template for ``checkpoint.load_checkpoint``) and
 ``load_train_state`` copies such a tree into a live ``TrainState``, so a
-checkpoint of either package resumes in the port.
+checkpoint of either package resumes in the port, on one device or into a
+state placed by any sharding plan (each rank copies its share of every
+leaf).  ``torch_axes_from_jax`` maps JAX's logical-axes trees
+(``param_axes``, ``state_axes``) to the port's names the same way.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import is_dtensor, local_chunk
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.models.encdec import decoder_config
 from repro_torch.nn.module import resolve_device
@@ -84,9 +88,29 @@ def _stacks(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], str, int, int]]:
     return [(("stack",), "stack.layers", len(cfg.resolved_pattern()), cfg.repeats)]
 
 
-def _port_leaves(cfg: ModelConfig, tree: Mapping) -> Dict[str, Any]:
-    """JAX-layout tree -> {port state-dict key: leaf}; stacked leaves are
-    split into their rows (views)."""
+def _split_rows(path: str, leaf, repeats: int) -> list:
+    lead = (leaf.code if isinstance(leaf, Moment8) else leaf).shape[0]
+    if lead != repeats:
+        raise ValueError(f"{path}: leading dim {lead} != repeats {repeats}")
+    return [_rows(leaf, r) for r in range(repeats)]
+
+
+def _drop_layers(path: str, axes) -> tuple:
+    """A stacked leaf's logical axes without JAX's leading ``"layers"`` (a
+    ``Moment8`` of axes, either package's, as the port's)."""
+    if hasattr(axes, "_fields"):
+        return Moment8(_drop_layers(path, axes.code), _drop_layers(path, axes.scale))
+    if not axes or axes[0] != "layers":
+        raise ValueError(f"{path}: stacked leaf's axes {axes} do not start "
+                         "with 'layers'")
+    return tuple(axes[1:])
+
+
+def _port_leaves(cfg: ModelConfig, tree: Mapping,
+                 split: Callable[[str, Any, int], list] = _split_rows
+                 ) -> Dict[str, Any]:
+    """JAX-layout tree -> {port state-dict key: leaf}; ``split`` gives a
+    stacked leaf's rows (views, by default)."""
     stacks = _stacks(cfg)
     state: Dict[str, Any] = {}
     for path, leaf in _flatten(tree).items():
@@ -99,12 +123,17 @@ def _port_leaves(cfg: ModelConfig, tree: Mapping) -> Dict[str, Any]:
             continue
         pos = int(parts[len(jax_at)][len("pos"):])
         rest = ".".join(parts[len(jax_at) + 1:])
-        lead = (leaf.code if isinstance(leaf, Moment8) else leaf).shape[0]
-        if lead != repeats:
-            raise ValueError(f"{path}: leading dim {lead} != repeats {repeats}")
-        for r in range(repeats):
-            state[f"{port_at}.{r * n_pat + pos}.{rest}"] = _rows(leaf, r)
+        for r, row in enumerate(split(path, leaf, repeats)):
+            state[f"{port_at}.{r * n_pat + pos}.{rest}"] = row
     return state
+
+
+def torch_axes_from_jax(cfg: ModelConfig, axes_tree: Mapping) -> Dict[str, Any]:
+    """JAX's ``param_axes()`` tree (or one moment tree of ``state_axes``)
+    -> {port tensor name: logical axes}: a stacked leaf's axes lose their
+    leading ``"layers"`` (never sharded) and go to each of its layers."""
+    return _port_leaves(cfg, axes_tree,
+                        lambda path, ax, repeats: [_drop_layers(path, ax)] * repeats)
 
 
 def _jax_tree(cfg: ModelConfig, named: Mapping[str, Any],
@@ -198,9 +227,14 @@ def train_state_to_jax(cfg: ModelConfig, state: TrainState,
                        ) -> JaxTrainState:
     """The port's ``TrainState`` as the JAX ``TrainState`` tree of tensors
     (on ``device``, default: where they are; block leaves stacked, so those
-    are copies, the others the live tensors)."""
+    are copies, the others the live tensors).  DTensor leaves (a state
+    placed by a sharding plan) are gathered whole, so every rank of their
+    mesh must call this; with ``device="meta"`` they only give shapes."""
     def leaf(t):
         t = t.detach()
+        if is_dtensor(t):
+            t = (torch.empty(t.shape, dtype=t.dtype, device="meta")
+                 if torch.device(device or "cpu").type == "meta" else t.full_tensor())
         return t if device is None else t.to(device)
 
     def one(x):
@@ -234,6 +268,9 @@ def _copy_leaf(key: str, dst, src) -> None:
         if tuple(s.shape) != tuple(d.shape):
             raise ValueError(f"{key}{part}: JAX shape {tuple(s.shape)} != "
                              f"port {tuple(d.shape)}")
+        if is_dtensor(d):      # a placed leaf takes its rank's share
+            s = local_chunk(s, d.device_mesh, d.placements)
+            d = d.to_local()
         d.copy_(s)
 
 

@@ -8,17 +8,19 @@ CUDA kernel with ``QuantConfig.use_kernel`` (whose backward is the same
 STE), else the bf16 absmean path with ``low_precision_quant``, else the
 fake-quant forward of ``QuantConfig.scheme`` with STE gradients.  ``packed`` stores ``w_packed`` uint8 ``[in/4, out]`` plus
 a scalar ``delta`` as buffers; with ``use_kernel`` the projection runs the
-w2a8 CUDA kernel.
+w2a8 CUDA kernel.  ``axes`` are the weight's logical axes (``[in, out]``,
+supplied by the caller as in JAX); ``param_axes()`` names each tensor's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core import quant as Q
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy, fan_in_init
+from repro_torch.distributed.sharding import constrain
+from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, fan_in_init
 
 
 class BitLinear(nn.Module):
@@ -28,10 +30,12 @@ class BitLinear(nn.Module):
                  quant: Q.QuantConfig = Q.FP,
                  policy: DTypePolicy = DEFAULT_POLICY,
                  gen: Optional[torch.Generator] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 axes: Tuple[str, str] = ("embed", "mlp")):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.use_bias, self.quant, self.policy = use_bias, quant, policy
+        self.axes = axes
         if gen is not None:
             w = fan_in_init(gen, (in_dim, out_dim), policy.param_dtype, device)
         else:
@@ -46,6 +50,16 @@ class BitLinear(nn.Module):
         if use_bias:
             self.b = nn.Parameter(torch.zeros((out_dim,), dtype=policy.param_dtype,
                                               device=device))
+
+    def param_axes(self) -> Dict[str, Axes]:
+        a_in, a_out = self.axes
+        if self.quant.mode == "packed":
+            ax: Dict[str, Axes] = {"w_packed": (a_in, a_out), "delta": ()}
+        else:
+            ax = {"w": (a_in, a_out)}
+        if self.use_bias:
+            ax["b"] = (a_out,)
+        return ax
 
     def forward(self, x: torch.Tensor,
                 act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -70,7 +84,7 @@ class BitLinear(nn.Module):
                                              scheme=quant.scheme,
                                              act_scale=act_scale,
                                              block=quant.block)
-                y = torch.matmul(xq, wq.to(cd))
+                y = torch.matmul(xq, constrain(wq.to(cd), self.axes))
         elif quant.mode == "packed":
             y = packed_matmul(x.to(cd), self.w_packed, self.delta, self.in_dim,
                               use_kernel=quant.use_kernel)
@@ -105,11 +119,15 @@ class SubLN(nn.Module):
 
     def __init__(self, dim: int, eps: float = 1e-6,
                  policy: DTypePolicy = DEFAULT_POLICY,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 axis_name: str = "embed"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.axis_name = eps, axis_name
         self.scale = nn.Parameter(torch.ones((dim,), dtype=policy.param_dtype,
                                              device=device))
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return {"scale": (self.axis_name,)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)

@@ -34,6 +34,16 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The numerator of ``softmax_cross_entropy``: the (masked) sum of the
+    tokens' NLL, for a mean whose denominator is counted elsewhere (a
+    sharded step's rows of a batch)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(nll if mask is None else nll * mask.to(torch.float32))
+
+
 def kl_divergence(p_logits: torch.Tensor, q_logits: torch.Tensor) -> torch.Tensor:
     """KL(P ‖ Q) per row from logits; fp32; [..., V] -> [...]."""
     p_log = torch.log_softmax(p_logits.to(torch.float32), dim=-1)

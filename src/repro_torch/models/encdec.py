@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,7 +22,7 @@ from torch import nn
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.lm import CausalLM
 from repro_torch.nn.layers import RMSNorm
-from repro_torch.nn.module import fan_in_init
+from repro_torch.nn.module import Axes, fan_in_init
 from repro_torch.nn.transformer import LayerCache, LayerSpec, Stack
 
 
@@ -63,6 +63,14 @@ class EncDecLM(nn.Module):
                              gen=gen, device=device)
         self.enc_norm = RMSNorm(d, policy=pol, device=device)
         self.decoder = CausalLM(decoder_config(cfg), gen=gen, device=device)
+
+    def param_axes(self) -> Dict[str, Axes]:
+        """{tensor name: logical axes} (JAX's ``EncDecLM.param_axes``)."""
+        ax: Dict[str, Axes] = {"frontend.w": ("embed", "embed_out")}
+        for name in ("encoder", "enc_norm", "decoder"):
+            ax.update({f"{name}.{k}": v
+                       for k, v in getattr(self, name).param_axes().items()})
+        return ax
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames [B, T_enc, d_model] -> memory [B, T_enc, d_model] in the

@@ -7,15 +7,17 @@ layers among its self-attention ones) reads ``memory``, precomputed image
 embeddings [B, T, d_model] (the vision tower is a stub, as in JAX)."""
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.base import ModelConfig
 from repro_torch.nn.layers import Embedding, RMSNorm
+from repro_torch.nn.module import Axes, child_axes
 from repro_torch.nn.transformer import LayerCache, Stack
 
 
@@ -35,12 +37,16 @@ class CausalLM(nn.Module):
         if not cfg.tie_embeddings:
             hq = cfg.quant if cfg.quant.quantize_lm_head else Q.FP
             self.head = BitLinear(cfg.d_model, cfg.padded_vocab, False, hq, pol,
-                                  gen=gen, device=device)
+                                  gen=gen, device=device, axes=("embed", "vocab"))
         vocab_mask = torch.arange(cfg.padded_vocab, device=device) < cfg.vocab
         self.register_buffer("vocab_mask", vocab_mask, persistent=False)
 
+    def param_axes(self) -> Dict[str, Axes]:
+        """{tensor name: logical axes} (JAX's ``CausalLM.param_axes``)."""
+        return child_axes(self)
+
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed(tokens)
+        x = constrain(self.embed(tokens), ("batch", "seq", "act_embed"))
         if self.cfg.embed_scale:
             # gemma: sqrt(d_model) in fp32, cast to the activation dtype
             # before the product, as JAX's ``jnp.sqrt(d).astype(x.dtype)``
@@ -71,7 +77,9 @@ class CausalLM(nn.Module):
             memory = memory.to(x.dtype)
         x, states, moe_loss = self.stack(x, positions, memory, memory_mask,
                                          distill_layer=distill_layer)
-        return self._logits(self.final_norm(x)), states, moe_loss
+        logits = constrain(self._logits(self.final_norm(x)),
+                           ("batch", "seq", "vocab"))
+        return logits, states, moe_loss
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -31,7 +31,7 @@ from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.paged_prefill import ops as pp_ops
 from repro_torch.kernels.paged_prefill import ref as pp_ref
 from repro_torch.nn.layers import RMSNorm, apply_rope
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, child_axes
 
 NEG_INF = -2.0e38
 BF16_MASK = -3.0e38          # JAX's mask fill under bf16 scores
@@ -72,16 +72,24 @@ class Attention(nn.Module):
         q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
         self.q_dim = q_dim
         lin = dict(quant=quant, policy=policy, gen=gen, device=device)
-        self.wq = BitLinear(d_model, q_dim, qkv_bias, **lin)
-        self.wk = BitLinear(d_model, kv_dim, qkv_bias, **lin)
-        self.wv = BitLinear(d_model, kv_dim, qkv_bias, **lin)
-        self.wo = BitLinear(q_dim, d_model, False, **lin)
-        self.subln = SubLN(q_dim, policy=policy, device=device) if subln else None
+        self.wq = BitLinear(d_model, q_dim, qkv_bias, axes=("embed", "heads"), **lin)
+        self.wk = BitLinear(d_model, kv_dim, qkv_bias, axes=("embed", "kv_heads"),
+                            **lin)
+        self.wv = BitLinear(d_model, kv_dim, qkv_bias, axes=("embed", "kv_heads"),
+                            **lin)
+        self.wo = BitLinear(q_dim, d_model, False, axes=("heads", "embed"), **lin)
+        self.subln = SubLN(q_dim, policy=policy, device=device,
+                           axis_name="heads") if subln else None
         if qk_norm:
-            self.q_norm = RMSNorm(head_dim, policy=policy, device=device)
-            self.k_norm = RMSNorm(head_dim, policy=policy, device=device)
+            self.q_norm = RMSNorm(head_dim, policy=policy, device=device,
+                                  axis_name="head_dim")
+            self.k_norm = RMSNorm(head_dim, policy=policy, device=device,
+                                  axis_name="head_dim")
         else:
             self.q_norm = self.k_norm = None
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return child_axes(self)
 
     # -- projections ----------------------------------------------------------
 

@@ -2,13 +2,14 @@
 activations — port of ``repro/nn/layers.py``."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy, truncated_normal_init
+from repro_torch.nn.module import (Axes, DEFAULT_POLICY, DTypePolicy,
+                                   truncated_normal_init)
 
 
 class RMSNorm(nn.Module):
@@ -16,11 +17,15 @@ class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, eps: float = 1e-6,
                  policy: DTypePolicy = DEFAULT_POLICY,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 axis_name: str = "embed"):
         super().__init__()
-        self.eps = eps
+        self.eps, self.axis_name = eps, axis_name
         self.scale = nn.Parameter(torch.ones((dim,), dtype=policy.param_dtype,
                                              device=device))
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return {"scale": (self.axis_name,)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
@@ -48,6 +53,9 @@ class Embedding(nn.Module):
             t = torch.zeros((vocab, dim), dtype=policy.param_dtype, device=device)
         self.table = nn.Parameter(t)
         self._refresh()
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return {"table": ("vocab", "embed")}
 
     def _refresh(self) -> None:
         """Rebuild the compute-dtype copy from ``table``."""

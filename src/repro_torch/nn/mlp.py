@@ -2,7 +2,7 @@
 — port of ``repro/nn/mlp.py``."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -10,7 +10,7 @@ from torch import nn
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear, SubLN
 from repro_torch.nn.layers import ACTIVATIONS
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, child_axes
 
 
 class GatedMLP(nn.Module):
@@ -24,11 +24,15 @@ class GatedMLP(nn.Module):
         self.act = ACTIVATIONS[activation]
         self.gated = gated
         lin = dict(quant=quant, policy=policy, gen=gen, device=device)
-        self.up = BitLinear(d_model, d_ff, False, **lin)
+        self.up = BitLinear(d_model, d_ff, False, axes=("embed", "mlp"), **lin)
         if gated:
-            self.gate = BitLinear(d_model, d_ff, False, **lin)
-        self.down = BitLinear(d_ff, d_model, False, **lin)
-        self.subln = SubLN(d_ff, policy=policy, device=device) if subln else None
+            self.gate = BitLinear(d_model, d_ff, False, axes=("embed", "mlp"), **lin)
+        self.down = BitLinear(d_ff, d_model, False, axes=("mlp", "embed"), **lin)
+        self.subln = SubLN(d_ff, policy=policy, device=device,
+                           axis_name="mlp") if subln else None
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return child_axes(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated:

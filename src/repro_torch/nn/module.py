@@ -6,15 +6,20 @@ a seeded init is reproducible on the card without JAX (the JAX and torch
 streams differ — parity tests hand both packages the same numpy weights via
 ``repro_torch.bridge``).  ``flatten_with_paths`` names the leaves of a tree
 of dicts, NamedTuples, tuples and lists as ``jax.tree_util`` does, which is
-how checkpoints name them.
+how checkpoints name them.  ``child_axes`` joins the logical axes of a
+module's children (each module's ``param_axes()``: ``{tensor name: logical
+axis names}``, the JAX modules' ``param_axes`` by the port's names).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
+
+Axes = Tuple[Optional[str], ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +72,17 @@ def fan_in_init(gen: torch.Generator, shape: Sequence[int], dtype,
     for d in shape[:-1]:
         fan_in *= d
     return truncated_normal_init(gen, shape, dtype, fan_in ** -0.5, device)
+
+
+def child_axes(module: nn.Module) -> Dict[str, Axes]:
+    """``param_axes()`` of ``module``'s children (a ``ModuleList``'s
+    elements too), keyed by the tensors' names in ``module``."""
+    out: Dict[str, Axes] = {}
+    for name, child in module.named_children():
+        sub = child_axes(child) if isinstance(child, nn.ModuleList) \
+            else child.param_axes()
+        out.update({f"{name}.{k}": v for k, v in sub.items()})
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ from torch import nn
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import SubLN
 from repro_torch.nn.layers import ACTIVATIONS
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy, fan_in_init
+from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, fan_in_init
 
 
 class _Weight(nn.Module):
@@ -131,13 +131,25 @@ class MoEMLP(nn.Module):
         self.up = _Weight((e, d, f), pd, gen, device)
         self.gate = _Weight((e, d, f), pd, gen, device)
         self.down = _Weight((e, f, d), pd, gen, device)
-        self.subln = SubLN(f, policy=policy, device=device) if subln else None
+        self.subln = SubLN(f, policy=policy, device=device,
+                           axis_name="mlp") if subln else None
         if quant.mode == "packed" and gen is not None:
             # a seeded packed model holds its experts quantized, as a packed
             # BitLinear holds its seeded weight packed
             with torch.no_grad():
                 for part in (self.up, self.gate, self.down):
                     part.w.copy_(quantize_experts(part.w, quant.scheme, quant.block))
+
+    def param_axes(self) -> Dict[str, Axes]:
+        ax: Dict[str, Axes] = {
+            "router.w": ("embed", "expert_router"),
+            "up.w": ("expert", "embed", "mlp"),
+            "gate.w": ("expert", "embed", "mlp"),
+            "down.w": ("expert", "mlp", "embed"),
+        }
+        if self.subln is not None:
+            ax["subln.scale"] = ("mlp",)
+        return ax
 
     def quantized(self, w: torch.Tensor) -> torch.Tensor:
         """The experts' weights as the forward uses them: quantized expert by

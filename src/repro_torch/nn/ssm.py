@@ -25,7 +25,8 @@ from repro_torch.core.bitlinear import BitLinear, SubLN
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import chunk_len, ssd_chunked, ssd_sequential
 from repro_torch.nn.layers import silu
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+from repro_torch.distributed.sharding import constrain
+from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, child_axes
 
 __all__ = ["Mamba2Block", "chunk_len", "ssd_chunked", "ssd_sequential"]
 
@@ -48,8 +49,10 @@ class Mamba2Block(nn.Module):
         self.conv_dim = self.d_inner + 2 * d_state
         in_dim = 2 * self.d_inner + 2 * d_state + self.n_heads   # z, x, B, C, dt
         lin = dict(quant=quant, policy=policy, gen=gen, device=device)
-        self.in_proj = BitLinear(d_model, in_dim, False, **lin)
-        self.out_proj = BitLinear(self.d_inner, d_model, False, **lin)
+        self.in_proj = BitLinear(d_model, in_dim, False, axes=("embed", "ssm_in"),
+                                 **lin)
+        self.out_proj = BitLinear(self.d_inner, d_model, False,
+                                  axes=("ssm_inner", "embed"), **lin)
         h, pd, f32 = self.n_heads, policy.param_dtype, torch.float32
         if gen is not None:
             conv_w = torch.randn((conv_kernel, self.conv_dim), generator=gen,
@@ -72,7 +75,13 @@ class Mamba2Block(nn.Module):
         self.A_log = nn.Parameter(a_log)
         self.D = nn.Parameter(torch.ones((h,), dtype=f32, device=device))
         self.dt_bias = nn.Parameter(dt_bias)
-        self.norm = SubLN(self.d_inner, policy=policy, device=device) if subln else None
+        self.norm = SubLN(self.d_inner, policy=policy, device=device,
+                          axis_name="ssm_inner") if subln else None
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return dict(child_axes(self), conv_w=("conv_k", "ssm_conv"),
+                    conv_b=("ssm_conv",), A_log=("ssm_heads",), D=("ssm_heads",),
+                    dt_bias=("ssm_heads",))
 
     # -- pieces ----------------------------------------------------------------
 
@@ -113,10 +122,13 @@ class Mamba2Block(nn.Module):
         di, n, h, p = self.d_inner, self.d_state, self.n_heads, self.head_dim
         z, xbc, dt_raw = self._split(self.in_proj(u))
         xbc = self._conv(xbc)
-        x = xbc[..., :di].reshape(b, s, h, p).to(torch.float32)
+        # the SSD's heads along "ssm_heads" (JAX's TP hint)
+        x = constrain(xbc[..., :di].reshape(b, s, h, p),
+                      ("batch", "seq", "ssm_heads", "head_dim")).to(torch.float32)
         B = xbc[..., di:di + n].to(torch.float32)
         C = xbc[..., di + n:].to(torch.float32)
         a, dt = self._gates(dt_raw)
+        a = constrain(a, ("batch", "seq", "ssm_heads"))
         if sequential:
             y, _ = ssd_sequential(x, a, dt, B, C)
         else:

@@ -37,7 +37,8 @@ from repro_torch.core import quant as Q
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
-from repro_torch.nn.module import DEFAULT_POLICY, DTypePolicy
+from repro_torch.distributed.sharding import constrain
+from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, child_axes
 from repro_torch.nn.moe import MoEMLP
 from repro_torch.nn.ssm import Mamba2Block
 
@@ -100,11 +101,6 @@ class Block(nn.Module):
             raise ValueError(f"layer {spec}: unknown mixer {spec.mixer!r} or "
                              f"ffn {spec.ffn!r}")
         c = cfg
-        if c.seq_shard_activations:
-            raise ValueError(
-                "seq_shard_activations=True (Megatron sequence-parallel "
-                "sharding of the residual stream) is not ported: it comes "
-                "with distributed/sharding.py (ROADMAP Queue A, item 25)")
         self.spec = spec
         self.norm1 = RMSNorm(c.d_model, c.rms_eps, policy=c.policy, device=device)
         self.attn = self.mamba = self.norm_x = self.xattn = None
@@ -145,6 +141,9 @@ class Block(nn.Module):
                               group_size=c.moe_group_size, subln=c.subln,
                               quant=c.quant, policy=c.policy, gen=gen,
                               device=device)
+
+    def param_axes(self) -> Dict[str, Axes]:
+        return child_axes(self)
 
     def _xnorm(self, x: torch.Tensor) -> torch.Tensor:
         """The cross-attention's input: ``norm_x`` in an ``attn_cross``
@@ -280,11 +279,17 @@ class Stack(nn.Module):
             raise ValueError(f"unknown remat_policy {remat_policy!r}: "
                              "'nothing', 'dots' or 'none'")
         self.pattern = pattern
+        self.seq_shard_activations = cfg.seq_shard_activations
         self.remat = remat and remat_policy != "none"
         self.remat_policy = remat_policy
         self.layers = nn.ModuleList(
             Block(cfg, pattern[i % len(pattern)], gen=gen, device=device)
             for i in range(len(pattern) * repeats))
+
+    def param_axes(self) -> Dict[str, Axes]:
+        """Each layer's axes; JAX's leading ``"layers"`` axis (never
+        sharded) has no counterpart in a per-layer tensor."""
+        return child_axes(self)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 memory: Optional[torch.Tensor] = None,
@@ -328,6 +333,10 @@ class Stack(nn.Module):
             if want:
                 states = st.to(torch.float32)
             moe = moe + ml
+            if self.seq_shard_activations and (li + 1) % len(self.pattern) == 0:
+                # Megatron-SP: the residual between repeats sequence-sharded
+                # (JAX's hint at the end of its scan body)
+                x = constrain(x, ("batch", "seq_sp", "act_embed"))
         return x, states, moe
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,

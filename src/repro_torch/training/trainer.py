@@ -10,19 +10,36 @@ JAX metrics dict (``loss``, ``loss_ce``, [``loss_ld``, ``loss_ad``,]
 ``grad_norm``, ``lr``; values are 0-d tensors, read with ``float``).  The
 teacher of the distill step is a module holding its own weights; it runs
 under ``torch.no_grad()``.
+
+The CE step also runs under a sharding plan (``distributed/sharding.py``;
+JAX's launcher jits it with the plan's ``in_shardings``):
+``init_train_state(model, opt, plan)`` replaces the model's parameters by
+DTensors placed by the plan from ``param_axes()``, and the AdamW moments by
+theirs (``state_axes``), so a rank holds the plan's share of each.  The step
+takes the whole batch on every rank and computes on the rank's rows of it
+(split over the mesh axes of the ``"batch"`` rule) with every parameter
+gathered whole for the forward and backward, so the kernels see plain
+tensors.  The gradients return to the parameters' placements summed over
+the ranks that split the batch and averaged over the others, which computed
+the same rows.  The CE is the whole batch's token mean (each rank's NLL sum
+over the batch's mask count), the MoE loss the mean of the ranks', and the
+metrics are the whole batch's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.core.distill import (DistillConfig, bitdistill_loss,
+from repro_torch.core.distill import (DistillConfig, bitdistill_loss, nll_sum,
                                       softmax_cross_entropy)
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.nn.layers import Embedding
+from repro_torch.nn.moe import MoEMLP, group_count
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 Batch = Dict[str, torch.Tensor]
@@ -36,9 +53,16 @@ class TrainState:
     step: int
 
 
-def init_train_state(model: nn.Module, optimizer: AdamW) -> TrainState:
+def init_train_state(model: nn.Module, optimizer: AdamW, plan=None) -> TrainState:
+    """The model's parameters and zero moments; with a sharding ``plan``
+    both placed by it (the model's parameters become DTensors)."""
     params = dict(model.named_parameters())
-    return TrainState(params, optimizer.init(params, jax_ranks(params)), 0)
+    ranks = jax_ranks(params)
+    if plan is None:
+        return TrainState(params, optimizer.init(params, ranks), 0)
+    axes = model.param_axes()
+    params = place_model(model, plan)
+    return TrainState(params, optimizer.init(params, ranks, plan=plan, axes=axes), 0)
 
 
 # the port's names of the stacks whose block tensors JAX stacks over repeats:
@@ -116,9 +140,13 @@ def _accumulate(state: TrainState, batch: Batch, accum: int,
 # ---------------------------------------------------------------------------
 
 def make_train_step(model, optimizer: AdamW, lr_fn: Callable,
-                    accum: int = 1) -> Callable:
+                    accum: int = 1, plan=None) -> Callable:
     """step(state, batch) -> (state, metrics); ``state.params`` must be
-    ``model``'s parameters (``init_train_state(model, ...)``)."""
+    ``model``'s parameters (``init_train_state(model, ..., plan)``); with a
+    ``plan`` every rank of its mesh passes the same whole batch."""
+    if plan is not None:
+        return _sharded_train_step(model, optimizer, lr_fn, accum, plan)
+
     def loss_fn(mb):
         logits, _, moe = forward(model, mb)
         ce = softmax_cross_entropy(logits, mb["labels"], mb.get("loss_mask"))
@@ -126,6 +154,138 @@ def make_train_step(model, optimizer: AdamW, lr_fn: Callable,
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         loss, metrics, grads = _accumulate(state, batch, accum, loss_fn)
+        lr = lr_fn(state.step)
+        _, state.opt_state, opt_metrics = optimizer.update(
+            grads, state.opt_state, state.params, lr)
+        state.step += 1
+        return state, dict(metrics, loss=loss, **opt_metrics)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the CE step under a sharding plan
+# ---------------------------------------------------------------------------
+
+def _owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
+    *path, attr = name.split(".")
+    return model.get_submodule(".".join(path)), attr
+
+
+def place_model(model: nn.Module, plan) -> Dict[str, nn.Parameter]:
+    """Replace every parameter of ``model`` (alike on every rank) by a
+    DTensor parameter placed by ``plan`` from ``model.param_axes()``; the
+    placed parameters by name."""
+    axes = model.param_axes()
+    placed = {}
+    for name, p in list(model.named_parameters()):
+        owner, attr = _owner(model, name)
+        placed[name] = owner._parameters[attr] = nn.Parameter(
+            plan.place(p.detach(), axes[name]), requires_grad=p.requires_grad)
+    for m in model.modules():
+        if isinstance(m, Embedding):     # drop the whole table's compute copy
+            m._refresh()
+    return placed
+
+
+@contextlib.contextmanager
+def gathered(model: nn.Module, params: Dict[str, nn.Parameter], grad_placements):
+    """Within the block, ``model`` holds each placed parameter gathered
+    whole; a gradient taken through it returns to the parameter as
+    ``grad_placements`` (one per mesh dim), reduced to its placements."""
+    swapped = []
+    try:
+        for name, p in params.items():
+            whole = p.full_tensor(grad_placements=grad_placements)
+            if p.device_mesh.device_type == "cuda" and whole.device.type != "cuda":
+                raise RuntimeError(f"{name} gathered onto {whole.device}, off "
+                                   "the card its mesh is on")
+            owner, attr = _owner(model, name)
+            owner._parameters[attr] = whole
+            swapped.append((owner, attr, p))
+        yield
+    finally:
+        for owner, attr, p in swapped:
+            owner._parameters[attr] = p
+
+
+class BatchSplit(NamedTuple):
+    rows: slice          # this rank's rows of the batch
+    n: int               # ranks the batch is split over
+    axes: Tuple[str, ...]
+
+
+def batch_split(plan, rows: int, seq: int) -> BatchSplit:
+    """This rank's rows of a [rows, seq] batch: the mesh axes of the
+    ``"batch"`` rule (JAX's batch sharding), the rank's index along them
+    major to minor."""
+    axes = plan.spec(("batch", "seq"), (rows, seq), record=False)[0]
+    coord = plan.mesh.get_coordinate()
+    names = list(plan.shape)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * plan.shape[a] + coord[names.index(a)]
+        n *= plan.shape[a]
+    per = rows // n
+    return BatchSplit(slice(idx * per, (idx + 1) * per), n, axes)
+
+
+def check_moe_groups(model: nn.Module, tokens: int, n: int) -> None:
+    """An MoE layer groups the tokens of the batch it sees; split over
+    ``n`` ranks, its groups must be the whole batch's, or the routing (and
+    each group's capacity) would differ from the unsharded step's."""
+    for name, m in model.named_modules():
+        if isinstance(m, MoEMLP) and n > 1:
+            g = group_count(tokens, m.group_size)
+            g_rank = group_count(tokens // n, m.group_size)
+            if g != n * g_rank:
+                raise ValueError(
+                    f"{name}: the batch's {tokens} tokens form {g} MoE groups "
+                    f"(moe_group_size {m.group_size}), which do not split "
+                    f"evenly over the {n} ranks of the batch ({g_rank} groups "
+                    f"of {tokens // n} tokens each): a group would straddle "
+                    "ranks")
+
+
+def _all_sum(t: torch.Tensor, plan, axes) -> torch.Tensor:
+    import torch.distributed as dist
+    for a in axes:
+        dist.all_reduce(t, group=plan.mesh.get_group(a))
+    return t
+
+
+def _sharded_train_step(model, optimizer: AdamW, lr_fn: Callable, accum: int,
+                        plan) -> Callable:
+    from torch.distributed.tensor import Partial
+
+    def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
+        for p in state.params.values():
+            p.grad = None
+        parts: List[torch.Tensor] = []
+        for mb in (_microbatches(batch, accum) if accum > 1 else [batch]):
+            rows, seq = mb["tokens"].shape
+            split = batch_split(plan, rows, seq)
+            check_moe_groups(model, rows * seq, split.n)
+            local = {k: v[split.rows] for k, v in mb.items()}
+            mask = mb.get("loss_mask")
+            den = (torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+                   if mask is not None else float(rows * seq))
+            grad_pl = [Partial("sum") if a in split.axes else Partial("avg")
+                       for a in plan.shape]
+            with gathered(model, state.params, grad_pl):
+                logits, _, moe = forward(model, local)
+                ce = nll_sum(logits, local["labels"], local.get("loss_mask")) / den
+                (ce + moe / split.n).backward()
+            parts += [ce.detach(), moe.detach() / split.n]
+        sums = _all_sum(torch.stack(parts), plan, split.axes)
+        ce, moe = sums[0::2], sums[1::2]
+        grads = {}
+        for name, p in state.params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[name] = g / accum if accum > 1 else g
+            p.grad = None
+        loss = (ce + moe).sum() / accum if accum > 1 else ce[0] + moe[0]
+        metrics = {"loss_ce": ce.mean(), "loss_moe": moe.mean()}
         lr = lr_fn(state.step)
         _, state.opt_state, opt_metrics = optimizer.update(
             grads, state.opt_state, state.params, lr)

@@ -207,7 +207,6 @@ def test_bf16_scores_gather_decode_chunk_match_jax():
     ("attn_impl", "nonsense", "attn_impl='nonsense'"),
     ("attn_scores_dtype", "float16", "scores_dtype='float16'"),
     ("block_kv", 0, "block_kv=0"),
-    ("seq_shard_activations", True, "seq_shard_activations"),
 ])
 def test_config_values_not_taken_raise(field, value, match):
     cfg = get_config("qwen3-0.6b").reduced().replace(**{field: value})
@@ -233,6 +232,31 @@ def test_block_config_carries_the_moe_fields(name):
     moe = [blk.mlp for blk in model.stack.layers if blk.spec.ffn == "moe"]
     assert moe and {(m.n_experts, m.top_k, m.group_size, m.capacity_factor)
                     for m in moe} == {(bc.n_experts, 2, 48, 1.5)}
+
+
+def test_seq_shard_activations_forward_matches_jax():
+    """``seq_shard_activations=True`` (Megatron-SP: the residual between
+    repeats hinted ``("batch", "seq_sp", "act_embed")``) is taken: under
+    the default rules ``"seq_sp"`` is replicated, in JAX too, so the logits
+    are JAX's with the flag set, with or without an active plan."""
+    from repro_torch.distributed.sharding import (ShardingPlan, default_rules,
+                                                  set_plan)
+    jcfg = jget("qwen3-0.6b").reduced().replace(seq_shard_activations=True)
+    params = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    tcfg = get_config("qwen3-0.6b").reduced().replace(seq_shard_activations=True)
+    model = jax_params_to_torch(tcfg, jax.tree_util.tree_map(np.asarray, params),
+                                device="cpu")
+    assert model.stack.seq_shard_activations
+    toks = np.random.default_rng(8).integers(0, 288, (2, 13)).astype(np.int32)
+    want = np.asarray(jbuild(jcfg).apply(params, jnp.asarray(toks))[0])
+    for plan in (None, ShardingPlan({"data": 2, "model": 2}, default_rules(False))):
+        set_plan(plan)
+        try:
+            with torch.no_grad():
+                got = model(torch.from_numpy(toks).long()).numpy()
+        finally:
+            set_plan(None)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_attn_impl_and_block_kv_reach_attention():

@@ -294,8 +294,9 @@ def test_pipeline_stages_match_jax():
 
 def test_launch_train_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     """Checkpoints are ported (each run gets its own ``--ckpt-dir``: the
-    default directory is shared and resumed from); data and tensor
-    parallelism are not, and the parser refuses them."""
+    default directory is shared and resumed from); a mesh of more ranks
+    than the process (one, not under ``torch.distributed.run``) is refused
+    by ``make_mesh`` (the sharded runs: tests/test_torch_distributed.py)."""
     launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
                        "--steps", "2", "--batch", "2", "--seq", "16",
                        "--log-every", "1", "--ckpt-dir", str(tmp_path),
@@ -304,7 +305,9 @@ def test_launch_train_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     assert out.count("step ") == 2 and out.strip().endswith("done")
     assert sorted(p.name for p in tmp_path.iterdir()) == \
         ["LATEST", "step_00000001", "step_00000002"]
-    for flag in (["--dp", "2"], ["--tp", "2"], ["--pods", "2"]):
-        with pytest.raises(SystemExit):
-            launch_train.main(["--arch", "qwen3-0.6b", "--device", "cpu",
-                               "--ckpt-dir", str(tmp_path), *flag])
+    for flag, mesh in ((["--dp", "2"], "1x2x1=2"), (["--tp", "2"], "1x1x2=2"),
+                       (["--pods", "2"], "2x1x1=2")):
+        with pytest.raises(ValueError, match=f"mesh {mesh} needs 2 ranks; the "
+                                             "process group has 1"):
+            launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--device",
+                               "cpu", "--ckpt-dir", str(tmp_path), *flag])
