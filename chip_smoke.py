@@ -164,11 +164,23 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s and
-# the per-type operation rates used for each kernel's lower bound.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bfloat16": 989e12, "tf32": 494.7e12,
-            "float32": 67e12}
+_ROOFLINE = []
+
+
+def roofline():
+    """This checkout's ``launch/roofline.py`` (the H100 data sheet's peaks and
+    each kernel's work, ``kernel_work``), loaded by its path: it imports
+    nothing of the package, so ``--kernels-of DIR`` bounds another
+    checkout's kernels by this one's models."""
+    if not _ROOFLINE:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_roofline", ROOT / "src" / "repro_torch" / "launch" / "roofline.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod          # dataclasses look their module up
+        spec.loader.exec_module(mod)
+        _ROOFLINE.append(mod)
+    return _ROOFLINE[0]
 
 
 def fail(msg: str) -> None:
@@ -242,10 +254,12 @@ def host_us(fn, iters: int = 100) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float, op_type: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[op_type] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(name: str, *args):
+    """(least time in ms, "bytes" or "operations") of one call of kernel
+    ``name`` on ``args``, its wrapper's arguments: the larger of the bytes
+    over the HBM rate and the operations over their peak
+    (``roofline.kernel_work``)."""
+    return roofline().bound_ms(roofline().kernel_work(name, *args))
 
 
 def ulp(t):
@@ -353,8 +367,7 @@ def check_w2a8(dev, flush, results):
                 xq, gamma = Q.act_quant_absmax_int8(x.float())
                 scale = Q.div(gamma, 127.0) * delta
                 lib, why = _int_mm_ms(xq.to(torch.int8), wq, scale, dt, flush)
-                nbytes = x.numel() * 2 + wp.numel() + 4 + m * n * 2
-                b, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
+                b, by = bound_ms("w2a8_gemv", x, wp, delta)
                 rows.append(dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1],
                                  host_us=host, plain_ms=plain[0],
                                  plain_device_ms=plain[1], library_ms=lib[0],
@@ -399,7 +412,7 @@ def check_w2a8(dev, flush, results):
     xq, gamma = Q.act_quant_absmax_int8(x.float())
     lib, why = _int_mm_ms(xq.to(torch.int8), wq, Q.div(gamma, 127.0) * delta,
                           torch.bfloat16, flush)
-    b, by = bound_ms(x.numel() * 2 + wp.numel() + 4 + m * n * 2, 2.0 * m * k * n, "int8")
+    b, by = bound_ms("w2a8_gemv", x, wp, delta)
     memory_row = dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1], plain_ms=plain[0],
                       plain_device_ms=plain[1], library_ms=lib[0],
                       library_device_ms=lib[1], bound_ms=b, bound_by=by)
@@ -579,13 +592,7 @@ def _paged_decode_shape(dev, flush, hkv, g, dh):
                 qs, kw, vw, attn_mask=mask), flush)
             # the least work: the live rows only (the idle row's output is
             # don't-care); each reads its stored positions < idx once
-            positions = sum(depths[r] for r in live)
-            n, item = len(live), 2
-            nbytes = (2 * positions * hkv * dh * item             # resident K, V
-                      + n * hkv * (g + 2) * dh * item             # q, new K/V in
-                      + n * hkv * (g + 2) * dh * item)            # out, K/V write
-            ops = 4.0 * g * dh * hkv * (positions + n)
-            bd, by = bound_ms(nbytes, ops, "bfloat16")
+            bd, by = bound_ms("paged_attention_decode", q, kn, vn, k1, v1, bt, idx)
             grid = _launch_plan(b, hkv, g, 1, dh, bs, L)
             host = host_us(lambda: paged_attention_decode_kernel(
                 q, kn, vn, k1, v1, bt, idx, scale, 0.0))
@@ -681,16 +688,7 @@ def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads):
             # the least work: the valid tokens of the live rows only (pad
             # tokens and the idle row are don't-care); each row reads its
             # resident positions < start once, token j attends start + j + 1
-            item = 2
-            resident = sum(starts[r] for r in live)
-            tokens = sum(lens[r] for r in live)
-            nbytes = (2 * resident * hkv * dh * item              # resident K, V
-                      + tokens * hkv * (g + 2) * dh * item        # q, chunk K/V in
-                      + tokens * hkv * (g + 2) * dh * item)       # out, K/V write
-            keys = sum(lens[r] * starts[r] + lens[r] * (lens[r] + 1) // 2
-                       for r in live)
-            ops = 4.0 * g * dh * hkv * keys
-            bd, by = bound_ms(nbytes, ops, "bfloat16")
+            bd, by = bound_ms("paged_prefill_chunk", q, kc, vc, k1, v1, bt, start, ln)
             grid = _launch_plan(b, hkv, t * g, t, dh, bs, L)
             host = host_us(lambda: paged_prefill_chunk_kernel(
                 q, kc, vc, k1, v1, bt, start, ln, scale, 0.0))
@@ -784,8 +782,7 @@ def check_bitlinear(dev, flush, results):
             lib, why = _int_mm_ms(xq, wq, scale, dt, flush)
             if why is not None:
                 print(f"  torch._int_mm refused: {why}", flush=True)
-            nbytes = x.numel() * 2 + wq.numel() + 4 * m + 4 + m * n * 2
-            bd, by = bound_ms(nbytes, 2.0 * m * k * n, "int8")
+            bd, by = bound_ms("bitlinear", x, wq, gamma, delta)
             row = dict(m=m, k=k, n=n, ms=ms[0], device_ms=ms[1], host_us=host,
                        plain_ms=plain[0], plain_device_ms=plain[1],
                        library_ms=lib[0], library_device_ms=lib[1], bound_ms=bd,
@@ -989,9 +986,9 @@ def check_relation_kd(dev, flush, results):
             ms = both_ms(fn, flush)
             plain = both_ms(lambda: relation_kl_rows_ref(s, t, temp), flush)
             host = host_us(fn)
-            nbytes = 2 * s.numel() * 4 + bh * l * 4
-            ops = 2 * 2.0 * bh * l * l * d        # the two relation products
-            bd, by = bound_ms(nbytes, 3 * ops, "tf32")
+            # the two relation products, as 3xTF32
+            ops = roofline().kernel_work("relation_kd", s, t, temp).ops / 3
+            bd, by = bound_ms("relation_kd", s, t, temp)
             rows.append(dict(l=l, ms=ms[0], device_ms=ms[1], plain_ms=plain[0],
                              plain_device_ms=plain[1], host_us=host,
                              library_ms=None, bound_ms=bd, bound_by=by, plan=plan))
@@ -1099,11 +1096,8 @@ def _ssd_scan_shape(dev, flush, b, s, h, p, n, chunk, seed, truth=False):
     # rate.  Bytes: the operands read once (B and C once per batch row), y
     # and the state written once
     q = chunk_len(s, chunk)
-    nc = s // q
-    ops = (b * h * nc * (q * (q + 1) * p + 4.0 * q * n * p)
-           + b * nc * q * (q + 1) * n)
-    nbytes = 4 * (2 * x.numel() + 2 * a.numel() + 2 * B.numel() + hT.numel())
-    bd, by = bound_ms(nbytes, 3 * ops, "tf32")
+    ops = roofline().kernel_work("ssd_scan", *ins, chunk).ops / 3
+    bd, by = bound_ms("ssd_scan", *ins, chunk)
     print(f"  ssd_scan b={b} S={s} H={h} P={p} N={n} Q={q} fp32: {ms[0]:.4f} ms, "
           f"device alone {ms[1]:.4f} (plain ssd_chunked {plain[0]:.4f} / "
           f"{plain[1]:.4f}; bound {bd:.4f} by {by}: 3 x {ops / 1e9:.2f} GFLOP "
@@ -4411,6 +4405,277 @@ def distributed_layer(dev, out_dir, card):
     return {"bitlinear": plan_launches}, out
 
 
+# -- phase 16: the analysis and dry-run tooling on the card -------------------------
+
+# 16b: meta's peak live bytes against the card's max_memory_allocated
+PEAK_TOLERANCE = 0.25
+# 16c: the engine's workload: prompts of 24 tokens (one chunk step) x 8 tokens
+TOOL_PROMPTS, TOOL_PROMPT_LEN, TOOL_TOKENS = 8, 24, 8
+# 16d: the dry-run cells, and the device count of the 1-pod mesh
+DRYRUN_CELLS = (("qwen1.5-0.5b", "decode_32k"), ("qwen2.5-3b", "train_4k"))
+
+
+def _device_ms(fn) -> float:
+    """Device time of ``fn``'s kernels from a profile (their self device
+    times summed), or 0.0 where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3
+
+
+def _op_count_train_step(dev):
+    """16b: phase 15a's CE step (qwen3-0.6b full width, DIST_LAYERS layers,
+    QAT, bitlinear on the kernel route, 8 x 256) counted by op_analysis on
+    the card and on meta at the same shapes."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.launch.memest import estimate
+    from repro_torch.launch.op_analysis import count
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import init_train_state, make_train_step
+    R = roofline()
+    cfg = get_config("qwen3-0.6b").replace(n_layers=DIST_LAYERS).with_quant(
+        Q.QuantConfig(mode="qat", use_kernel=True))
+    batches = _train_batches("corpus", 17, 2, dev, QWEN_SEQ)
+    lr = lambda s: constant(s, 1e-4)
+
+    def setup(device, gen=None):
+        model = build_model(cfg, gen=gen, device=device)
+        opt = AdamW(AdamWConfig())
+        return model, init_train_state(model, opt), make_train_step(model, opt, lr)
+
+    model, state, step = setup(dev, torch.Generator(device=dev).manual_seed(0))
+    state, _ = step(state, batches[0])          # warm: the kernels' buffers
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bl_k.launches.reset()
+    card = count(step, state, batches[1], resident=model)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated()
+    launches = bl_k.launches.count
+    step_ms = []
+    for b in (batches[0], batches[1], batches[0]):
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    mmodel, mstate, mstep = setup(torch.device("meta"))
+    meta = count(mstep, mstate, {k: torch.empty_like(v, device="meta")
+                                 for k, v in batches[1].items()}, resident=mmodel)
+    want = 2 * 7 * DIST_LAYERS                 # forward + the remat recompute
+    calls = card.kernel_calls.get("bitlinear", {}).get("calls")
+    print(f"  (b) card: {card.flops:.6e} FLOPs, {card.hbm_bytes:.6e} bytes, "
+          f"kernel calls {card.kernel_calls}; meta: {meta.flops:.6e} FLOPs, "
+          f"{meta.hbm_bytes:.6e} bytes; bitlinear launches {launches}", flush=True)
+    if (card.flops, card.hbm_bytes) != (meta.flops, meta.hbm_bytes):
+        fail(f"16b: card and meta counts differ: flops {card.flops!r} vs "
+             f"{meta.flops!r}, bytes {card.hbm_bytes!r} vs {meta.hbm_bytes!r}; ops "
+             + str({k: (card.op_calls.get(k), meta.op_calls.get(k))
+                    for k in set(card.op_calls) | set(meta.op_calls)
+                    if card.op_calls.get(k) != meta.op_calls.get(k)}))
+    if calls != want or launches != want or \
+            meta.kernel_calls.get("bitlinear", {}).get("calls") != want:
+        fail(f"16b: bitlinear kernel calls {calls} (meta "
+             f"{meta.kernel_calls.get('bitlinear')}), launches {launches}; want {want}")
+    ratio = meta.peak_live_bytes / card_peak
+    print(f"  (b) peak: meta {meta.peak_live_bytes / 2**30:.3f} GiB, card "
+          f"max_memory_allocated {card_peak / 2**30:.3f} GiB (ratio {ratio:.3f}; "
+          f"the card's count {card.peak_live_bytes / 2**30:.3f} GiB)", flush=True)
+    if abs(ratio - 1.0) > PEAK_TOLERANCE:
+        fail(f"16b: meta's peak live bytes {meta.peak_live_bytes} are not within "
+             f"{PEAK_TOLERANCE:.0%} of the card's peak {card_peak}")
+    est = estimate(cfg, ShapeSpec("smoke", QWEN_SEQ, TRAIN_BATCH, "train"), 1, 1,
+                   opt_8bit=False, step_kind="train")
+    roof = R.Roofline(card.flops, card.hbm_bytes, 0.0, 1)
+    measured = statistics.median(step_ms)
+    print(f"  (b) memest total {est['total'] / 2**30:.3f} GiB; roofline step "
+          f"{roof.step_time * 1e3:.3f} ms ({roof.bottleneck}: compute "
+          f"{roof.t_compute * 1e3:.3f}, memory {roof.t_memory * 1e3:.3f}) against "
+          f"the measured step {measured:.1f} ms (median of {step_ms}), ratio "
+          f"{measured / (roof.step_time * 1e3):.1f}", flush=True)
+    return {"bitlinear": launches}, dict(
+        card=card.to_dict(), meta=meta.to_dict(), card_peak=card_peak,
+        peak_ratio=ratio, memest_total=est["total"], roofline=roof.to_dict(),
+        step_ms=step_ms)
+
+
+def _op_count_decode_pass(dev):
+    """16c: phase 3's engine (qwen3-0.6b packed, full depth) under the
+    step-signature watchdog: a warm pass, freeze(), the same-shaped pass
+    (no new signature, no build); one decode pass of it counted on the
+    card."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.retrace import RetraceWatchdog
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    from repro_torch.launch.op_analysis import count
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import Engine, SamplingParams, ServeConfig
+    R = roofline()
+    cfg = get_config("qwen3-0.6b").with_quant(
+        Q.QuantConfig(mode="packed", use_kernel=True)).replace(
+        compute_dtype="bfloat16")
+    model = build_model(cfg, gen=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    eng = Engine(cfg, model, ServeConfig(max_batch=TOOL_PROMPTS, max_len=1024,
+                                         prefill_chunk=32, cache_dtype="bfloat16"))
+    wd = RetraceWatchdog.attach(eng)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab, TOOL_PROMPT_LEN).tolist()
+               for _ in range(TOOL_PROMPTS)]
+    greedy = SamplingParams(max_tokens=TOOL_TOKENS, ignore_eos=True)
+    counters = (w2_k.launches, pa_k.launches, pp_k.launches)
+    out = {}
+    try:
+        def workload(counted):
+            reqs = [eng.submit(p, greedy) for p in prompts]
+            eng.step()                        # the prompts' one chunk step
+            if counted:
+                for c in counters:
+                    c.reset()
+                cost = count(eng.step)        # a decode pass
+                torch.cuda.synchronize()
+                out["launches"] = {c.name: c.count for c in counters}
+                out["cost"] = cost
+                out["device_ms"] = _device_ms(eng.step)
+            while eng.has_pending():
+                eng.step()
+            return [r.output_tokens for r in reqs]
+
+        warm = workload(False)
+        wd.freeze()
+        again = workload(True)
+        wd.check()
+    finally:
+        wd.detach()
+    if warm != again:
+        fail("16c: the same-shaped pass gave other tokens than the warm pass")
+    cost, launches = out["cost"], out["launches"]
+    calls = {k: v["calls"] for k, v in cost.kernel_calls.items()}
+    want = {"w2a8_gemv": 7 * cfg.n_layers, "paged_attention_decode": cfg.n_layers,
+            "paged_prefill_chunk": 0}
+    print(f"  (c) watchdog: {wd.signatures_per_impl()} signatures, "
+          f"{wd.calls_per_impl()} calls, {wd.builds} builds, no violation after "
+          f"freeze()", flush=True)
+    if wd.builds:
+        fail(f"16c: the kernels were built {wd.builds} times after attach")
+    if launches != want or {k: calls.get(k, 0) for k in want} != want:
+        fail(f"16c: a decode pass counted {calls}, launched {launches}; want {want}")
+    floor = cost.hbm_bytes / R.HBM_BW * 1e3
+    print(f"  (c) one decode pass: kernel calls {calls} (launches {launches}); "
+          f"modelled {cost.hbm_bytes:.6e} bytes ({cost.kernel_bytes:.6e} in the "
+          f"kernels), {cost.flops:.6e} FLOPs: {floor:.4f} ms at the HBM rate; "
+          f"measured device time "
+          f"{format(out['device_ms'], '.4f') + ' ms' if out['device_ms'] else 'not measured'}"
+          f" (profile of the next decode pass)", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}, dict(
+        cost=cost.to_dict(), launches=launches, device_ms=out["device_ms"],
+        floor_ms=floor, signatures=wd.signatures_per_impl())
+
+
+def tooling(dev, out_dir, card):
+    """Phase 16: (a) ``python -m repro_torch.analysis --retrace-smoke``;
+    (b) op counting of a training step on the card and on meta; (c) one
+    decode pass counted on the card, under the step-signature watchdog; (d)
+    the dry run of two cells on the production mesh and their report.
+    -> ({path: launches}, a summary)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0, res, by_path = time.perf_counter(), {}, {}
+
+    def part(title):
+        print(f"  {title} [+{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    part("16d (started first, on the CPU): python -m repro_torch.launch.dryrun "
+         + ", ".join(f"{a} x {s}" for a, s in DRYRUN_CELLS))
+    dry_dir = out_dir / "dryrun"
+    dry = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape",
+         s, "--force", "--out", str(dry_dir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a, s in DRYRUN_CELLS]
+    try:
+        part("16a: python -m repro_torch.analysis --retrace-smoke")
+        r = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                            "--retrace-smoke"], cwd=ROOT, env=env, timeout=300,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        (out_dir / "analysis.log").write_text(r.stdout)
+        if r.returncode != 0:
+            fail(f"16a: python -m repro_torch.analysis exited {r.returncode}:\n"
+                 f"{r.stdout[-3000:]}")
+        print("  (a) " + " | ".join(l.strip() for l in r.stdout.splitlines()
+                                    if l.startswith(("lint:", "  0 active",
+                                                     "analysis:"))), flush=True)
+        part(f"16b: qwen3-0.6b (full width, {DIST_LAYERS} layers, QAT, kernel "
+             f"route), a CE step at {TRAIN_BATCH} x {QWEN_SEQ} counted on the "
+             "card and on meta")
+        by_path["op count, CE step qwen3-0.6b 4 layers (16b)"], res["16b"] = \
+            _op_count_train_step(dev)
+        part("16c: qwen3-0.6b packed (full depth): a decode pass counted on the "
+             "card, the step-signature watchdog over two same-shaped passes")
+        by_path["op count, decode pass qwen3-0.6b (16c)"], res["16c"] = \
+            _op_count_decode_pass(dev)
+        part("16d: the dry run's cells and their report")
+        for (a, s), proc in zip(DRYRUN_CELLS, dry):
+            text, _ = proc.communicate(timeout=600)
+            (out_dir / f"dryrun_{a}_{s}.log").write_text(text)
+            path = dry_dir / f"{a}__{s}__1pod.json"
+            d = json.loads(path.read_text()) if path.exists() else {}
+            if proc.returncode != 0 or d.get("status") != "ok" or \
+                    d.get("n_devices") != 256:
+                fail(f"16d: dryrun {a} x {s} exited {proc.returncode}, status "
+                     f"{d.get('status')} {d.get('error', '')}, n_devices "
+                     f"{d.get('n_devices')}:\n{text[-2000:]}")
+            r_ = d["roofline"]
+            print(f"  (d) {a} x {s}: {d['step']}, {d['n_devices']} devices, "
+                  f"{d['op_cost']['flops']:.4e} FLOPs/chip, bottleneck "
+                  f"{r_['bottleneck']}, memest {d['memest_per_chip']['total'] / 2**30:.2f}"
+                  f" GiB, peak live {d['peak_live_bytes_per_chip'] / 2**30:.2f} GiB, "
+                  f"counted in {d['count_s']} s", flush=True)
+            res[f"16d {a} {s}"] = dict(roofline=r_, count_s=d["count_s"])
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                            "--results", str(dry_dir)], cwd=ROOT, env=env,
+                           timeout=120, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        rows = [l for l in r.stdout.splitlines() if l.startswith("| ") and
+                any(l.startswith(f"| {a} | {s} |") for a, s in DRYRUN_CELLS)]
+        if r.returncode != 0 or len(rows) != len(DRYRUN_CELLS) or \
+                any("ERROR" in l for l in rows):
+            fail(f"16d: report exited {r.returncode}:\n{r.stdout[-2000:]}")
+        for l in rows:
+            print(f"  (d) {l}", flush=True)
+    finally:
+        for proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16: {res['seconds']:.1f} s ({card})", flush=True)
+    (out_dir / "smoke_tooling.json").write_text(json.dumps(res, indent=1, default=str))
+    return by_path, res
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -4620,6 +4885,12 @@ def main() -> None:
           "the launcher, compressed_psum, GPipe)")
     by_path["train qwen3-0.6b under a plan (15a)"], _ = distributed_layer(
         dev, out_dir, card)
+    # 16. the tooling on the card: each counted path's counters reset just
+    # before it and read just after (16b's training step, 16c's decode pass)
+    phase("phase 16: the analysis and dry-run tooling (lint, watchdog, op "
+          "counting on the card and on meta, the dry run and its report)")
+    paths16, _ = tooling(dev, out_dir, card)
+    by_path.update(paths16)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -26,5 +26,6 @@ class ByteTokenizer:
         return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", errors="replace")
 
     def label_token(self, k: int) -> int:
-        assert 0 <= k < self.n_labels
+        if not 0 <= k < self.n_labels:
+            raise ValueError(f"label {k} outside [0, {self.n_labels})")
         return self.label_base + k

@@ -1,8 +1,9 @@
 """Public wrapper: the relation-KD loss, kernel forward + blocked backward.
 
-The forward runs the relation_kd kernel on CUDA tensors (or the call raises)
-and the plain PyTorch version on CPU tensors; there is no fallback between
-them.  The kernel is forward-only; the backward (``repro/kernels/
+The forward runs the relation_kd kernel on CUDA tensors (or the call raises),
+the plain PyTorch version on CPU tensors and, on meta tensors, returns an
+empty [BH, L] (a dry run's count); there is no fallback between them.  Each
+goes through ``kernels/boundary.py``.  The kernel is forward-only; the backward (``repro/kernels/
 relation_kd/ops.py:49-77``) recomputes P_s and P_t in row blocks, never the
 full L×L at once, in plain PyTorch:
 
@@ -18,21 +19,31 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.quant import div
+from repro_torch.kernels import boundary
 from repro_torch.kernels.relation_kd.kernel import relation_kl_rows_kernel
 from repro_torch.kernels.relation_kd.ref import prep_states, relation_kl_rows_ref
 
 BWD_BLOCK = 512
 
 
+def relation_kl_rows_meta(s: torch.Tensor, t: torch.Tensor,
+                          temp: float = 1.0) -> torch.Tensor:
+    """The kernel's output on the meta device: fp32 [BH, L]."""
+    return s.new_empty(s.shape[:2], dtype=torch.float32)
+
+
+_IMPLS = {"cuda": relation_kl_rows_kernel, "cpu": relation_kl_rows_ref,
+          "meta": relation_kl_rows_meta}
+
+
 def relation_kl_rows(s: torch.Tensor, t: torch.Tensor,
                      temp: float = 1.0) -> torch.Tensor:
     """KL rows [BH, L] of normalized s, t [BH, L, D]: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    if s.device.type == "cuda":
-        return relation_kl_rows_kernel(s.contiguous(), t.contiguous(), temp)
-    if s.device.type == "cpu":
-        return relation_kl_rows_ref(s, t, temp)
-    raise ValueError(f"relation_kl_rows: unsupported device {s.device}")
+    tensors, the plain version on CPU tensors, empty on meta."""
+    impl = _IMPLS.get(s.device.type)
+    if impl is None:
+        raise ValueError(f"relation_kl_rows: unsupported device {s.device}")
+    return boundary.call("relation_kd", impl, s.contiguous(), t.contiguous(), temp)
 
 
 class _RelationMeanKL(torch.autograd.Function):

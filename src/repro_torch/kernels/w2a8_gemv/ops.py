@@ -1,14 +1,22 @@
 """Public wrapper for the packed ternary matmul (inference only).
 
 A CUDA tensor goes to the hand-written kernel (or the call raises); a CPU
-tensor goes to the plain PyTorch version.  There is no fallback between them.
+tensor goes to the plain PyTorch version; a meta tensor gets an empty
+output of the kernel's shape and dtype (a dry run's count).  There is no
+fallback between them.  Each goes through ``kernels/boundary.py``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import boundary
 from repro_torch.kernels.w2a8_gemv.kernel import w2a8_kernel
 from repro_torch.kernels.w2a8_gemv.ref import w2a8_ref
+
+
+def w2a8_meta(x: torch.Tensor, wp: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """The kernel's output on the meta device: y [M, N] in x's dtype."""
+    return x.new_empty((x.shape[0], wp.shape[-1]))
 
 
 def w2a8_matmul(x: torch.Tensor, wp: torch.Tensor,
@@ -17,9 +25,11 @@ def w2a8_matmul(x: torch.Tensor, wp: torch.Tensor,
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
-        y = w2a8_kernel(x2d.contiguous(), wp, delta)
+        y = boundary.call("w2a8_gemv", w2a8_kernel, x2d.contiguous(), wp, delta)
     elif x.device.type == "cpu":
-        y = w2a8_ref(x2d, wp, delta)
+        y = boundary.call("w2a8_gemv", w2a8_ref, x2d, wp, delta)
+    elif x.device.type == "meta":
+        y = boundary.call("w2a8_gemv", w2a8_meta, x2d, wp, delta)
     else:
         raise ValueError(f"w2a8_matmul: unsupported device {x.device}")
     return y.reshape(*lead, wp.shape[-1])

@@ -1,0 +1,141 @@
+"""The port's dry run (``launch/specs.py``, ``launch/dryrun.py``,
+``launch/report.py``) and ``roofline.plan_collectives``.
+
+JAX's dry-run smoke test (``tests/test_multidevice.py::TestDryRunSmoke``,
+which fails in this container) run on the port as a subprocess into
+``tmp_path``: the cell counts on the meta device, so it needs no fake
+devices; a ``skipped`` and an ``error`` cell; the report's rows; and
+``plan_collectives`` against ``CommDebugMode``'s counts of one CE step of
+reduced qwen3-0.6b on 4 gloo ranks (dp 2 x tp 2, as in
+``tests/test_torch_distributed.py``), with fp32 and with int8 moments.
+CommDebugMode sees the port's own ``dist.all_reduce`` calls (``c10d.
+allreduce_``: the metrics' sum and the 8-bit moments' block maxima) beside
+DTensor's functional collectives, so every call is counted where it is
+made.
+"""
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.distributed.sharding import ShardingPlan, default_rules
+from repro_torch.launch import dryrun, report
+from repro_torch.launch.roofline import plan_collectives
+from repro_torch.launch.specs import build_cell, resolve_variants
+from repro_torch.models import build_model, get_config
+from repro_torch.training.trainer import jax_ranks
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ENV = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+
+
+def test_dryrun_cell_produces_roofline(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen1.5-0.5b", "--shape", "decode_32k", "--force", "--tag", "citest",
+         "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=ENV)
+    assert r.returncode == 0, r.stderr[-2000:]
+    d = json.loads((tmp_path / "qwen1.5-0.5b__decode_32k__1pod__citest.json")
+                   .read_text())
+    assert d["status"] == "ok"
+    assert d["roofline"]["flops"] > 0
+    assert d["roofline"]["bottleneck"] in ("compute", "memory", "collective")
+    assert d["n_devices"] == 256
+    # one rank's step: its 8 of the 128 rows against a 32k cache, the whole
+    # model (the engine takes no plan), nothing on the wire
+    assert (d["dp"], d["rows_per_chip"], d["step"]) == (16, 8, "decode")
+    assert d["collectives"]["counts"] == {} and d["roofline"]["t_collective_s"] == 0
+    assert d["op_cost"]["flops"] * 256 == d["roofline"]["flops"]
+    assert d["peak_live_bytes_per_chip"] > d["memest_per_chip"]["caches_whole"]
+    assert d["fits_hbm"] is True
+
+
+def test_skipped_error_and_kernel_cells(tmp_path):
+    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "long_500k",
+                        "--out", str(tmp_path)]) == 0
+    d = json.loads((tmp_path / "qwen1.5-0.5b__long_500k__1pod.json").read_text())
+    assert d["status"] == "skipped" and "sub-quadratic" in d["reason"]
+    # the port's distill step takes no plan: recorded as an error naming it
+    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k",
+                        "--step", "distill", "--tag", "d", "--out",
+                        str(tmp_path)]) == 1
+    d = json.loads((tmp_path / "qwen1.5-0.5b__train_4k__1pod__d.json").read_text())
+    assert d["status"] == "error" and "distill" in d["error"] \
+        and "make_distill_step" in d["error"]
+    # a variant the port does not know
+    with pytest.raises(ValueError, match="unknown variant"):
+        resolve_variants("nope")
+    # --kernels: the wrappers counted at their boundary on meta
+    res = dryrun.run_cell("mamba2-780m", "decode_32k", False, use_kernels=True,
+                          verbose=False)
+    assert res["op_cost"]["kernel_calls"]["bitlinear"]["calls"] == 2 * 48
+
+
+def test_train_cell_is_one_ranks_step():
+    mesh = {"data": 16, "model": 16}
+    cell = build_cell("qwen2.5-3b", "train_4k", mesh)
+    assert (cell.n_devices, cell.dp, cell.tp, cell.rows) == (256, 16, 16, 16)
+    state, batch = cell.args
+    assert tuple(batch["tokens"].shape) == (16, 4096)
+    whole = dict(cell.model.named_parameters())
+    # the rank holds its share of each parameter; the step gathers them whole
+    assert sum(p.numel() for p in state.params.values()) < \
+        sum(p.numel() for p in whole.values()) / 64
+    assert all(p.device.type == "meta" for p in whole.values())
+
+
+def test_report_renders_the_cells(tmp_path):
+    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "long_500k",
+                        "--out", str(tmp_path)]) == 0
+    text = report.table(tmp_path)
+    rows = text.splitlines()
+    assert rows[0].startswith("| arch | shape | step |")
+    assert any(r.startswith("| qwen1.5-0.5b | decode_32k | decode |") for r in rows)
+    assert any(r.startswith("| qwen1.5-0.5b | long_500k | — |") for r in rows)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                          "--results", str(tmp_path)], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT, env=ENV)
+    assert out.returncode == 0 and out.stdout.strip() == text
+
+
+_KIND = {"c10d_functional.all_gather_into_tensor": "all-gather",
+         "c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+         "c10d_functional.all_reduce": "all-reduce",
+         "c10d.allreduce_": "all-reduce"}
+
+
+@pytest.fixture(scope="module")
+def comm_counts(tmp_path_factory):
+    io = tmp_path_factory.mktemp("comm")
+    store = io / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_comm_worker.py"), str(r), "4",
+         str(store), str(io)], cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    return [json.loads((io / f"comm_{r}.json").read_text()) for r in range(4)]
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "int8_blockwise"])
+def test_plan_collectives_match_comm_debug_mode(comm_counts, state_dtype):
+    seen = {}
+    for k, v in comm_counts[0][state_dtype].items():
+        seen[_KIND[k]] = seen.get(_KIND[k], 0) + v
+    assert all(c[state_dtype] == comm_counts[0][state_dtype] for c in comm_counts)
+    model = build_model(get_config("qwen3-0.6b").reduced(), device="meta")
+    params = dict(model.named_parameters())
+    plan = ShardingPlan({"data": 2, "model": 2}, default_rules(False))
+    stats = plan_collectives(plan, params, "train", axes=model.param_axes(),
+                             opt_8bit=state_dtype == "int8_blockwise",
+                             ranks=jax_ranks(params), rows=4)
+    assert stats.counts == seen
+    assert stats.wire_bytes > 0 and stats.group_size == 2
+    assert plan_collectives(plan, params, "decode", axes=model.param_axes()).counts == {}
