@@ -138,7 +138,26 @@ result line):
      ``compressed_psum`` over 16 M values, two rounds, card bitwise its CPU
      evaluation, timed; (d) GPipe at one stage, a toy stage within 2e-5 of
      tanh(x @ w) and qwen3-0.6b's 4-layer stack bitwise ``Stack.forward``;
+ 16. the tooling: (a) the lint and self-tests, (b) phase 15a's CE step
+     counted on the card and on meta, (c) a decode pass counted under the
+     step-signature watchdog, (d) the dry run of two cells and its report;
+ 17. tensor-parallel compute: (a) every projection of a full-width
+     mistral-large-123b block at tp 8 and a qwen3-0.6b block at tp 2, 4 and
+     16 as each rank's shard through the split route's bitlinear functions:
+     column pieces concatenated and row accumulators summed and scaled
+     once bitwise the whole layer, every piece bitwise its plain version,
+     one piece timed beside the whole layer; (b) phase 15a's model as a
+     distill step (FP teacher, both kernels) under a plan on a one-rank
+     NCCL group against the same steps without one: the split route taken
+     (f/g calls counted), metrics and parameters bitwise, 56 bitlinear and
+     3 relation_kd launches a step; (c) granite-moe-1b-a400m at two layers,
+     CE and distill steps under the same plan on the gathered route (no
+     f/g call), metrics and parameters bitwise the steps without one;
   then summary lines: card, kernels (JSON), and the result line last.
+
+``python3 chip_smoke.py --phases 2,17`` runs phase 1, the named phases and
+what they need (phase 2 always, for the kernels line; phase 10 brings
+phase 5), and drops the check that every kernel was counted on a path.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero.
@@ -3270,8 +3289,8 @@ class _Route:
             self.ssd.append(([t.detach() for t in (x, a, dt, B, C)], chunk))
             return ssd_inner(x, a, dt, B, C, chunk)
 
-        def fwd_tap(x2d, wt, scheme):
-            out = fwd_inner(x2d, wt, scheme)
+        def fwd_tap(x2d, wt, scheme, shard=None):
+            out = fwd_inner(x2d, wt, scheme, shard)
             # a copy of the weight: an fp32 master weight reaches the kernel
             # as the parameter itself, which the optimizer then updates
             self.bitlinear.append((x2d.detach(), wt.detach().clone(),
@@ -4676,6 +4695,298 @@ def tooling(dev, out_dir, card):
     return by_path, res
 
 
+# -- phase 17: tensor-parallel compute (the split route) ----------------------------
+
+# 17a: full-width dense blocks at their tensor-parallel degrees: (config,
+# d_model, heads, kv heads, head_dim, d_ff, rows of x, the degrees)
+TP_BLOCKS = (("mistral-large-123b", 12288, 96, 8, 128, 28672, 512, (8,)),
+             ("qwen3-0.6b", 1024, 16, 8, 128, 3072, TRAIN_BATCH * QWEN_SEQ,
+              (2, 4, 16)))
+# 17b: phase 15a's model and batches, the distill step's steps; 17c: the
+# gathered route's depth (granite-moe-1b-a400m, MoE)
+TP_DISTILL_STEPS, TP_GATHERED_LAYERS = 3, 2
+
+
+class _ShardSim:
+    """One rank of a ``size``-way split, simulated in one process for the
+    split route's bitlinear functions: its collectives return the values
+    the ranks would reduce to (``total``: the float64 sum of |W| over the
+    shards in rank order; ``gamma``: the whole rows' absmax), and the
+    row-parallel accumulators are kept for the caller to sum."""
+
+    def __init__(self, size, total, gamma, keep=True):
+        self.size, self.total, self.gamma, self.keep = size, total, gamma, keep
+        self.acc = []
+
+    def sum64(self, t):
+        return self.total
+
+    def all_max(self, t):
+        return self.gamma
+
+    def acc_sum(self, t):
+        if self.keep:
+            self.acc.append(t)
+        return t
+
+
+def _projections(d, heads, kv, dh, dff):
+    """(name, K, N, part) of a dense block's seven projections."""
+    return (("q", d, heads * dh, "col"), ("k", d, kv * dh, "col"),
+            ("v", d, kv * dh, "col"), ("o", heads * dh, d, "row"),
+            ("gate", d, dff, "col"), ("up", d, dff, "col"), ("down", dff, d, "row"))
+
+
+def tp_kernel_shards(dev, flush, card):
+    """17a: each projection of a full-width block, whole (one launch of
+    ``bitlinear_matmul``'s forward) and as each rank's shard at each
+    degree through the split route's functions (``kernels/bitlinear/
+    ops.py::_fwd_2d`` with the shard's part): column outputs concatenated,
+    and row accumulators summed in fp32 and scaled once, bitwise the whole
+    layer's; every piece bitwise its plain version on the same card
+    tensors.  The kv projections are used whole where their heads do not
+    divide over the ranks (qwen3-0.6b at 16).  -> a summary."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.bitlinear import kernel as bl_k, ops as bl_ops
+    res, t0 = {}, time.perf_counter()
+    before = bl_k.launches.count
+    for name, d, heads, kv, dh, dff, m, tps in TP_BLOCKS:
+        gen = torch.Generator(device=dev).manual_seed(17)
+        xs, rows = {}, []
+        for proj, k, n, part in _projections(d, heads, kv, dh, dff):
+            x = xs.setdefault(k, torch.randn((m, k), generator=gen, device=dev)
+                              .to(torch.bfloat16))
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            y, _, gamma_whole, _, delta = bl_ops._fwd_2d(x, w, "absmean")
+            gamma = x.float().abs().amax(dim=-1, keepdim=True)
+            if not torch.equal(gamma, gamma_whole):
+                fail(f"17a {name} {proj}: the kernel's γ differs from the rows' absmax")
+            for t in tps:
+                if proj in ("k", "v") and kv % t:
+                    continue                     # used whole on every rank
+                dim = 1 if part == "col" else 0
+                shards = [s.contiguous() for s in w.chunk(t, dim=dim)]
+                total = torch.zeros((), dtype=torch.float64, device=dev)
+                for s_ in shards:
+                    total = total + s_.to(torch.float64).abs().sum()
+                sim = _ShardSim(t, total, gamma)
+                pieces = []
+                for r, wr in enumerate(shards):
+                    xr = x if part == "col" else x.chunk(t, dim=1)[r].contiguous()
+                    yr, codes, g_r, wq, d_r = bl_ops._fwd_2d(xr, wr, "absmean",
+                                                            (part, sim))
+                    if not torch.equal(d_r, delta):
+                        fail(f"17a {name} {proj} tp {t}: the shards' Δ {float(d_r)!r}"
+                             f" is not the whole weight's {float(delta)!r}")
+                    kr = xr.shape[1]
+                    if part == "col":
+                        py, pc, pg, pw = bl_ops.bitlinear_forward_ref(xr, wr, d_r)
+                        same = (torch.equal(yr, py) and torch.equal(codes[:, :kr], pc)
+                                and torch.equal(g_r, pg) and torch.equal(wq, pw))
+                        pieces.append(yr)
+                    else:
+                        acc = sim.acc[-1]
+                        pa, pc, pw = bl_ops.bitlinear_forward_acc_ref(xr, wr, d_r, gamma)
+                        same = (torch.equal(acc, pa) and torch.equal(codes[:, :kr], pc)
+                                and torch.equal(wq, pw))
+                        pieces.append(acc)
+                    if not same:
+                        fail(f"17a {name} {proj} tp {t} rank {r}: the {part}-parallel "
+                             "piece differs from its plain version")
+                if part == "col":
+                    got = torch.cat(pieces, dim=1)
+                else:
+                    acc = pieces[0]
+                    for p_ in pieces[1:]:
+                        acc = acc + p_
+                    got = (acc * (Q.div(gamma, 127.0) * delta)).to(x.dtype)
+                if not torch.equal(got, y):
+                    fail(f"17a {name} {proj} tp {t}: the shards' {part}-parallel "
+                         f"output differs from the whole layer's by "
+                         f"{float((got.float() - y.float()).abs().max())!r}")
+            split_at = [tp_ for tp_ in tps if not (proj in ("k", "v") and kv % tp_)]
+            t = max(split_at) if split_at else None
+            whole_ms = time_ms(lambda: bl_ops._fwd_2d(x, w, "absmean"), iters=10,
+                               flush=flush)
+            piece_ms = None
+            if t is not None:
+                dim = 1 if part == "col" else 0
+                w0 = w.chunk(t, dim=dim)[0].contiguous()
+                x0 = x if part == "col" else x.chunk(t, dim=1)[0].contiguous()
+                sim = _ShardSim(t, w.to(torch.float64).abs().sum(), gamma, keep=False)
+                piece_ms = time_ms(lambda: bl_ops._fwd_2d(x0, w0, "absmean",
+                                                          (part, sim)),
+                                   iters=10, flush=flush)
+            rows.append(dict(proj=proj, k=k, n=n, part=part, tp=t,
+                             whole_ms=whole_ms, piece_ms=piece_ms))
+            del w, y
+        torch.cuda.empty_cache()
+        print(f"  (a) {name} (M = {m}, bf16): every shard bitwise the whole layer "
+              f"and its plain version at tp {', '.join(map(str, tps))}; one launch "
+              f"of the whole layer vs one rank's piece at the largest degree, ms "
+              f"({card}): " + "; ".join(
+                  f"{r_['proj']} [{r_['k']}x{r_['n']}, {r_['part']}] "
+                  f"{r_['whole_ms']:.4f} vs "
+                  + (f"{r_['piece_ms']:.4f} (tp {r_['tp']})" if r_['piece_ms']
+                     is not None else "whole on every rank") for r_ in rows),
+              flush=True)
+        res[name] = rows
+    res["launches"] = bl_k.launches.count - before
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  (a) bitlinear launches in 17a (comparisons, not a path): "
+          f"{res['launches']}; {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def _plan_runs(dev, plan, name, layers, kind, route):
+    """17b and 17c: the same seeded teacher, student, batches and AdamW,
+    ``TP_DISTILL_STEPS`` steps of ``kind`` ("ce" or "distill") without a
+    plan and under ``plan``, both kernels on; the plan's step must take
+    ``route``.  -> ({tag: (metrics, bitlinear and relation_kd launches a
+    step, f/g calls, launches)}, the parameters' largest difference,
+    bitwise)."""
+    import torch
+    from repro_torch.core.distill import DistillConfig
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.kernels.relation_kd import kernel as rk_k
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training.optimizer import AdamW, AdamWConfig
+    from repro_torch.training.schedule import constant
+    from repro_torch.training.trainer import (default_distill_layer, init_train_state,
+                                              make_distill_step, make_train_step,
+                                              place_model, step_route)
+    tcfg = get_config(name).replace(n_layers=layers)
+    batches = _train_batches("corpus", 17, TP_DISTILL_STEPS, dev, QWEN_SEQ)
+    lr = lambda s: constant(s, 1e-4)
+    runs, params = {}, {}
+    for tag, p in (("plain", None), ("plan", plan)):
+        teacher = build_model(tcfg, gen=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        scfg, student = _student_from(teacher, tcfg, True, dev)
+        if p is not None and step_route(student, p) != route:
+            fail(f"17: {scfg.name} under the plan takes the "
+                 f"{step_route(student, p)!r} route, not {route!r}")
+        opt = AdamW(AdamWConfig())
+        state = init_train_state(student, opt, p)
+        if kind == "distill":
+            if p is not None:
+                place_model(teacher, p)
+            dcfg = DistillConfig(distill_layer=default_distill_layer(scfg),
+                                 use_kernel=True)
+            step = make_distill_step(student, teacher, opt, lr, dcfg, plan=p)
+        else:
+            del teacher
+            step = make_train_step(student, opt, lr, plan=p)
+        metrics, per_step = [], []
+        bl_k.launches.reset()
+        rk_k.launches.reset()
+        tp.counter.reset()
+        for b in batches:
+            b0, r0 = bl_k.launches.count, rk_k.launches.count
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            per_step.append((bl_k.launches.count - b0, rk_k.launches.count - r0))
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[tag] = (metrics, per_step, (tp.counter.f, tp.counter.g),
+                     {"bitlinear": bl_k.launches.count,
+                      "relation_kd": rk_k.launches.count})
+        params[tag] = {k: (v.full_tensor() if p is not None else v).detach().clone()
+                       for k, v in state.params.items()}
+        del student, opt, state, step
+        torch.cuda.empty_cache()
+    diff = max(float((params["plan"][k].float() - v.float()).abs().max())
+               for k, v in params["plain"].items())
+    bitwise = all(torch.equal(params["plan"][k], v) for k, v in params["plain"].items())
+    return runs, diff, bitwise
+
+
+def _check_plan_runs(what, runs, diff, bitwise, want=None):
+    """17b and 17c's fatal checks: finite losses, the launches a step (each
+    ``want``, else the plain step's), and the plan's metrics and parameters
+    bitwise the plain step's."""
+    for tag, (metrics, per_step, fg, _) in runs.items():
+        print(f"  ({what}) {tag}: losses {[m['loss'] for m in metrics]}, grad_norm "
+              f"{[m['grad_norm'] for m in metrics]}, (bitlinear, relation_kd) "
+              f"launches a step {per_step}, f/g calls {fg}", flush=True)
+        expect = [want] * TP_DISTILL_STEPS if want else runs["plain"][1]
+        if per_step != expect or not all(math.isfinite(m["loss"]) for m in metrics):
+            fail(f"17{what} {tag}: launches a step {per_step} (want {expect}) or "
+                 "losses not finite")
+    print(f"  ({what}) parameters after step {TP_DISTILL_STEPS}: largest difference "
+          f"{diff!r}, bitwise {bitwise} (bound 0: at one rank the plan's "
+          "collectives are the identity and its reductions the unsharded ones)",
+          flush=True)
+    if runs["plan"][0] != runs["plain"][0] or not bitwise:
+        fail(f"17{what}: the plan's metrics {runs['plan'][0]} vs {runs['plain'][0]}, "
+             f"parameters {diff!r} apart: want them equal")
+
+
+def tensor_parallel(dev, out_dir, card):
+    """Phase 17: (a) the bitlinear kernel at the split's shard shapes, full
+    width; on a one-rank NCCL group, (b) the distill step under a plan on
+    the split route and (c) granite's CE and distill steps under it on the
+    gathered route, each against the plain step.  -> ({path: launches}, a
+    summary)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingPlan, default_rules
+    from repro_torch.launch.mesh import make_mesh
+    out, t0 = {}, time.perf_counter()
+
+    def part(title):
+        print(f"  {title} [+{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    part("17a: the bitlinear kernel at the split's shard shapes: "
+         + "; ".join(f"{b[0]} at tp {', '.join(map(str, b[-1]))}" for b in TP_BLOCKS))
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out["17a"] = tp_kernel_shards(dev, scratch.zero_, card)
+    del scratch
+    part(f"17b: qwen3-0.6b (full width, {DIST_LAYERS} layers), {TP_DISTILL_STEPS} "
+         f"distill steps at {TRAIN_BATCH} x {QWEN_SEQ}, both kernels, without and "
+         "under a plan on mesh (data 1, model 1)")
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        plan = ShardingPlan(make_mesh(1, 1), default_rules(False))
+        runs, diff, bitwise = _plan_runs(dev, plan, "qwen3-0.6b", DIST_LAYERS,
+                                         "distill", "split")
+        _check_plan_runs("b", runs, diff, bitwise,
+                         want=(2 * 7 * DIST_LAYERS, 3))  # forward + remat; q, k, v
+        if min(runs["plan"][2]) <= 0:
+            fail(f"17b: f/g calls {runs['plan'][2]} under the plan: the step did "
+                 "not take the split route")
+        out["17b"] = dict(runs=runs, param_diff=diff, bitwise=bitwise)
+        part(f"17c: {GRANITE} (full width, {TP_GATHERED_LAYERS} layers), "
+             f"{TP_DISTILL_STEPS} CE and distill steps at {TRAIN_BATCH} x {QWEN_SEQ}, "
+             "both kernels, without and under the plan: the gathered route")
+        for kind in ("ce", "distill"):
+            g_runs, g_diff, g_bitwise = _plan_runs(dev, plan, GRANITE,
+                                                   TP_GATHERED_LAYERS, kind,
+                                                   "gathered")
+            _check_plan_runs(f"c {kind}", g_runs, g_diff, g_bitwise)
+            if g_runs["plan"][2] != (0, 0) or g_runs["plan"][3]["bitlinear"] <= 0 \
+                    or (kind == "distill") != (g_runs["plan"][3]["relation_kd"] > 0):
+                fail(f"17c {kind}: f/g calls {g_runs['plan'][2]} (want none on the "
+                     f"gathered route), launches {g_runs['plan'][3]}")
+            out[f"17c_{kind}"] = dict(runs=g_runs, param_diff=g_diff,
+                                      bitwise=g_bitwise)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    part(f"phase 17 done ({card})")
+    (out_dir / "smoke_tensor_parallel.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    return {"distill qwen3-0.6b under a plan, split route (17b)":
+            out["17b"]["runs"]["plan"][3],
+            f"CE {GRANITE} under a plan, gathered route (17c)":
+            out["17c_ce"]["runs"]["plan"][3],
+            f"distill {GRANITE} under a plan, gathered route (17c)":
+            out["17c_distill"]["runs"]["plan"][3]}, out
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -4715,14 +5026,39 @@ def serving_of(root: Path) -> None:
                       "summary": summary}), flush=True)
 
 
+# phases --phases may name (1, the card and the build, always runs), and
+# what each needs run before it: 10b runs at the end of phase 5, and the
+# kernels line reads phase 2's checks
+PHASES = tuple(range(2, 18))
+NEEDS = {10: (5,)}
+
+
+def selected_phases(spec: str):
+    """``--phases 2,17`` -> the phases to run, with their prerequisites."""
+    try:
+        want = {int(p) for p in spec.split(",") if p.strip()}
+    except ValueError:
+        want = set()
+    if not want or not want <= set(PHASES):
+        fail(f"--phases {spec!r}: give phase numbers from {PHASES[0]} to "
+             f"{PHASES[-1]}, comma-separated")
+    for p in sorted(want):
+        want.update(NEEDS.get(p, ()))
+    return want | {2}
+
+
 def main() -> None:
     args = sys.argv[1:]
     root = ROOT
     modes = {"--kernels-of": kernels_of, "--serving-of": serving_of}
+    only = None
+    if args[:1] == ["--phases"] and len(args) == 2:
+        only = selected_phases(args[1])
+        args = []
     if args:
         if len(args) != 2 or args[0] not in modes:
-            fail(f"unknown arguments {args}: run with none, or with "
-                 "--kernels-of DIR or --serving-of DIR")
+            fail(f"unknown arguments {args}: run with none, with --phases LIST, "
+                 "or with --kernels-of DIR or --serving-of DIR")
         root = Path(args[1]).resolve()
     src = root / "src"
     if not (src / "repro_torch").is_dir():
@@ -4742,6 +5078,12 @@ def main() -> None:
         # each phase's heading with the seconds since the start, so that a
         # run's log shows what each phase costs of the time limit
         print(f"{title} [at {time.perf_counter() - t_start:.1f} s]", flush=True)
+
+    def run(n):
+        return only is None or n in only
+
+    if only is not None:
+        print(f"phases: 1, {', '.join(map(str, sorted(only)))} (--phases)", flush=True)
 
     # 1. card and build
     card = card_info()
@@ -4778,119 +5120,143 @@ def main() -> None:
     check_ssd_scan(dev, flush, results)
     del scratch
     # 3. the main path, launch counters reset just before it
-    phase("phase 3: engine, qwen3-0.6b full width")
-    by_path = {"serve qwen3-0.6b": serve_full_width(dev, out_dir)}
+    by_path = {}
+    if run(3):
+        phase("phase 3: engine, qwen3-0.6b full width")
+        by_path["serve qwen3-0.6b"] = serve_full_width(dev, out_dir)
     # 4. kernels vs plain paths through the engine
-    phase("phase 4: on-card parity, kernel vs plain paths")
-    kernel_vs_plain_parity(dev, out_dir)
+    if run(4):
+        phase("phase 4: on-card parity, kernel vs plain paths")
+        kernel_vs_plain_parity(dev, out_dir)
     # 5. the training path, its launch counters reset just before it
-    phase("phase 5: BitDistill training, qwen3-0.6b full width")
-    per_fwd = 7 * 28                       # BitLinear projections, 28 layers
-    # 10b runs last in this phase: a checkpoint round trip of the student,
-    # its two distill steps counted on their own
-    round_trip = {}
-    by_path["train qwen3-0.6b"] = train_full_width(
-        dev, out_dir, "qwen3-0.6b", 28, QWEN_SEQ,
-        {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
-         "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train",
-        after=lambda ctx: round_trip.setdefault(
-            "10b", checkpoint_round_trip(ctx, out_dir)))
-    by_path["checkpoint round trip qwen3-0.6b (10b)"] = round_trip["10b"][0]
+    if run(5):
+        phase("phase 5: BitDistill training, qwen3-0.6b full width")
+        per_fwd = 7 * 28                       # BitLinear projections, 28 layers
+        # 10b runs last in this phase: a checkpoint round trip of the student,
+        # its two distill steps counted on their own
+        round_trip = {}
+        by_path["train qwen3-0.6b"] = train_full_width(
+            dev, out_dir, "qwen3-0.6b", 28, QWEN_SEQ,
+            {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
+             "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train",
+            after=lambda ctx: round_trip.setdefault(
+                "10b", checkpoint_round_trip(ctx, out_dir)))
+        by_path["checkpoint round trip qwen3-0.6b (10b)"] = round_trip["10b"][0]
     # 6. kernels vs plain paths through the distillation step
-    phase("phase 6: on-card parity, distill step kernel vs plain paths")
-    train_kernel_vs_plain_parity(dev)
+    if run(6):
+        phase("phase 6: on-card parity, distill step kernel vs plain paths")
+        train_kernel_vs_plain_parity(dev)
     # 7. the mamba2-780m training path, its counters reset just before it:
     # the student's in_proj + out_proj per layer and one SSD per layer, each
     # forward recomputed once under remat; the FP teacher adds 48 SSDs
-    phase("phase 7: BitDistill training, mamba2-780m full width")
-    by_path["train mamba2-780m"] = train_full_width(
-        dev, out_dir, "mamba2-780m", 48, MAMBA_SEQ,
-        {"train": {"bitlinear": 2 * 2 * 48, "ssd_scan": 2 * 48},
-         "distill": {"bitlinear": 2 * 2 * 48, "ssd_scan": 3 * 48}}, "train_mamba")
+    if run(7):
+        phase("phase 7: BitDistill training, mamba2-780m full width")
+        by_path["train mamba2-780m"] = train_full_width(
+            dev, out_dir, "mamba2-780m", 48, MAMBA_SEQ,
+            {"train": {"bitlinear": 2 * 2 * 48, "ssd_scan": 2 * 48},
+             "distill": {"bitlinear": 2 * 2 * 48, "ssd_scan": 3 * 48}}, "train_mamba")
     # 8. the SSD kernel vs the sequential oracle through a full-width block
-    phase("phase 8: on-card parity, Mamba2Block kernel vs sequential")
-    mamba_block_parity(dev)
+    if run(8):
+        phase("phase 8: on-card parity, Mamba2Block kernel vs sequential")
+        mamba_block_parity(dev)
     # 9. serving through the entry point, the serving kernels' counters reset
     # just before the in-process run through the front end and async loop
-    phase("phase 9: serving through the entry point, qwen3-0.6b full width")
-    (by_path["serve entry point qwen3-0.6b"],
-     by_path["serve async stack qwen3-0.6b"]) = serve_entry_point(dev, out_dir)
+    if run(9):
+        phase("phase 9: serving through the entry point, qwen3-0.6b full width")
+        (by_path["serve entry point qwen3-0.6b"],
+         by_path["serve async stack qwen3-0.6b"]) = serve_entry_point(dev, out_dir)
     # 10. the training launcher with checkpoints (a), the remat policies (c)
     # and the Table-4 schemes (d); 10b ran at the end of phase 5
-    phase("phase 10a: the training launcher at full width: checkpoint, SIGTERM, "
-          "resume")
-    phase10 = {"10a": launcher_checkpoints(dev, out_dir),
-               "10b": round_trip["10b"][1]}
-    phase("phase 10c: remat policies nothing / dots / none, qwen3-0.6b full width")
-    by_path["remat policies qwen3-0.6b (10c)"], phase10["10c"] = remat_policies(dev)
-    phase("phase 10d: the Table-4 weight schemes, card vs CPU")
-    phase10["10d"] = table4_schemes(dev)
-    (out_dir / "smoke_phase10.json").write_text(json.dumps(phase10, indent=1))
+    if run(10):
+        phase("phase 10a: the training launcher at full width: checkpoint, SIGTERM, "
+              "resume")
+        phase10 = {"10a": launcher_checkpoints(dev, out_dir),
+                   "10b": round_trip["10b"][1]}
+        phase("phase 10c: remat policies nothing / dots / none, qwen3-0.6b full width")
+        by_path["remat policies qwen3-0.6b (10c)"], phase10["10c"] = remat_policies(dev)
+        phase("phase 10d: the Table-4 weight schemes, card vs CPU")
+        phase10["10d"] = table4_schemes(dev)
+        (out_dir / "smoke_phase10.json").write_text(json.dumps(phase10, indent=1))
     # 11. serving mamba2-780m on the contiguous cache, the serving kernels'
     # counters reset just before the kernel-route run
-    phase("phase 11: serving mamba2-780m on the contiguous cache, full width")
-    (by_path["serve mamba2-780m"],
-     by_path["serve entry point mamba2-780m"]) = serve_mamba(dev, out_dir)
+    if run(11):
+        phase("phase 11: serving mamba2-780m on the contiguous cache, full width")
+        (by_path["serve mamba2-780m"],
+         by_path["serve entry point mamba2-780m"]) = serve_mamba(dev, out_dir)
     # 12. the dense configs: gemma-7b served at full width (the serving
     # kernels' counters reset just before 12a's run and read after it), the
     # kernel route vs the plain one at its widths, its launcher, and the
     # blocked forward and bf16 scores at full width
-    phase("phase 12a: serving gemma-7b at full width (head_dim 256)")
-    by_path["serve gemma-7b (12a)"], phase12 = serve_gemma(dev, out_dir)
-    phase("phase 12b: on-card parity, gemma-7b widths at depth 2, kernel vs plain "
-          "route")
-    phase12["12b"] = gemma_kernel_vs_plain(dev)
-    phase("phase 12c: the launcher, --arch gemma-7b --packed")
-    by_path["serve entry point gemma-7b (12c)"], phase12["12c_memory"] = \
-        gemma_launcher(out_dir)
-    phase("phase 12d: blocked forward and bf16 scores, qwen3-0.6b widths, S=4096")
-    phase12["12d"] = attention_variants_full_width(dev)
-    (out_dir / "smoke_gemma.json").write_text(json.dumps(phase12, indent=1))
+    if run(12):
+        phase("phase 12a: serving gemma-7b at full width (head_dim 256)")
+        by_path["serve gemma-7b (12a)"], phase12 = serve_gemma(dev, out_dir)
+        phase("phase 12b: on-card parity, gemma-7b widths at depth 2, kernel vs plain "
+              "route")
+        phase12["12b"] = gemma_kernel_vs_plain(dev)
+        phase("phase 12c: the launcher, --arch gemma-7b --packed")
+        by_path["serve entry point gemma-7b (12c)"], phase12["12c_memory"] = \
+            gemma_launcher(out_dir)
+        phase("phase 12d: blocked forward and bf16 scores, qwen3-0.6b widths, S=4096")
+        phase12["12d"] = attention_variants_full_width(dev)
+        (out_dir / "smoke_gemma.json").write_text(json.dumps(phase12, indent=1))
     # 13. the MoE and hybrid families: granite served (the serving kernels'
     # counters reset just before 13a's kernel-route run and read after it)
     # and distilled at full width (the training kernels' counters reset
     # before its steps), jamba's mamba + dense block at full width and its
     # reduced stack (each route's counters reset before it), the launcher
-    phase("phase 13a: serving granite-moe-1b-a400m at full width (MoE, head_dim 64)")
-    by_path["serve granite-moe-1b-a400m (13a)"], phase13 = serve_packed(
-        dev, out_dir, GRANITE, 4, "granite", gate_plain=True)
-    # 13b's depth cut to half of granite's 24 layers to leave room for phase 14
-    phase("phase 13b: BitDistill training, granite-moe-1b-a400m full width, 12 "
-          "of its 24 layers")
-    per_fwd = 4 * 12                       # q, k, v, o; the experts are einsums
-    by_path["train granite-moe-1b-a400m (13b)"] = train_full_width(
-        dev, out_dir, GRANITE, 12, QWEN_SEQ,
-        {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
-         "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train_granite")
-    phase("phase 13c: jamba's mamba + dense block at full width, kernel vs plain "
-          "route (ssd_scan at (128, 128))")
-    by_path["jamba mamba + dense block (13c)"], phase13["13c"] = \
-        jamba_block_parity(dev)
-    phase("phase 13d: jamba reduced (one repeat, 8 layers): contiguous serving, "
-          "a QAT step, kernel vs plain route")
-    ((by_path["serve jamba reduced (13d)"], by_path["train jamba reduced (13d)"]),
-     phase13["13d"]) = jamba_reduced(dev)
-    phase("phase 13e: the launcher, --arch granite-moe-1b-a400m --packed")
-    by_path["serve entry point granite-moe-1b-a400m (13e)"], phase13["13e_memory"] = \
-        serve_launcher(out_dir, GRANITE_CLI, "granite")
-    (out_dir / "smoke_moe.json").write_text(json.dumps(phase13, indent=1))
+    if run(13):
+        phase("phase 13a: serving granite-moe-1b-a400m at full width (MoE, head_dim 64)")
+        by_path["serve granite-moe-1b-a400m (13a)"], phase13 = serve_packed(
+            dev, out_dir, GRANITE, 4, "granite", gate_plain=True)
+        # 13b's depth cut to half of granite's 24 layers to leave room for phase 14
+        phase("phase 13b: BitDistill training, granite-moe-1b-a400m full width, 12 "
+              "of its 24 layers")
+        per_fwd = 4 * 12                       # q, k, v, o; the experts are einsums
+        by_path["train granite-moe-1b-a400m (13b)"] = train_full_width(
+            dev, out_dir, GRANITE, 12, QWEN_SEQ,
+            {"train": {"bitlinear": 2 * per_fwd, "relation_kd": 0},
+             "distill": {"bitlinear": 2 * per_fwd, "relation_kd": 3}}, "train_granite")
+        phase("phase 13c: jamba's mamba + dense block at full width, kernel vs plain "
+              "route (ssd_scan at (128, 128))")
+        by_path["jamba mamba + dense block (13c)"], phase13["13c"] = \
+            jamba_block_parity(dev)
+        phase("phase 13d: jamba reduced (one repeat, 8 layers): contiguous serving, "
+              "a QAT step, kernel vs plain route")
+        ((by_path["serve jamba reduced (13d)"], by_path["train jamba reduced (13d)"]),
+         phase13["13d"]) = jamba_reduced(dev)
+        phase("phase 13e: the launcher, --arch granite-moe-1b-a400m --packed")
+        by_path["serve entry point granite-moe-1b-a400m (13e)"], phase13["13e_memory"] = \
+            serve_launcher(out_dir, GRANITE_CLI, "granite")
+        (out_dir / "smoke_moe.json").write_text(json.dumps(phase13, indent=1))
     # 14. the cross-attention families: whisper-medium and llama-3.2-vision-11b
     # (each path's counters reset just before it and read after it)
-    phase("phase 14: the cross-attention families (whisper-medium, "
-          "llama-3.2-vision-11b)")
-    cross_families(dev, out_dir, by_path)
+    if run(14):
+        phase("phase 14: the cross-attention families (whisper-medium, "
+              "llama-3.2-vision-11b)")
+        cross_families(dev, out_dir, by_path)
     # 15. the distributed layer on a one-rank NCCL group (the bitlinear
     # counter reset just before 15a's run under the plan and read after it)
-    phase("phase 15: the distributed layer at world size 1 (a sharded CE step, "
-          "the launcher, compressed_psum, GPipe)")
-    by_path["train qwen3-0.6b under a plan (15a)"], _ = distributed_layer(
-        dev, out_dir, card)
+    if run(15):
+        phase("phase 15: the distributed layer at world size 1 (a sharded CE step, "
+              "the launcher, compressed_psum, GPipe)")
+        by_path["train qwen3-0.6b under a plan (15a)"], _ = distributed_layer(
+            dev, out_dir, card)
     # 16. the tooling on the card: each counted path's counters reset just
     # before it and read just after (16b's training step, 16c's decode pass)
-    phase("phase 16: the analysis and dry-run tooling (lint, watchdog, op "
-          "counting on the card and on meta, the dry run and its report)")
-    paths16, _ = tooling(dev, out_dir, card)
-    by_path.update(paths16)
+    if run(16):
+        phase("phase 16: the analysis and dry-run tooling (lint, watchdog, op "
+              "counting on the card and on meta, the dry run and its report)")
+        paths16, _ = tooling(dev, out_dir, card)
+        by_path.update(paths16)
+    # 17. tensor-parallel compute: the bitlinear kernel at the split's shard
+    # shapes (comparisons), then the distill step under a plan and granite's
+    # steps on the gathered route (the training kernels' counters reset just
+    # before each run under the plan, read after)
+    if run(17):
+        phase("phase 17: tensor-parallel compute (the kernel at shard shapes, the "
+              "distill step under a plan; the gathered route)")
+        paths17, _ = tensor_parallel(dev, out_dir, card)
+        by_path.update(paths17)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4903,10 +5269,11 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
             where.setdefault(name, {})[path] = n
     missing = sorted(set(results) - set(launches))
-    if missing:
+    if missing and only is None:
         fail(f"kernels checked but never counted on a path: {missing}")
-    line = {"kernels": [dict({k: dict(v, launches=launches[name])[k] for k in keys},
-                             launches_by_path=where[name], parity="ok")
+    line = {"kernels": [dict({k: dict(v, launches=launches.get(name, 0))[k]
+                              for k in keys},
+                             launches_by_path=where.get(name, {}), parity="ok")
                         for name, v in results.items()]}
     (out_dir / "smoke_kernels.json").write_text(json.dumps(results, indent=1))
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)

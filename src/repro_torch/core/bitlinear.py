@@ -10,6 +10,29 @@ fake-quant forward of ``QuantConfig.scheme`` with STE gradients.  ``packed`` sto
 a scalar ``delta`` as buffers; with ``use_kernel`` the projection runs the
 w2a8 CUDA kernel.  ``axes`` are the weight's logical axes (``[in, out]``,
 supplied by the caller as in JAX); ``param_axes()`` names each tensor's.
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) the
+layer holds the rank's shard of ``w`` and picks its part from ``axes``:
+column-parallel where ``"model"`` splits the out axis (the rank's output
+columns; the caller's *f* sums ``dx``), row-parallel where it splits the
+in axis (x is the rank's columns; *g* sums the partial outputs, then the
+bias is added).  Δ is the whole weight's on every route; a row-parallel
+shard quantizes x with the whole rows' γ (maximized over the shards).
+
+The QAT product in fp32 (the kernel route, and the plain absmean route of
+a dense decoder, whose ``CausalLM`` sets ``exact_product``:
+:class:`_TernaryMatmul`) multiplies the int8 codes by the ternary weight,
+exact integers below 2**24 in any order, and scales once by (γ/127)·Δ, so
+a shard's outputs and a row-parallel shard's accumulators summed over the
+ranks equal the unsharded layer's bit for bit: no activation code of the
+split step differs from the unsharded step's.  The other families keep
+JAX's product of the dequantized operands (the split does not take them;
+the exact product moved a reduced jamba's QAT loss 1.1e-4 from JAX's).
+On the fp route, and the plain QAT route in bf16, the row-parallel
+partial outputs are floats summed in another order than one matmul's
+(~1e-7 relative in fp32, ~1e-2 in bf16).  SubLN, which sits on
+every row-parallel input (before ``wo`` and ``down``), takes its mean of
+squares over the whole width: a sum over the shards.
 """
 from __future__ import annotations
 
@@ -19,6 +42,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import quant as Q
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import constrain
 from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, fan_in_init
 
@@ -36,6 +60,9 @@ class BitLinear(nn.Module):
         self.in_dim, self.out_dim = in_dim, out_dim
         self.use_bias, self.quant, self.policy = use_bias, quant, policy
         self.axes = axes
+        # the plain absmean QAT product in fp32 as the kernel computes it
+        # (the dense decoders set it: see the module's docstring)
+        self.exact_product = False
         if gen is not None:
             w = fan_in_init(gen, (in_dim, out_dim), policy.param_dtype, device)
         else:
@@ -66,6 +93,11 @@ class BitLinear(nn.Module):
         """``act_scale`` (mean |x| per input channel) feeds the awq and gptq
         weight schemes of the plain QAT path; no caller passes it, as in the
         JAX package, so they run with a unit scale."""
+        split = tp.active()
+        if split is not None:
+            part = split.linear_part(self.axes, (self.in_dim, self.out_dim))
+            if part is not None:
+                return self._forward_split(x, split, part)
         cd = self.policy.compute_dtype
         quant = self.quant
         if quant.mode == "fp":
@@ -75,6 +107,9 @@ class BitLinear(nn.Module):
                 from repro_torch.kernels.bitlinear import ops as kops
                 y = kops.bitlinear_matmul(x.to(cd), self.w.to(torch.float32),
                                           scheme=quant.scheme)
+            elif quant.scheme == "absmean" and not quant.low_precision_quant:
+                y = _qat_absmean(x.to(cd), self.w.to(torch.float32), self.axes,
+                                 self.exact_product)
             else:
                 xq = Q.fake_quant_act(x.to(cd))
                 if quant.low_precision_quant and quant.scheme == "absmean":
@@ -93,6 +128,93 @@ class BitLinear(nn.Module):
         if self.use_bias:
             y = y + self.b.to(cd)
         return y
+
+    def _forward_split(self, x: torch.Tensor, split, kind: str) -> torch.Tensor:
+        """The rank's part of the layer (see the module's docstring)."""
+        cd = self.policy.compute_dtype
+        quant = self.quant
+        if quant.mode == "fp":
+            y = torch.matmul(x.to(cd), self.w.to(cd))
+        elif quant.mode == "qat" and quant.use_kernel:
+            from repro_torch.kernels.bitlinear import ops as kops
+            y = kops.bitlinear_matmul(x.to(cd), self.w.to(torch.float32),
+                                      scheme=quant.scheme, shard=(kind, split))
+        elif quant.mode == "qat":
+            if quant.scheme != "absmean" or quant.low_precision_quant:
+                raise ValueError(
+                    f"the tensor-parallel split takes the 'absmean' weight scheme "
+                    f"in fp32, not {quant.scheme!r} with low_precision_quant="
+                    f"{quant.low_precision_quant}")
+            y = _qat_absmean(x.to(cd), self.w.to(torch.float32), self.axes,
+                             self.exact_product, split, kind)
+        else:
+            raise ValueError(f"quant mode {quant.mode!r} takes no tensor-parallel "
+                             "split (the serving engine takes no plan)")
+        if kind == "row" and quant.mode == "fp":
+            y = tp.reduce_from(y)
+        if self.use_bias:
+            y = y + self.b.to(cd)
+        return y
+
+
+class _TernaryMatmul(torch.autograd.Function):
+    """``xq @ wq`` of the dequantized activations ``xq = codes·(γ/127)``
+    and weight ``wq = tern·Δ``, computed as the bitlinear kernel computes
+    it: ``(codes @ tern)·((γ/127)·Δ)``.  The codes' partial sums are
+    integers below 2**24 (|code| <= 128, K <= 2**17), so the fp32 matmul is
+    exact in any order and a row-parallel shard's accumulators sum exactly
+    over the ranks (``split.acc_sum``, *g*) before the one scale.  The
+    backward is the matmul's, ``g @ wqᵀ`` and ``xqᵀ @ g``, which the STE of
+    each quantizer passes on to x and w."""
+
+    @staticmethod
+    def forward(ctx, xq, wq, codes, tern, scale, split):
+        ctx.save_for_backward(xq, wq)
+        # the projection's dot, which remat_policy "dots" saves: its policy
+        # saves the matmuls run with grad enabled (a Function's forward
+        # runs without; the kernel route's plain version is not a dot)
+        with torch.enable_grad():
+            acc = torch.matmul(codes, tern)
+        if split is not None:
+            acc = split.acc_sum(acc)
+        return (acc * scale).to(xq.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq = ctx.saved_tensors
+        k, n = wq.shape
+        dx = torch.matmul(g, wq.t())
+        dw = torch.matmul(xq.reshape(-1, k).t(), g.reshape(-1, n))
+        return dx, dw, None, None, None, None
+
+
+def _qat_absmean(x: torch.Tensor, w: torch.Tensor, axes, exact: bool,
+                 split=None, kind: Optional[str] = None) -> torch.Tensor:
+    """The plain QAT route's absmean product of ``x`` (in the compute
+    dtype) and the fp32 master weight ``w``, or of the rank's shards under
+    a split (``kind`` "col" or "row"): Δ the whole weight's, γ the whole
+    rows'.  With ``exact`` in fp32 the :class:`_TernaryMatmul`; else (bf16,
+    a DTensor weight, or a layer outside the dense decoders) the
+    dequantized operands' matmul, as JAX's, a row shard's partial outputs
+    summed by *g*."""
+    xf = x.to(torch.float32)
+    gamma = xf.abs().amax(dim=-1, keepdim=True)
+    if kind == "row":
+        gamma = split.all_max(gamma)
+    if split is None or split.size == 1:
+        delta = Q.absmean_scale(w)
+    else:
+        delta = Q.absmean_scale(w, (split.sum64, w.numel() * split.size))
+    codes = Q.round_clip(Q.div(127.0, gamma + Q.EPS) * xf, -128.0, 127.0)
+    tern = Q.round_clip(w / (delta + Q.EPS), -1.0, 1.0)
+    scale = Q.div(gamma, 127.0)
+    xq = Q.ste(x, (codes * scale).to(x.dtype))
+    wq = Q.ste(w, tern * delta)
+    if exact and x.dtype == torch.float32 and not hasattr(w, "to_local"):
+        return _TernaryMatmul.apply(xq, wq, codes, tern, scale * delta,
+                                    split if kind == "row" else None)
+    y = torch.matmul(xq, constrain(wq.to(x.dtype), axes))
+    return tp.reduce_from(y) if kind == "row" else y
 
 
 def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, delta: torch.Tensor,
@@ -122,7 +244,7 @@ class SubLN(nn.Module):
                  device: Optional[torch.device] = None,
                  axis_name: str = "embed"):
         super().__init__()
-        self.eps, self.axis_name = eps, axis_name
+        self.eps, self.axis_name, self.dim = eps, axis_name, dim
         self.scale = nn.Parameter(torch.ones((dim,), dtype=policy.param_dtype,
                                              device=device))
 
@@ -130,8 +252,16 @@ class SubLN(nn.Module):
         return {"scale": (self.axis_name,)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """A shard of the width under a split (x narrower than the scale's
+        whole ``dim``): the mean of squares is the shards' fp32 sums, summed
+        over ``"model"`` (both ways), over the whole width; it differs from
+        one ``mean``'s by the summation order (~1 ulp)."""
         xf = x.to(torch.float32)
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        if x.shape[-1] != self.dim:
+            ss = tp.all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True))
+            var = Q.div(ss, float(self.dim))
+        else:
+            var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
         return (y * self.scale.to(torch.float32)).to(x.dtype)
 

@@ -10,6 +10,16 @@ With ``use_kernel`` the relation loss runs the relation_kd CUDA kernel
 (kernels/relation_kd), which computes the same quantity without forming the
 L×L relation matrices.  Teacher-side tensors are detached (the JAX
 ``stop_gradient``).
+
+Under a tensor-parallel split of more than one rank
+(``distributed/tensor_parallel.py``) the logits are the rank's vocabulary
+columns, and the CE and the logits KL are vocabulary-parallel: the row
+maximum maximized over ``"model"``, the sum of exponentials summed (*g*),
+and the label's logit read on the rank that owns it (summed, *g*), so every
+rank gets the whole vocabulary's values (within ~1e-7 relative of
+``log_softmax``'s).  The pad columns arrive at -1e30, masked by the model
+by their global index.  The relation loss takes states gathered whole over
+the heads, so it is the unsplit computation on every rank.
 """
 from __future__ import annotations
 
@@ -19,15 +29,47 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.quant import div
+from repro_torch.distributed import tensor_parallel as tp
 
 CLAMP = 1e-8
+
+
+def _vocab_split():
+    """The active split when it shards the vocabulary over ranks, else None."""
+    split = tp.active()
+    return split if split is not None and split.size > 1 else None
+
+
+def _log_softmax(z: torch.Tensor, split) -> torch.Tensor:
+    """fp32 log-softmax over the last axis, whose columns are split over
+    ``"model"`` under ``split``: z - (m + log Σ exp(z - m)).  The whole
+    rows' log-sum-exp enters each rank's columns through *f*: a rank's
+    terms give its part of the log-sum-exp's gradient, summed over the
+    ranks before it reaches their exponentials through *g*."""
+    if split is None:
+        return torch.log_softmax(z, dim=-1)
+    m = split.all_max(torch.amax(z, dim=-1, keepdim=True))
+    zm = z - m
+    s = tp.reduce_from(torch.sum(torch.exp(zm), dim=-1, keepdim=True))
+    return zm - tp.copy_to(torch.log(s))
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    split = _vocab_split()
+    logp = _log_softmax(logits.to(torch.float32), split)
+    if split is None:
+        return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    n = logp.shape[-1]
+    local = labels.long() - split.rank * n
+    own = (local >= 0) & (local < n)
+    picked = torch.gather(logp, -1, torch.where(own, local, 0)[..., None])[..., 0]
+    return -tp.reduce_from(torch.where(own, picked, torch.zeros_like(picked)))
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean CE.  logits [..., V], labels [...] int, mask [...] {0,1}."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    nll = _nll(logits, labels)
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)
@@ -39,30 +81,42 @@ def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
     """The numerator of ``softmax_cross_entropy``: the (masked) sum of the
     tokens' NLL, for a mean whose denominator is counted elsewhere (a
     sharded step's rows of a batch)."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    nll = _nll(logits, labels)
     return torch.sum(nll if mask is None else nll * mask.to(torch.float32))
 
 
 def kl_divergence(p_logits: torch.Tensor, q_logits: torch.Tensor) -> torch.Tensor:
     """KL(P ‖ Q) per row from logits; fp32; [..., V] -> [...]."""
-    p_log = torch.log_softmax(p_logits.to(torch.float32), dim=-1)
-    q_log = torch.log_softmax(q_logits.to(torch.float32), dim=-1)
+    split = _vocab_split()
+    p_log = _log_softmax(p_logits.to(torch.float32), split)
+    q_log = _log_softmax(q_logits.to(torch.float32), split)
     p = torch.exp(p_log)
-    return torch.sum(p * (p_log - q_log), dim=-1)
+    kl = torch.sum(p * (p_log - q_log), dim=-1)
+    return kl if split is None else tp.reduce_from(kl)
 
 
 def logits_distill_loss(student_logits: torch.Tensor,
                         teacher_logits: torch.Tensor, tau: float = 5.0,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. 8: mean_t KL( softmax(z_T/τ) ‖ softmax(z_S/τ) ), no τ² rescale."""
-    t = div(teacher_logits.detach().to(torch.float32), tau)
-    s = div(student_logits.to(torch.float32), tau)
-    kl = kl_divergence(t, s)
     if mask is None:
-        return torch.mean(kl)
-    mask = mask.to(torch.float32)
-    return torch.sum(kl * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.mean(_token_kl(student_logits, teacher_logits, tau))
+    return logits_distill_sum(student_logits, teacher_logits, tau, mask) / \
+        torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+
+
+def _token_kl(student_logits, teacher_logits, tau):
+    return kl_divergence(div(teacher_logits.detach().to(torch.float32), tau),
+                         div(student_logits.to(torch.float32), tau))
+
+
+def logits_distill_sum(student_logits: torch.Tensor,
+                       teacher_logits: torch.Tensor, tau: float = 5.0,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The numerator of ``logits_distill_loss``: the (masked) sum of the
+    tokens' KL, for a sharded step's rows of a batch."""
+    kl = _token_kl(student_logits, teacher_logits, tau)
+    return torch.sum(kl if mask is None else kl * mask.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -188,14 +242,28 @@ def bitdistill_loss(student_logits: torch.Tensor,
                     teacher_states: Optional[torch.Tensor],
                     labels: torch.Tensor,
                     loss_mask: Optional[torch.Tensor],
-                    cfg: DistillConfig
+                    cfg: DistillConfig, den=None, n: int = 1
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """L = L_CE + λ L_LD + γ L_AD.  Returns (loss, metrics)."""
-    ce = softmax_cross_entropy(student_logits, labels, loss_mask)
+    """L = L_CE + λ L_LD + γ L_AD.  Returns (loss, metrics).
+
+    ``den`` and ``n`` (a sharded step's rows of a batch): the CE and the
+    logits KL are the rows' sums over ``den``, the whole batch's mask count,
+    and the relation loss (a mean over the rows) is divided by the ``n``
+    ranks the batch is split over, so that each term summed over those
+    ranks is the whole batch's."""
+    if den is None:
+        ce = softmax_cross_entropy(student_logits, labels, loss_mask)
+    else:
+        ce = nll_sum(student_logits, labels, loss_mask) / den
     metrics = {"loss_ce": ce}
     loss = ce
     if cfg.use_ld and teacher_logits is not None:
-        ld = logits_distill_loss(student_logits, teacher_logits, cfg.tau, loss_mask)
+        if den is None:
+            ld = logits_distill_loss(student_logits, teacher_logits, cfg.tau,
+                                     loss_mask)
+        else:
+            ld = logits_distill_sum(student_logits, teacher_logits, cfg.tau,
+                                    loss_mask) / den
         loss = loss + cfg.lambda_ld * ld
         metrics["loss_ld"] = ld
     if cfg.use_ad and student_states is not None and teacher_states is not None:
@@ -203,6 +271,8 @@ def bitdistill_loss(student_logits: torch.Tensor,
             student_states, teacher_states, cfg.split_heads,
             cfg.relation_temperature, mask=None, alphas=cfg.alphas,
             use_kernel=cfg.use_kernel, blocked=cfg.blocked)
+        if n > 1:
+            ad = ad / n
         loss = loss + cfg.gamma_ad * ad
         metrics["loss_ad"] = ad
     metrics["loss"] = loss

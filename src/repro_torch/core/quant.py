@@ -60,22 +60,39 @@ def _mean32(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
     return m.to(torch.float32)
 
 
-def absmean_scale(w: torch.Tensor) -> torch.Tensor:
+def absmean_scale(w: torch.Tensor, shards=None) -> torch.Tensor:
     """Delta = mean(|W|) (per tensor, Eq. 2) as an fp32 scalar.
 
     Summed in float64 and rounded once, so the scale is the same on the CPU
     and the card; the JAX package sums in fp32 in XLA's order, so the two
     agree to a couple of ulps, not bitwise.  As in JAX, whose mean keeps
-    w's dtype, a bf16 or fp16 weight's scale is rounded to that dtype."""
+    w's dtype, a bf16 or fp16 weight's scale is rounded to that dtype.
+
+    ``shards``: ``w`` is one shard of a split tensor, and ``shards`` is
+    ``(total, numel)``: ``total`` sums a float64 value over the ranks
+    holding the shards, ``numel`` is the whole tensor's element count.  The
+    shard's float64 sum of |W| is summed over them and divided by it, then
+    rounded to fp32 once: the unsharded scale but where the float64 sums'
+    order moves it across an fp32 rounding boundary."""
+    if shards is not None:
+        total, numel = shards
+        s = total(w.to(torch.float64).abs().sum())
+        delta = div(s, float(numel)).to(torch.float32)
+        if w.dtype in (torch.bfloat16, torch.float16):
+            delta = delta.to(w.dtype).to(torch.float32)
+        return delta
     delta = _mean32(w.to(torch.float64).abs())
     if w.dtype in (torch.bfloat16, torch.float16):
         delta = delta.to(w.dtype).to(torch.float32)
     return delta
 
 
-def weight_quant_absmean(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eq. 1: per-tensor absmean ternarization -> (q in w.dtype, delta)."""
-    delta = absmean_scale(w)
+def weight_quant_absmean(w: torch.Tensor, delta: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 1: per-tensor absmean ternarization -> (q in w.dtype, delta);
+    with ``delta`` given (a shard's: the whole tensor's scale) that one."""
+    if delta is None:
+        delta = absmean_scale(w)
     q = round_clip(w.to(torch.float32) / (delta + EPS), -1.0, 1.0)
     return q.to(w.dtype), delta
 
@@ -176,9 +193,16 @@ def act_quant_absmax_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(x.dtype), gamma
 
 
-def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
-    """QAT activation path: dequantized int8 with STE gradient."""
-    q, gamma = act_quant_absmax_int8(x)
+def fake_quant_act(x: torch.Tensor, gamma: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """QAT activation path: dequantized int8 with STE gradient.  ``gamma``
+    (fp32 [..., 1]) replaces the rows' absmax: a shard of the rows' columns
+    quantizes with the whole rows' scale."""
+    if gamma is None:
+        q, gamma = act_quant_absmax_int8(x)
+    else:
+        q = round_clip(div(127.0, gamma + EPS) * x.to(torch.float32),
+                       -128.0, 127.0).to(x.dtype)
     deq = (q.to(torch.float32) * div(gamma, 127.0)).to(x.dtype)
     return ste(x, deq)
 
@@ -198,10 +222,14 @@ def fake_quant_weight_lp(w: torch.Tensor) -> torch.Tensor:
 
 def fake_quant_weight(w: torch.Tensor, scheme: WeightScheme = "absmean",
                       act_scale: Optional[torch.Tensor] = None,
-                      block: int = 128) -> torch.Tensor:
-    """QAT weight path: dequantized ternary with STE gradient."""
+                      block: int = 128,
+                      delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """QAT weight path: dequantized ternary with STE gradient; ``delta``
+    (absmean only) is a shard's whole-tensor scale."""
+    if delta is not None and scheme != "absmean":
+        raise ValueError(f"a given scale takes the 'absmean' scheme, not {scheme!r}")
     if scheme == "absmean":
-        q, delta = weight_quant_absmean(w)
+        q, delta = weight_quant_absmean(w, delta)
         deq = q.to(torch.float32) * delta
     elif scheme == "blockwise":
         q, delta = weight_quant_blockwise(w, block=block)

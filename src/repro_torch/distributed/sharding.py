@@ -17,10 +17,18 @@ tuple of mesh-axis names per tensor dim (``()`` = replicated), and
 that splits tensor dim ``d``, ``Replicate()`` on the others.  A plan over a
 plain ``{axis: size}`` mapping resolves specs without devices (shapes only).
 
-``constrain`` is JAX's activation hint.  The port's sharded step
-(``training/trainer.py``) computes on plain local tensors, its rows of the
-batch with the parameters gathered whole, so there is no layout to hint: a
-plain tensor comes back as it is, a DTensor is redistributed to the
+``local_shape`` and ``local_chunk`` give a rank's shape and share of a
+tensor under a spec, and ``linear_part`` says which part of a linear layer
+a spec makes it: column-parallel where ``"model"`` splits the weight's out
+axis, row-parallel where it splits the in axis.  The port's sharded steps
+(``training/trainer.py``) compute on plain local tensors, their rows of the
+batch: on the split route (``distributed/tensor_parallel.py``, the dense
+decoders) each rank computes on its ``"model"`` shards, each block's
+parameters gathered along the other axes at its use; on the gathered route
+(the other families) with every parameter gathered whole.
+
+``constrain`` is JAX's activation hint.  Neither route has a layout to
+hint: a plain tensor comes back as it is, a DTensor is redistributed to the
 logical names' placements, and with no active plan every argument comes
 back unchanged.
 """
@@ -93,6 +101,28 @@ def is_axes(t) -> bool:
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                mesh_shape: Mapping[str, int]) -> Tuple[int, ...]:
+    """A rank's shape of a tensor of whole ``shape`` under ``spec``."""
+    out = []
+    for d, axes in zip(shape, spec):
+        for a in axes:
+            d //= mesh_shape[a]
+        out.append(d)
+    return tuple(out)
+
+
+def linear_part(spec: Spec, axis: str = "model") -> Optional[str]:
+    """The part of a linear layer whose ``[in, out]`` weight has ``spec``:
+    ``"col"`` (column-parallel: ``axis`` splits the out axis), ``"row"``
+    (row-parallel: it splits the in axis) or None."""
+    if axis in spec[1]:
+        return "col"
+    if axis in spec[0]:
+        return "row"
+    return None
 
 
 def local_chunk(t: torch.Tensor, mesh, placements) -> torch.Tensor:

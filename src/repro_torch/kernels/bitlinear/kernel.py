@@ -242,3 +242,41 @@ def bitlinear_forward(x: torch.Tensor, w: torch.Tensor, delta: torch.Tensor):
     y = _empty((m, n), x.dtype, x.device)
     _launch(x, None, gamma, codes, w, delta, wq, y)
     return y, codes, gamma, wq
+
+
+def bitlinear_forward_acc(x: torch.Tensor, w: torch.Tensor, delta: torch.Tensor,
+                          gamma: torch.Tensor):
+    """A row-parallel shard of the op's forward: x [M, K] is the rank's K
+    columns of the rows, quantized with the whole rows' ``gamma`` [M, 1]
+    (fp32, given), ``w [K, N]`` the rank's K rows of the master weight,
+    ternarized with the whole weight's ``delta``.  Returns ``(acc [M, N]
+    fp32, codes [M, Kp], wq [K, N])``: the unscaled int32 accumulators,
+    exact in fp32 (|acc| <= 128·K < 2**24), for the caller to sum over the
+    shards and scale once by ``(γ/127)·Δ``.  The three device kernels of
+    :func:`bitlinear_forward`, the GEMM's epilogue scale set to one (γ =
+    127, Δ = 1: exactly 1.0).  CUDA tensors only."""
+    build.require_cuda("bitlinear_forward_acc", x, w, delta, gamma)
+    _check_x(x, "bitlinear_forward_acc", empty_batch=True)
+    if w.dim() != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"bitlinear_forward_acc: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be [M, K] and [K, N]")
+    if w.dtype != torch.float32:
+        raise TypeError(f"bitlinear_forward_acc: the master weight must be fp32, "
+                        f"got {w.dtype}")
+    (m, k), n = x.shape, w.shape[1]
+    _check_scales(m, gamma, delta, "bitlinear_forward_acc")
+    kp = padded_k(k)
+    codes = _empty((m, kp), torch.int8, x.device)
+    if m == 0 or n == 0:
+        return (_empty((m, n), torch.float32, x.device), codes.zero_(),
+                torch.zeros((k, n), dtype=torch.int8, device=x.device))
+    wq = _empty((k, n), torch.int8, x.device)
+    wt = _empty((n, kp), torch.int8, x.device)
+    acc = _empty((m, n), torch.float32, x.device)
+    unit_gamma = torch.full((m, 1), 127.0, dtype=torch.float32, device=x.device)
+    unit_delta = torch.ones((1,), dtype=torch.float32, device=x.device)
+    _quant(x, gamma.contiguous(), None, codes)
+    _weight(w, delta, wq, wt)
+    _gemm(codes, wt, unit_gamma, unit_delta, acc)
+    launches.count += 1
+    return acc, codes, wq

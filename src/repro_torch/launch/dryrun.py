@@ -9,6 +9,10 @@ allocated and nothing runs on a card, so the whole grid runs on a CPU.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes]
 
+``--all`` runs every (arch x shape) cell and, unless ``--step`` names one,
+each arch's distill step on ``train_4k`` (tagged ``distill``).  Each cell
+records its step's route (``training/trainer.py::step_route``).
+
 One JSON per cell under ``--out`` (default ``build/dryrun/`` in the
 checkout), with JAX's keys where they mean the same: ``status`` (``ok``,
 ``skipped`` with the reason, or ``error`` with the message and the line
@@ -26,8 +30,11 @@ import sys
 import time
 import traceback
 
+import torch
+
 from repro_torch.configs import ASSIGNED
 from repro_torch.configs.shapes import SHAPES, applicable
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.memest import estimate
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_analysis import count
@@ -52,24 +59,28 @@ def run_cell(arch: str, shape: str, multi_pod: bool, step_override=None,
                       use_kernels=use_kernels)
     n_dev = cell.n_devices
     t_build = time.time() - t0
-    cost = count(cell.step_fn, *cell.args, resident=cell.model)
+    with tp.recording() as recorded:
+        cost = count(cell.step_fn, *cell.args,
+                     resident=(cell.model, cell.teacher))
     t_count = time.time() - t0 - t_build
-    params = dict(cell.model.named_parameters())
+    params = whole_params(cell.model)
     coll = plan_collectives(cell.plan, params, cell.step_kind,
                             axes=cell.model.param_axes(),
                             opt_8bit=cell.opt_8bit, ranks=jax_ranks(params),
-                            accum=cell.accum, rows=SHAPES[shape].global_batch)
+                            accum=cell.accum, rows=SHAPES[shape].global_batch,
+                            route=cell.route, recorded=recorded,
+                            metric_parts=_metric_parts(cell))
     # per-rank counts -> whole program (every rank runs the same step)
     roof = Roofline(cost.flops * n_dev, cost.hbm_bytes * n_dev,
                     coll.wire_bytes, n_dev, group_size=coll.group_size)
     memest = estimate(cell.model_cfg, SHAPES[shape], n_dev, cell.tp,
                       opt_8bit=cell.opt_8bit, step_kind=cell.step_kind,
-                      with_teacher=cell.step_kind == "distill")
+                      with_teacher=cell.step_kind == "distill", route=cell.route)
     op_cost = cost.to_dict()
     op_cost.pop("op_flops")
     res = {
         "arch": arch, "shape": shape, "multi_pod": multi_pod,
-        "step": cell.step_kind,
+        "step": cell.step_kind, "route": cell.route,
         "n_devices": n_dev, "dp": cell.dp, "tp": cell.tp,
         "rows_per_chip": cell.rows,
         "status": "ok",
@@ -101,11 +112,35 @@ def run_cell(arch: str, shape: str, multi_pod: bool, step_override=None,
     return res
 
 
+def whole_params(model) -> dict:
+    """The model's parameters at their whole shapes (a split cell's model
+    holds the rank's shards, each remembering its whole shape)."""
+    out = {}
+    for k, p in model.named_parameters():
+        whole = getattr(p, "_tp_whole", None)
+        out[k] = p if whole is None else torch.empty(whole, dtype=p.dtype,
+                                                     device="meta")
+    return out
+
+
+def _metric_parts(cell) -> int:
+    """The metric values a step sums over its batch axes: CE and MoE, or
+    the distill step's CE, KL, relation loss (with attention) and total."""
+    if cell.step_kind != "distill":
+        return 2
+    return 3 + (cell.model_cfg.family != "ssm")
+
+
 def cell_path(out: pathlib.Path, arch: str, shape: str, multi_pod: bool,
               tag: str = "") -> pathlib.Path:
     pod = "2pod" if multi_pod else "1pod"
     name = f"{arch}__{shape}__{pod}{('__' + tag) if tag else ''}.json"
     return out / name
+
+
+def distill_tag(tag: str = "") -> str:
+    """The tag of ``--all``'s distill cells (beside the train_4k cell)."""
+    return f"{tag}+distill" if tag else "distill"
 
 
 def _error(e: BaseException) -> str:
@@ -142,19 +177,24 @@ def main(argv=None) -> int:
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.all:
-        cells = [(c.name, s) for c in ASSIGNED for s in SHAPES]
+        # every (arch, shape) on its own step, and each arch's distill
+        # step on train_4k
+        cells = [(c.name, s, args.step, args.tag) for c in ASSIGNED for s in SHAPES]
+        if args.step is None:
+            cells += [(c.name, "train_4k", "distill", distill_tag(args.tag))
+                      for c in ASSIGNED]
     elif args.arch and args.shape:
-        cells = [(args.arch, args.shape)]
+        cells = [(args.arch, args.shape, args.step, args.tag)]
     else:
         ap.error("give --arch and --shape, or --all")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     failures = 0
     t0 = time.time()
-    for arch, shape in cells:
+    for arch, shape, step, tag in cells:
         fam = get_config(arch).family
         for mp in meshes:
-            path = cell_path(out, arch, shape, mp, args.tag)
+            path = cell_path(out, arch, shape, mp, tag)
             if path.exists() and not args.force:
                 print(f"[skip cached] {path.name}")
                 continue
@@ -169,11 +209,11 @@ def main(argv=None) -> int:
                 continue
             try:
                 v_rules, v_model = resolve_variants(args.variants)
-                res = run_cell(arch, shape, mp, step_override=args.step,
+                res = run_cell(arch, shape, mp, step_override=step,
                                rules_overrides=v_rules or None,
                                model_overrides=v_model or None,
                                remat_policy=args.remat, accum=args.accum,
-                               tag=args.tag, use_kernels=args.kernels)
+                               tag=tag, use_kernels=args.kernels)
             except Exception as e:  # noqa: BLE001 — record and continue
                 traceback.print_exc()
                 res = {"arch": arch, "shape": shape, "multi_pod": mp,

@@ -15,10 +15,15 @@ Every term of JAX's model is kept with JAX's value (per chip):
 The port stores more than that, and these terms say what:
 
   gathered_params   P·bytes_param: the whole model on every rank.  The
-                    port's plan-placed train step gathers every parameter
-                    whole for its forward and backward (ROADMAP 25a), and the
-                    serving engine takes no plan, so an inference rank holds
-                    the whole model too;
+                    port's plan-placed train step on the ``"gathered"``
+                    route (the MoE, SSM, hybrid and cross families) gathers
+                    every parameter whole for its forward and backward, and
+                    the serving engine takes no plan, so an inference rank
+                    holds the whole model too.  On the ``"split"`` route
+                    (the dense decoders) the weights live a rank at use: one
+                    block's parameters, gathered along the axes but
+                    ``"model"``, and the embedding and head, each /tp
+                    (``at_use_params``, in its place);
   moments           P · 8 / n_dev (fp32 m and v), or P · (2 + 8/256) / n_dev
                     with 8-bit moments (int8 codes in blocks of 256 along the
                     last axis, one fp32 scale a block:
@@ -53,8 +58,8 @@ INFER_TERMS = ("gathered_params", "caches_whole", "layer_transient")
 
 
 def estimate(cfg: ModelConfig, shape: ShapeSpec, n_dev: int, tp: int,
-             opt_8bit: bool, step_kind: str, with_teacher: bool = False
-             ) -> Dict[str, float]:
+             opt_8bit: bool, step_kind: str, with_teacher: bool = False,
+             route: str = "gathered") -> Dict[str, float]:
     p = cfg.param_count()
     bytes_param = 2 if cfg.param_dtype == "bfloat16" else 4
     dp = n_dev // tp
@@ -116,6 +121,14 @@ def estimate(cfg: ModelConfig, shape: ShapeSpec, n_dev: int, tp: int,
     if train:
         terms["moments"] = p * MOMENT_BYTES[bool(opt_8bit)] / n_dev
     port = TRAIN_TERMS if train else INFER_TERMS
+    if route == "split" and train:
+        vocab_params = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
+        block = (p - vocab_params) / max(cfg.n_layers, 1)
+        teachers = 2 if with_teacher else 1
+        terms["at_use_params"] = float(
+            (block + vocab_params) * bytes_param * teachers / tp)
+        port = tuple("at_use_params" if k == "gathered_params" else k
+                     for k in port)
     terms["total"] = sum(terms[k] for k in port if k in terms)
     terms["fits_hbm"] = terms["total"] < HBM_PER_CHIP
     return terms

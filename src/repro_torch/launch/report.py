@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.report [--results DIR] [--multi-pod] [--tag TAG]
 
 The times are floors from the H100 data sheet's peaks
-(``launch/roofline.py``), not measurements.
+(``launch/roofline.py``), not measurements.  Each row names its step's
+route (``split``, ``gathered``, or ``plain`` for inference); a train_4k
+row is followed by the arch's distill cell where ``--all`` ran it.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import json
 import pathlib
 from typing import Optional
 
-from repro_torch.launch.dryrun import RESULTS, cell_path
+from repro_torch.launch.dryrun import RESULTS, cell_path, distill_tag
 from repro_torch.launch.roofline import Roofline, mfu, model_flops
 
 ARCH_ORDER = [
@@ -36,10 +38,10 @@ def load(results: pathlib.Path, arch: str, shape: str, multi_pod: bool,
 
 def render_row(d: dict) -> str:
     if d["status"] == "skipped":
-        return (f"| {d['arch']} | {d['shape']} | — | — | — | — | — | — | — | "
+        return (f"| {d['arch']} | {d['shape']} | — | — | — | — | — | — | — | — | "
                 f"skip: sub-quadratic only |")
     if d["status"] != "ok":
-        return (f"| {d['arch']} | {d['shape']} | ERROR | | | | | | | "
+        return (f"| {d['arch']} | {d['shape']} | ERROR | | | | | | | | "
                 f"{d.get('error', '')[:60]} |")
     r = d["roofline"]
     mf = model_flops(d["params"], d["active_params"], TOKENS[d["shape"]], d["step"])
@@ -48,16 +50,16 @@ def render_row(d: dict) -> str:
     ratio = mf / max(r["flops"], 1.0)
     frac = mfu(mf, roof)
     mem_gib = d["memest_per_chip"]["total"] / 2 ** 30
-    return (f"| {d['arch']} | {d['shape']} | {d['step']} "
+    return (f"| {d['arch']} | {d['shape']} | {d['step']} | {d.get('route', '—')} "
             f"| {r['t_compute_s'] * 1e3:.1f} | {r['t_memory_s'] * 1e3:.1f} "
             f"| {r['t_collective_s'] * 1e3:.1f} | **{r['bottleneck'][:4]}** "
             f"| {ratio:.2f} | {frac * 100:.1f}% | {mem_gib:.1f} GiB"
             f"{'' if d['fits_hbm'] else ' ⚠'} |")
 
 
-HEADER = ("| arch | shape | step | t_comp ms | t_mem ms | t_coll ms | bound "
-          "| useful/counted | roofline frac | mem/chip |\n"
-          "|---|---|---|---|---|---|---|---|---|---|")
+HEADER = ("| arch | shape | step | route | t_comp ms | t_mem ms | t_coll ms "
+          "| bound | useful/counted | roofline frac | mem/chip |\n"
+          "|---|---|---|---|---|---|---|---|---|---|---|")
 
 
 def table(results: pathlib.Path = RESULTS, multi_pod: bool = False,
@@ -65,9 +67,10 @@ def table(results: pathlib.Path = RESULTS, multi_pod: bool = False,
     rows = [HEADER]
     for a in ARCH_ORDER:
         for s in SHAPE_ORDER:
-            d = load(results, a, s, multi_pod, tag)
-            if d is not None:
-                rows.append(render_row(d))
+            for t in ((tag, distill_tag(tag)) if s == "train_4k" else (tag,)):
+                d = load(results, a, s, multi_pod, t)
+                if d is not None:
+                    rows.append(render_row(d))
     return "\n".join(rows)
 
 

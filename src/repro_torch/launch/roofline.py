@@ -91,19 +91,32 @@ def ring_wire_bytes(kind: str, result_bytes: float, g: int) -> float:
 def plan_collectives(plan, params, step_kind: str, axes=None,
                      opt_8bit: bool = False,
                      ranks: Optional[Dict[str, int]] = None,
-                     accum: int = 1, rows: int = 1 << 20) -> CollectiveStats:
-    """What one rank of the port's plan-placed CE step moves
-    (``training/trainer.py::_sharded_train_step``):
+                     accum: int = 1, rows: int = 1 << 20,
+                     route: str = "gathered", recorded=None,
+                     metric_parts: int = 2) -> CollectiveStats:
+    """What one rank of the port's plan-placed train or distill step moves
+    (``training/trainer.py::_sharded_step``).  On the ``"gathered"`` route:
 
     * each parameter gathered whole (``full_tensor``): one all-gather per
       mesh axis that shards it, innermost axis first;
     * each gradient reduced back to its placement (the ``full_tensor``'s
       backward from ``Partial``): a reduce-scatter per axis that shards it,
-      an all-reduce per axis that does not;
+      an all-reduce per axis that does not.
+
+    On the ``"split"`` route those are the collectives the step recorded as
+    it ran (``recorded``: ``distributed/tensor_parallel.recording()``'s
+    (kind, axis, group size, result bytes)), forward and backward: each
+    block's parameters gathered along the axes but ``"model"`` at each use
+    (again in the remat recompute) and their gradients reduce-scattered,
+    *f* and *g* at each block's edges, SubLN's sums of squares, the scales'
+    float64 sums and γ's maxima, the loss's maxima and sums over the
+    vocabulary and the relation states' gather.  Then on both routes:
+
     * the gradient norm: one scalar all-reduce per axis that shards a
       parameter (``global_norm``'s ``full_tensor``);
-    * the metrics: one all-reduce of the micro-batches' CE and MoE sums per
-      batch axis (``_all_sum``);
+    * the metrics: one all-reduce of the micro-batches' ``metric_parts``
+      values (CE and MoE; a distill step's CE, KL, relation loss and
+      total) per batch axis (``_all_sum``);
     * with ``opt_8bit``, each 8-bit moment (m and v of a tensor of JAX rank
       >= 2) whose last axis is split: one max all-reduce of its block scales
       per axis splitting it (``optimizer._q8_encode_split``).
@@ -130,27 +143,31 @@ def plan_collectives(plan, params, step_kind: str, axes=None,
         wire += ring_wire_bytes(kind, result_bytes, g)
         widest = max(widest, g)
 
+    if route == "split":
+        for kind, _, g, result_bytes in recorded or ():
+            add(kind, float(result_bytes), g)
     for name, p in params.items():
         spec = plan.spec(axes[name], tuple(p.shape), record=False)
         nbytes = _numel(p.shape) * _itemsize(p.dtype)
         sharding = [a for a in axes_order if any(a in s for s in spec)]
-        split = 1
-        for a in sharding:
-            split *= shape[a]
-        # the gather: innermost sharding axis first, the result growing
-        local = nbytes / split
-        for a in reversed(sharding):
-            local *= shape[a]
-            add("all-gather", local, shape[a])
-        # the gradient back to the placement: the whole gradient reduced
-        # over each axis, scattered where the parameter is sharded
-        g_bytes = nbytes
-        for a in axes_order:
-            if a in sharding:
-                g_bytes /= shape[a]
-                add("reduce-scatter", g_bytes, shape[a])
-            else:
-                add("all-reduce", g_bytes, shape[a])
+        if route != "split":
+            split = 1
+            for a in sharding:
+                split *= shape[a]
+            # the gather: innermost sharding axis first, the result growing
+            local = nbytes / split
+            for a in reversed(sharding):
+                local *= shape[a]
+                add("all-gather", local, shape[a])
+            # the gradient back to the placement: the whole gradient reduced
+            # over each axis, scattered where the parameter is sharded
+            g_bytes = nbytes
+            for a in axes_order:
+                if a in sharding:
+                    g_bytes /= shape[a]
+                    add("reduce-scatter", g_bytes, shape[a])
+                else:
+                    add("all-reduce", g_bytes, shape[a])
         for a in sharding:
             add("all-reduce", 4.0, shape[a])          # its share of |g|^2
         rank = (ranks or {}).get(name, len(p.shape))
@@ -168,7 +185,7 @@ def plan_collectives(plan, params, step_kind: str, axes=None,
                         add("all-reduce", 4.0 * lead_local * blocks, shape[a])
     batch_axes = plan.spec(("batch", "seq"), (rows, 1), record=False)[0]
     for a in batch_axes:
-        add("all-reduce", 4.0 * 2 * accum, shape[a])
+        add("all-reduce", 4.0 * metric_parts * accum, shape[a])
     return CollectiveStats(counts, wire, raw, widest)
 
 
@@ -372,9 +389,11 @@ def _w2a8(x, wp, delta, *_):
 
 
 def _bitlinear(x, w, *rest):
-    """``bitlinear_kernel(x, wq, gamma, delta)`` (int8 codes in) or the
+    """``bitlinear_kernel(x, wq, gamma, delta)`` (int8 codes in), the
     training op's ``bitlinear_forward(x, w, delta)`` (the master weight in;
-    y, the activation codes, γ and the ternary codes out)."""
+    y, the activation codes, γ and the ternary codes out) or its
+    row-parallel shard ``bitlinear_forward_acc(x, w, delta, gamma)`` (γ in;
+    fp32 accumulators, the codes and the ternary codes out)."""
     m, k = x.shape
     n = w.shape[-1]
     out = m * n * _itemsize(x.dtype)
@@ -384,6 +403,9 @@ def _bitlinear(x, w, *rest):
         return KernelWork(ops, _size(x) + _size(w) + _size(gamma)
                           + _size(delta) + out, "int8")
     delta = rest[0]
+    if len(rest) > 1:               # the accumulators: γ read, fp32 out
+        return KernelWork(ops, _size(x) + _size(w) + _size(delta)
+                          + _size(rest[1]) + 4 * m * n + m * k + k * n, "int8")
     nbytes = (_size(x) + _size(w) + _size(delta) + out
               + m * k + 4 * m + k * n)
     return KernelWork(ops, nbytes, "int8")

@@ -7,11 +7,17 @@ step on them.
 Where JAX lowers the whole SPMD program over a mesh of devices, a port cell
 is what ONE rank of that mesh computes, as the port computes it:
 
-* a train step takes the rank's rows of the global batch (split over the
-  mesh axes of the ``"batch"`` rule) with every parameter gathered whole,
-  and updates the rank's share of each parameter and moment
-  (``training/trainer.py::_sharded_train_step``); the plan's collectives
-  are counted apart (``roofline.plan_collectives``);
+* a train or distill step takes the rank's rows of the global batch (split
+  over the mesh axes of the ``"batch"`` rule) on the trainer's route for
+  the config (``training/trainer.py::step_route``): on ``"split"`` (the
+  dense decoders) the model holds the rank's shard of each parameter, each
+  block gathers its own along the other axes at its use and computes its
+  heads, ``d_ff`` columns and vocabulary slice, and the split's collectives
+  record themselves as the step runs; on ``"gathered"`` every parameter is
+  gathered whole.  Either way the rank updates its share of each parameter
+  and moment, and ``roofline.plan_collectives`` counts the plan's
+  collectives.  A distill cell's FP teacher is placed and split as the
+  student is (JAX's ``t_shardings``);
 * a prefill step is the forward over the rank's rows, a decode step
   ``decode_step`` of one token against a ``seq``-long contiguous cache of
   the rank's rows, as in JAX; the serving engine takes no plan, so the
@@ -32,14 +38,17 @@ import torch
 
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.core import quant as Q
-from repro_torch.core.distill import softmax_cross_entropy
+from repro_torch.core.distill import DistillConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ShardingPlan, default_rules
 from repro_torch.models import build_model
 from repro_torch.models.base import ModelConfig, get_config
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.training.optimizer import AdamW, AdamWConfig
-from repro_torch.training.trainer import (TrainState, _accumulate, forward,
-                                          jax_ranks)
+from repro_torch.training.trainer import (TrainState, _microbatches,
+                                          ce_loss_parts, default_distill_layer,
+                                          distill_loss_parts, jax_ranks,
+                                          make_split, step_route)
 
 META = torch.device("meta")
 
@@ -162,6 +171,8 @@ class Cell:
     rows: int                       # the rank's batch rows
     opt_8bit: bool = False
     accum: int = 1
+    route: str = "plain"            # step_route: split | gathered | plain
+    teacher: Any = None             # a distill cell's teacher, on meta
 
     @property
     def n_devices(self) -> int:
@@ -186,35 +197,62 @@ def _shard(t: torch.Tensor, spec, shape: Dict[str, int]) -> torch.Tensor:
     return t
 
 
-def _rank_train_step(model, opt: AdamW, accum: int, specs, mesh_shape):
-    """One rank's CE step: forward and backward on its rows with the whole
-    model, then the update of its share of each parameter and moment."""
-    whole = dict(model.named_parameters())
-
-    def loss_fn(mb):
-        logits, _, moe = forward(model, mb)
-        ce = softmax_cross_entropy(logits, mb["labels"], mb.get("loss_mask"))
-        return ce + moe, {"loss_ce": ce, "loss_moe": moe}
+def _rank_step(model, opt: AdamW, accum: int, parts, dp: int, split,
+               shard_grads) -> Callable:
+    """One rank's train or distill step: forward and backward of ``parts``
+    (the trainer's loss parts) on its rows, under ``split`` (the split
+    route) or with the whole model, then the update of its share of each
+    parameter and moment (``shard_grads`` cuts a whole gradient to it)."""
+    params = dict(model.named_parameters())
 
     def step(state: TrainState, batch):
-        loss, metrics, grads = _accumulate(TrainState(whole, None, 0), batch,
-                                           accum, loss_fn)
-        local = {k: _shard(g, specs[k], mesh_shape) for k, g in grads.items()}
+        for p in params.values():
+            p.grad = None
+        rows, seq = batch["tokens"].shape
+        den = float(rows * seq * dp)
+        keys, vals = None, []
+        with tp.activated(split):
+            for mb in (_microbatches(batch, accum) if accum > 1 else [batch]):
+                loss, m = parts(mb, den, dp)
+                loss.backward()
+                keys = list(m)
+                vals.append(torch.stack([v.detach().to(torch.float32)
+                                         for v in m.values()]))
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)) / accum
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        metrics = dict(zip(keys, torch.stack(vals).mean(dim=0)))
         lr = torch.tensor(1e-4, dtype=torch.float32)
-        _, state.opt_state, opt_metrics = opt.update(local, state.opt_state,
-                                                     state.params, lr)
+        _, state.opt_state, opt_metrics = opt.update(
+            shard_grads(grads), state.opt_state, state.params, lr)
         state.step += 1
-        return state, dict(metrics, loss=loss, **opt_metrics)
+        return state, dict(metrics, **opt_metrics)
 
     return step
+
+
+def _local_model(model, plan: ShardingPlan) -> None:
+    """Replace each of ``model``'s (meta) parameters by a meta parameter of
+    the rank's shape under ``plan`` (tensor_parallel.shard_for_meta)."""
+    axes = model.param_axes()
+    for name, p in list(model.named_parameters()):
+        *path, attr = name.split(".")
+        owner = model.get_submodule(".".join(path))
+        spec = plan.spec(axes[name], tuple(p.shape), record=False)
+        owner._parameters[attr] = tp.shard_for_meta(p, spec, plan.shape)
 
 
 def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = None,
                rules_overrides: Optional[Dict] = None,
                model_overrides: Optional[Dict] = None,
                remat_policy: Optional[str] = None,
-               accum: int = 1, use_kernels: bool = False) -> Cell:
-    """``mesh`` is ``{axis: size}`` (``make_production_mesh()``)."""
+               accum: int = 1, use_kernels: bool = False,
+               route: Optional[str] = None) -> Cell:
+    """``mesh`` is ``{axis: size}`` (``make_production_mesh()``).  A train
+    or distill cell takes the trainer's route for the config, or ``route``
+    (``"gathered"``: a dense config's step as the other families run it,
+    for comparison)."""
     base = get_config(arch)
     shape = SHAPES[shape_name]
     multi_pod = "pod" in mesh
@@ -239,11 +277,6 @@ def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = 
         raise ValueError(f"the port's ModelConfig takes no {sorted(mo)} "
                          f"({e})") from e
     step_kind = step_override or shape.kind
-    if step_kind == "distill" and len(plan.shape) and any(
-            v > 1 for v in plan.shape.values()):
-        raise ValueError(
-            "step 'distill' under a sharding plan: the port's distill step "
-            "takes no plan (training/trainer.py::make_distill_step)")
     if step_kind in ("train", "distill") and shape.kind != "train":
         raise ValueError(f"step {step_kind!r} needs a train shape, not "
                          f"{shape_name!r} ({shape.kind})")
@@ -263,16 +296,53 @@ def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = 
             raise ValueError(f"accum={accum} does not divide the rank's "
                              f"{rows} rows")
         params = dict(model.named_parameters())
+        ranks = jax_ranks(params)
         axes = model.param_axes()
         specs = {k: plan.spec(axes[k], tuple(p.shape)) for k, p in params.items()}
-        local = {k: _meta(_shard(p, specs[k], plan.shape).shape, p.dtype)
-                 for k, p in params.items()}
+        teacher = None
+        if step_kind == "distill":
+            # the FP teacher of the same config, frozen (JAX's)
+            tcfg = base.replace(vocab_pad_multiple=512, **mo)
+            if remat_policy is not None:
+                tcfg = tcfg.replace(remat_policy=remat_policy)
+            teacher = build_model(tcfg, device=META)
+            for p in teacher.parameters():
+                p.requires_grad_(False)
+            # an attention-free stack distills without the relation loss
+            use_ad = cfg.family != "ssm"
+            dcfg = DistillConfig(
+                distill_layer=default_distill_layer(cfg) if use_ad else -1,
+                use_ad=use_ad, use_kernel=use_kernels)
+            parts = distill_loss_parts(model, teacher, dcfg)
+        else:
+            parts = ce_loss_parts(model)
+        route = route or step_route(model, plan)
+        if route not in ("split", "gathered"):
+            raise ValueError(f"route {route!r}: 'split' or 'gathered'")
+        if route == "split" and step_route(model, plan) != "split":
+            raise ValueError(f"{arch} ({cfg.family}) takes no split route: the "
+                             "split covers the dense family")
         opt = AdamW(AdamWConfig(
             state_dtype="int8_blockwise" if opt_8bit else "float32"))
-        state = TrainState(local, opt.init(local, jax_ranks(params)), 0)
-        fn = _rank_train_step(model, opt, accum, specs, plan.shape)
+        if route == "split":
+            for m in (model, teacher):
+                if m is not None:
+                    _local_model(m, plan)
+            split = make_split(plan, *[m for m in (model, teacher) if m is not None],
+                               local=True)
+            split.batch_axes = tuple(
+                plan.spec(("batch", "seq"), (shape.global_batch, shape.seq),
+                          record=False)[0])
+            local = dict(model.named_parameters())
+            fn = _rank_step(model, opt, accum, parts, dp, split, lambda g: g)
+        else:
+            local = {k: _meta(_shard(p, specs[k], plan.shape).shape, p.dtype)
+                     for k, p in params.items()}
+            fn = _rank_step(model, opt, accum, parts, dp, None, lambda g: {
+                k: _shard(v, specs[k], plan.shape) for k, v in g.items()})
+        state = TrainState(local, opt.init(local, ranks), 0)
         return Cell(arch, shape, step_kind, fn, (state, batch), plan, cfg,
-                    model, dp, rows, opt_8bit, accum)
+                    model, dp, rows, opt_8bit, accum, route, teacher)
 
     if step_kind == "prefill":
         @torch.no_grad()

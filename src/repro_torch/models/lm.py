@@ -4,7 +4,13 @@ cross caches seeded from a memory, and the padded-vocab logits mask).
 ``apply`` is the JAX training contract ``(logits, qkv_states | None,
 moe_loss)``; ``forward`` returns the logits alone.  A VLM stack (cross
 layers among its self-attention ones) reads ``memory``, precomputed image
-embeddings [B, T, d_model] (the vision tower is a stub, as in JAX)."""
+embeddings [B, T, d_model] (the vision tower is a stub, as in JAX).
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) the
+embedding, the final norm and the head take their compute copies at use,
+and the logits stay vocabulary-sharded: ``[rows, S, V/tp]`` a rank, the pad
+columns masked by their global index; no rank builds the whole
+vocabulary's."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -14,6 +20,7 @@ from torch import nn
 
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.base import ModelConfig
 from repro_torch.nn.layers import Embedding, RMSNorm
@@ -38,6 +45,12 @@ class CausalLM(nn.Module):
             hq = cfg.quant if cfg.quant.quantize_lm_head else Q.FP
             self.head = BitLinear(cfg.d_model, cfg.padded_vocab, False, hq, pol,
                                   gen=gen, device=device, axes=("embed", "vocab"))
+        if cfg.family == "dense":
+            # the split's families compute the QAT product exactly
+            # (core/bitlinear.py), so that its shards sum order-free
+            for m in self.modules():
+                if isinstance(m, BitLinear):
+                    m.exact_product = True
         vocab_mask = torch.arange(cfg.padded_vocab, device=device) < cfg.vocab
         self.register_buffer("vocab_mask", vocab_mask, persistent=False)
 
@@ -46,7 +59,8 @@ class CausalLM(nn.Module):
         return child_axes(self)
 
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = constrain(self.embed(tokens), ("batch", "seq", "act_embed"))
+        with tp.using(self.embed):
+            x = constrain(self.embed(tokens), ("batch", "seq", "act_embed"))
         if self.cfg.embed_scale:
             # gemma: sqrt(d_model) in fp32, cast to the activation dtype
             # before the product, as JAX's ``jnp.sqrt(d).astype(x.dtype)``
@@ -55,11 +69,21 @@ class CausalLM(nn.Module):
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        logits = self.embed.attend(x) if self.head is None else self.head(x)
+        head = self.embed if self.head is None else self.head
+        with tp.using(self.final_norm):
+            x = self.final_norm(x)
+        with tp.using(head):
+            x = tp.copy_to(x)
+            logits = self.embed.attend(x) if self.head is None else self.head(x)
         if self.cfg.padded_vocab != self.cfg.vocab:
-            # padded vocab rows never win the softmax / argmax
-            logits = torch.where(self.vocab_mask, logits,
-                                 torch.full_like(logits, -1e30))
+            # padded vocab rows never win the softmax / argmax; a rank's
+            # slice masks its columns by their global index
+            mask = self.vocab_mask
+            if logits.shape[-1] != mask.shape[0]:
+                split = tp.active()
+                n = logits.shape[-1]
+                mask = mask[split.rank * n:(split.rank + 1) * n]
+            logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
         return logits
 
     def apply(self, tokens: torch.Tensor,
@@ -77,8 +101,7 @@ class CausalLM(nn.Module):
             memory = memory.to(x.dtype)
         x, states, moe_loss = self.stack(x, positions, memory, memory_mask,
                                          distill_layer=distill_layer)
-        logits = constrain(self._logits(self.final_norm(x)),
-                           ("batch", "seq", "vocab"))
+        logits = constrain(self._logits(x), ("batch", "seq", "vocab"))
         return logits, states, moe_loss
 
     def forward(self, tokens: torch.Tensor,
@@ -119,7 +142,7 @@ class CausalLM(nn.Module):
         x = self._embed_tokens(token[:, None])
         x, cache = self.stack.decode(x, cache, cache_index, block_tables,
                                      attn_impl, keep)
-        return self._logits(self.final_norm(x))[:, 0], cache
+        return self._logits(x)[:, 0], cache
 
     def decode_chunk(self, tokens: torch.Tensor, cache: List[LayerCache],
                      start: torch.Tensor, lens: torch.Tensor,
@@ -131,4 +154,4 @@ class CausalLM(nn.Module):
         x = self._embed_tokens(tokens)
         x, cache = self.stack.decode_chunk(x, cache, start, lens, block_tables,
                                            attn_impl)
-        return self._logits(self.final_norm(x)), cache
+        return self._logits(x), cache

@@ -15,6 +15,16 @@ an online softmax in fp32 and runs only in the full-sequence forward.
 takes K/V from a memory (encoder output, image embeddings) without RoPE or
 a causal mask, and decodes over a static cache [B, Hkv, T, Dh] holding the
 projected memory (``models/lm.py::CausalLM.init_cache``).
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) the full
+forward computes the rank's ``n_heads / tp`` query heads (RoPE and qk_norm
+per head, so local): *f* on x, column-parallel q/k/v, SubLN and a
+row-parallel ``wo`` (*g*).  Where the plan replicates the kv projections
+(``"kv_heads"`` fewer than, or not divisible by, the ranks) each rank
+projects every kv head and its query heads read their own; the kv weights'
+gradients are then partial sums, reduced by the split.  The head counts
+of the attention core are read from the tensors, so it runs on either.
+The distill states are gathered whole over the heads.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from torch import nn
 
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear, SubLN
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.paged_prefill import ops as pp_ops
@@ -95,7 +106,7 @@ class Attention(nn.Module):
 
     def _project_q(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
+        q = self.wq(x).reshape(b, s, -1, self.head_dim)
         if self.q_norm is not None:
             q = self.q_norm(q)
         return apply_rope(q, positions, self.rope_theta) if self.rope else q
@@ -103,8 +114,8 @@ class Attention(nn.Module):
     def _project_kv(self, x: torch.Tensor, positions: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, s, _ = x.shape
-        k = self.wk(x).reshape(b, s, self.n_kv_heads, self.head_dim)
-        v = self.wv(x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        k = self.wk(x).reshape(b, s, -1, self.head_dim)
+        v = self.wv(x).reshape(b, s, -1, self.head_dim)
         if self.k_norm is not None:
             k = self.k_norm(k)
         if self.rope:
@@ -131,9 +142,10 @@ class Attention(nn.Module):
         order of the sums); the row max is subtracted in fp32, the exp and
         the weights are bf16, the row sum fp32."""
         b, s, hq, dh = q.shape
-        g = hq // self.n_kv_heads
+        hkv = k.shape[2 if kv_layout == "bshd" else 1]
+        g = hq // hkv
         sd = self.scores_dtype
-        qg = q.reshape(b, s, self.n_kv_heads, g, dh).permute(0, 2, 3, 1, 4)
+        qg = q.reshape(b, s, hkv, g, dh).permute(0, 2, 3, 1, 4)
         if kv_layout == "bshd":
             kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         else:
@@ -168,8 +180,8 @@ class Attention(nn.Module):
         ``scores_dtype`` says, as in JAX.  Gradients come from autograd
         through the loop (JAX differentiates through its ``lax.scan``)."""
         b, s, hq, dh = q.shape
-        t = k.shape[1]
-        g = hq // self.n_kv_heads
+        t, hkv = k.shape[1], k.shape[2]
+        g = hq // hkv
         blk = min(self.block_kv, t)
         nb = -(-t // blk)
         pad = nb * blk - t
@@ -177,10 +189,10 @@ class Attention(nn.Module):
         kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         colmask = None if mask is None else torch.nn.functional.pad(mask, (0, pad))
-        qg = (q.reshape(b, s, self.n_kv_heads, g, dh)
+        qg = (q.reshape(b, s, hkv, g, dh)
               .permute(0, 2, 3, 1, 4).to(f32))                # [b,kv,g,s,dh]
         scale = (1.0 / torch.sqrt(torch.tensor(float(dh), dtype=f32))).item()
-        shape = (b, self.n_kv_heads, g, s, 1)
+        shape = (b, hkv, g, s, 1)
         m = torch.full(shape, NEG_INF, dtype=f32, device=q.device)
         z = torch.zeros(shape, dtype=f32, device=q.device)
         acc = torch.zeros(shape[:-1] + (dh,), dtype=f32, device=q.device)
@@ -208,7 +220,7 @@ class Attention(nn.Module):
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
         """ctx [B, S, Hq, Dh] -> SubLN + output projection."""
         b, s = ctx.shape[:2]
-        flat = ctx.reshape(b, s, self.q_dim)
+        flat = ctx.reshape(b, s, -1)
         if self.subln is not None:
             flat = self.subln(flat)
         return self.wo(flat)
@@ -232,6 +244,11 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        split = tp.active()
+        if split is not None:
+            if self.cross:
+                raise ValueError("cross-attention takes no tensor-parallel split")
+            x = tp.copy_to(x)
         q = self._project_q(x, positions)
         if self.cross:
             if memory is None:
@@ -240,6 +257,11 @@ class Attention(nn.Module):
             mask = None if memory_mask is None else memory_mask[:, None, None, :]
         else:
             k, v = self._project_kv(x, positions)
+            if split is not None and q.shape[2] != self.n_heads \
+                    and k.shape[2] == self.n_kv_heads:
+                # replicated kv projections: the rank's query heads' own
+                lo, hi = split.kv_range(self.n_heads, self.n_kv_heads)
+                k, v = k[:, :, lo:hi], v[:, :, lo:hi]
             mask = None
             if self.causal:
                 ar = torch.arange(s, device=x.device)
@@ -249,11 +271,11 @@ class Attention(nn.Module):
         y = self._out(attend(q, k, v, mask))
         if not collect_states:
             return y
-        g = self.n_heads // self.n_kv_heads
+        g = q.shape[2] // k.shape[2]
         rep = (lambda a: torch.repeat_interleave(a, g, dim=2)) if g > 1 else (lambda a: a)
-        return y, {"q": q.permute(0, 2, 1, 3),
-                   "k": rep(k).permute(0, 2, 1, 3),
-                   "v": rep(v).permute(0, 2, 1, 3)}
+        return y, {"q": tp.gather_heads(q.permute(0, 2, 1, 3), 1),
+                   "k": tp.gather_heads(rep(k).permute(0, 2, 1, 3), 1),
+                   "v": tp.gather_heads(rep(v).permute(0, 2, 1, 3), 1)}
 
     # -- decode over the paged pools or the contiguous cache -----------------------
 

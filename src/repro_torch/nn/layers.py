@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.nn.module import (Axes, DEFAULT_POLICY, DTypePolicy,
                                    truncated_normal_init)
 
@@ -38,7 +39,15 @@ class Embedding(nn.Module):
     compute-dtype copy kept beside the parameter serves the lookup and the
     tied head, so they do not re-cast the whole table every step; it is
     rebuilt when the table has changed since (an optimizer step, a load).
-    Training casts the parameter itself, so the gradient reaches it."""
+    Training casts the parameter itself, so the gradient reaches it, and so
+    does a lookup from a tensor put in the parameter's place (a step's
+    gathered or compute copy).  A table placed by a sharding plan keeps the
+    rank's slice as its copy.
+
+    Under a tensor-parallel split the table is the rank's vocabulary rows
+    ``[lo, lo + V/tp)``: a lookup reads the ids it owns, zeros elsewhere,
+    summed over ``"model"`` (*g*), and the tied head's logits are the
+    rank's columns of the vocabulary."""
 
     def __init__(self, vocab: int, dim: int,
                  policy: DTypePolicy = DEFAULT_POLICY,
@@ -60,22 +69,34 @@ class Embedding(nn.Module):
     def _refresh(self) -> None:
         """Rebuild the compute-dtype copy from ``table``."""
         cd = self.policy.compute_dtype
-        self._table_cd = (self.table.detach() if self.table.dtype == cd
-                          else self.table.detach().to(cd))
+        t = self.table.detach()
+        t = t.to_local() if hasattr(t, "to_local") else t
+        self._table_cd = t if t.dtype == cd else t.to(cd)
         self._table_version = self.table._version
 
     def _table(self) -> torch.Tensor:
-        if torch.is_grad_enabled() and self.table.requires_grad:
-            return self.table.to(self.policy.compute_dtype)
-        if self._table_version != self.table._version:
+        t = self.table
+        if (torch.is_grad_enabled() and t.requires_grad) or \
+                not isinstance(t, nn.Parameter):
+            return t.to(self.policy.compute_dtype)
+        if self._table_version != t._version:
             self._refresh()
         return self._table_cd
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self._table())
+        table = self._table()
+        split = tp.active()
+        if split is None or split.size == 1:
+            return F.embedding(ids, table)
+        local = ids.long() - split.rank * table.shape[0]
+        own = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(torch.where(own, local, torch.zeros_like(local)), table)
+        return tp.reduce_from(torch.where(own[..., None], rows,
+                                          torch.zeros_like(rows)))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied LM head: logits in compute dtype (fp32 accumulation)."""
+        """Tied LM head: logits in compute dtype (fp32 accumulation); the
+        rank's vocabulary columns under a split (the caller's *f* on x)."""
         return torch.matmul(x.to(self.policy.compute_dtype), self._table().t())
 
 

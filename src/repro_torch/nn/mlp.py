@@ -1,5 +1,7 @@
 """Gated MLPs (SwiGLU / GeGLU) with SubLN before the down projection (Eq. 5)
-— port of ``repro/nn/mlp.py``."""
+— port of ``repro/nn/mlp.py``.  Under a tensor-parallel split the rank
+computes its ``d_ff`` columns: *f* on x, gate and up column-parallel, SubLN
+over the whole width, down row-parallel (``core/bitlinear.py``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -9,6 +11,7 @@ from torch import nn
 
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear, SubLN
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.nn.layers import ACTIVATIONS
 from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, child_axes
 
@@ -35,6 +38,7 @@ class GatedMLP(nn.Module):
         return child_axes(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = tp.copy_to(x)
         if self.gated:
             h = self.up(x) * self.act(self.gate(x))
         else:

@@ -23,6 +23,12 @@ recompute what produced it and its gradient flows.  ``forward`` runs an
 MoE FFN capacity-limited (also when evaluating, as JAX's ``Block.apply``),
 the decode paths at full capacity; the stack sums the layers' auxiliary
 MoE losses in fp32.
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) a block
+takes its parameters' compute copies at its use (``tp.using``: the FSDP
+gather along the plan's other axes, the ``"model"`` shard kept) inside its
+forward, so ``torch.utils.checkpoint`` repeats the gather in the
+recompute, as JAX's remat does; nothing gathers the whole model.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core import quant as Q
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.layers import RMSNorm
 from repro_torch.nn.mlp import GatedMLP
@@ -170,6 +177,10 @@ class Block(nn.Module):
         ``collect_states`` else None, fp32 MoE auxiliary loss (0 without an
         MoE FFN)).  A cross-attention mixer attends ``memory`` [B, T, D]
         under ``memory_mask`` [B, T]."""
+        with tp.using(self):
+            return self._forward(x, positions, memory, memory_mask, collect_states)
+
+    def _forward(self, x, positions, memory, memory_mask, collect_states):
         states = None
         if self.mamba is not None:
             if collect_states:

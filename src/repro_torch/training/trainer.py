@@ -11,19 +11,33 @@ JAX metrics dict (``loss``, ``loss_ce``, [``loss_ld``, ``loss_ad``,]
 teacher of the distill step is a module holding its own weights; it runs
 under ``torch.no_grad()``.
 
-The CE step also runs under a sharding plan (``distributed/sharding.py``;
-JAX's launcher jits it with the plan's ``in_shardings``):
-``init_train_state(model, opt, plan)`` replaces the model's parameters by
-DTensors placed by the plan from ``param_axes()``, and the AdamW moments by
-theirs (``state_axes``), so a rank holds the plan's share of each.  The step
-takes the whole batch on every rank and computes on the rank's rows of it
-(split over the mesh axes of the ``"batch"`` rule) with every parameter
-gathered whole for the forward and backward, so the kernels see plain
-tensors.  The gradients return to the parameters' placements summed over
-the ranks that split the batch and averaged over the others, which computed
-the same rows.  The CE is the whole batch's token mean (each rank's NLL sum
-over the batch's mask count), the MoE loss the mean of the ranks', and the
-metrics are the whole batch's.
+The CE and distill steps also run under a sharding plan
+(``distributed/sharding.py``; JAX's launcher jits them with the plan's
+``in_shardings``): ``init_train_state(model, opt, plan)`` replaces the
+model's parameters by DTensors placed by the plan from ``param_axes()``,
+and the AdamW moments by theirs (``state_axes``), so a rank holds the
+plan's share of each; ``place_model(teacher, plan)`` places the distill
+step's teacher likewise.  The
+step takes the whole batch on every rank and computes on the rank's rows
+of it (split over the mesh axes of the ``"batch"`` rule), on one of two
+routes, chosen from the config (``step_route``):
+
+* ``"split"`` (the dense decoders): the ranks along ``"model"`` split the
+  compute (``distributed/tensor_parallel.py``): each block gathers its
+  parameters along the other axes at its use, keeps their ``"model"``
+  shards and computes its heads, ``d_ff`` columns and vocabulary slice.  A
+  ``"model"``-sharded parameter's gradient is the rank's own; a
+  replicated one is left alone where *f* and *g* made the ranks' equal and
+  summed where their contributions differ (the kv projections replicated
+  by the fallback, the qk norms);
+* ``"gathered"`` (the MoE, SSM, hybrid and cross families): every
+  parameter gathered whole for the forward and backward, the ranks along
+  ``"model"`` computing the same rows, their gradients averaged.
+
+Either way a gradient is summed over the ranks that split the batch.  The
+CE is the whole batch's token mean (each rank's NLL sum over the batch's
+mask count), the MoE loss the mean of the ranks', and the metrics and
+``grad_norm`` are the whole batch's.
 """
 from __future__ import annotations
 
@@ -36,8 +50,11 @@ from torch import nn
 
 from repro_torch.core.distill import (DistillConfig, bitdistill_loss, nll_sum,
                                       softmax_cross_entropy)
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.lm import CausalLM
 from repro_torch.nn.layers import Embedding
 from repro_torch.nn.moe import MoEMLP, group_count
 from repro_torch.training.optimizer import AdamW, AdamWState
@@ -145,12 +162,10 @@ def make_train_step(model, optimizer: AdamW, lr_fn: Callable,
     ``model``'s parameters (``init_train_state(model, ..., plan)``); with a
     ``plan`` every rank of its mesh passes the same whole batch."""
     if plan is not None:
-        return _sharded_train_step(model, optimizer, lr_fn, accum, plan)
+        return _sharded_step(model, optimizer, lr_fn, accum, plan,
+                             ce_loss_parts(model))
 
-    def loss_fn(mb):
-        logits, _, moe = forward(model, mb)
-        ce = softmax_cross_entropy(logits, mb["labels"], mb.get("loss_mask"))
-        return ce + moe, {"loss_ce": ce, "loss_moe": moe}
+    loss_fn = ce_loss_parts(model)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         loss, metrics, grads = _accumulate(state, batch, accum, loss_fn)
@@ -254,43 +269,127 @@ def _all_sum(t: torch.Tensor, plan, axes) -> torch.Tensor:
     return t
 
 
-def _sharded_train_step(model, optimizer: AdamW, lr_fn: Callable, accum: int,
-                        plan) -> Callable:
+def step_route(model, plan) -> str:
+    """How a step computes under ``plan``, from the model's config before
+    the step is built: ``"split"`` for a dense decoder (``family ==
+    "dense"``: its heads, ``d_ff`` columns and vocabulary split over
+    ``"model"``, ``distributed/tensor_parallel.py``), ``"gathered"`` for the
+    other families (every parameter gathered whole for the step), and
+    ``"plain"`` without a plan."""
+    if plan is None:
+        return "plain"
+    cfg = getattr(model, "cfg", None)
+    if isinstance(model, CausalLM) and cfg is not None and cfg.family == "dense":
+        return "split"
+    return "gathered"
+
+
+def make_split(plan, *models, local: bool = False) -> tp.Split:
+    """The split of a step over ``models`` (student first, then teacher)."""
+    split = tp.Split(plan)
+    for m in models:
+        split.register(m, local=local)
+    return split
+
+
+def ce_loss_parts(model) -> Callable:
+    """parts(mb, den=None, n=1) -> (the loss to differentiate, its metric
+    parts): the token-mean CE plus the MoE loss.  With ``den`` and ``n`` (a
+    sharded step's rows of a batch) the CE is the rows' NLL sum over the
+    batch's mask count ``den`` and the MoE loss is divided by the ``n``
+    ranks the batch is split over, so that each metric summed over those
+    ranks is the whole batch's."""
+    def parts(mb, den=None, n=1):
+        logits, _, moe = forward(model, mb)
+        mask = mb.get("loss_mask")
+        if den is None:
+            ce = softmax_cross_entropy(logits, mb["labels"], mask)
+        else:
+            ce = nll_sum(logits, mb["labels"], mask) / den
+        if n > 1:
+            moe = moe / n
+        return ce + moe, {"loss_ce": ce, "loss_moe": moe}
+    return parts
+
+
+def distill_loss_parts(student_model, teacher_model, dcfg: DistillConfig) -> Callable:
+    """As :func:`ce_loss_parts`, Eq. 13 (``bitdistill_loss``, its ``den``
+    and ``n`` likewise); ``loss`` is reported without the MoE loss, as
+    ``bitdistill_loss`` reports it."""
+    dl = _distill_layer(dcfg)
+
+    def parts(mb, den=None, n=1):
+        with torch.no_grad():
+            t_logits, t_states, _ = forward(teacher_model, mb, distill_layer=dl)
+        logits, states, moe = forward(student_model, mb, distill_layer=dl)
+        loss, m = bitdistill_loss(logits, t_logits, states, t_states, mb["labels"],
+                                  mb.get("loss_mask"), dcfg, den=den, n=n)
+        return loss + (moe / n if n > 1 else moe), m
+    return parts
+
+
+def _sharded_step(model, optimizer: AdamW, lr_fn: Callable, accum: int, plan,
+                  parts: Callable, teacher=None) -> Callable:
+    """A step under ``plan`` on ``step_route``'s route: each rank takes its
+    rows of the whole batch; on the split route a block's parameters are
+    their compute copies at its use, on the gathered route every parameter
+    is gathered whole for the step; the teacher (placed by the caller)
+    likewise, without gradients."""
     from torch.distributed.tensor import Partial
+    route = step_route(model, plan)
+    t_params = None
+    if teacher is not None:
+        if not all(is_dtensor(p) for p in teacher.parameters()):
+            raise ValueError("a distill step under a plan takes a teacher placed "
+                             "by it: place_model(teacher, plan) first, as "
+                             "init_train_state(student, opt, plan) places the student")
+        t_params = dict(teacher.named_parameters())
+    split = (make_split(plan, model, *([teacher] if teacher is not None else []))
+             if route == "split" else None)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         for p in state.params.values():
             p.grad = None
-        parts: List[torch.Tensor] = []
+        keys, rows_parts = None, []
         for mb in (_microbatches(batch, accum) if accum > 1 else [batch]):
             rows, seq = mb["tokens"].shape
-            split = batch_split(plan, rows, seq)
-            check_moe_groups(model, rows * seq, split.n)
-            local = {k: v[split.rows] for k, v in mb.items()}
+            bs = batch_split(plan, rows, seq)
+            check_moe_groups(model, rows * seq, bs.n)
+            local = {k: v[bs.rows] for k, v in mb.items()}
             mask = mb.get("loss_mask")
             den = (torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
                    if mask is not None else float(rows * seq))
-            grad_pl = [Partial("sum") if a in split.axes else Partial("avg")
-                       for a in plan.shape]
-            with gathered(model, state.params, grad_pl):
-                logits, _, moe = forward(model, local)
-                ce = nll_sum(logits, local["labels"], local.get("loss_mask")) / den
-                (ce + moe / split.n).backward()
-            parts += [ce.detach(), moe.detach() / split.n]
-        sums = _all_sum(torch.stack(parts), plan, split.axes)
-        ce, moe = sums[0::2], sums[1::2]
+            with contextlib.ExitStack() as ctx:
+                if split is not None:
+                    split.batch_axes = bs.axes
+                    ctx.enter_context(tp.activated(split))
+                else:
+                    grad_pl = [Partial("sum") if a in bs.axes else Partial("avg")
+                               for a in plan.shape]
+                    ctx.enter_context(gathered(model, state.params, grad_pl))
+                    if teacher is not None:
+                        ctx.enter_context(gathered(teacher, t_params, None))
+                loss, m = parts(local, den, bs.n)
+                loss.backward()
+            keys = list(m)
+            rows_parts.append(torch.stack([m[k].detach().to(torch.float32)
+                                           for k in keys]))
+        sums = _all_sum(torch.stack(rows_parts), plan, bs.axes)
         grads = {}
         for name, p in state.params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads[name] = g / accum if accum > 1 else g
             p.grad = None
-        loss = (ce + moe).sum() / accum if accum > 1 else ce[0] + moe[0]
-        metrics = {"loss_ce": ce.mean(), "loss_moe": moe.mean()}
+        metrics = {k: sums[:, i].mean() for i, k in enumerate(keys)}
+        if "loss" not in metrics:
+            col = {k: sums[:, i] for i, k in enumerate(keys)}
+            total = col["loss_ce"] + col["loss_moe"]
+            metrics["loss"] = total.sum() / accum if accum > 1 else total[0]
         lr = lr_fn(state.step)
         _, state.opt_state, opt_metrics = optimizer.update(
             grads, state.opt_state, state.params, lr)
         state.step += 1
-        return state, dict(metrics, loss=loss, **opt_metrics)
+        return state, dict(metrics, **opt_metrics)
 
     return step
 
@@ -299,25 +398,28 @@ def _sharded_train_step(model, optimizer: AdamW, lr_fn: Callable, accum: int,
 # stage-3 distillation step
 # ---------------------------------------------------------------------------
 
-def make_distill_step(student_model, teacher_model, optimizer: AdamW,
-                      lr_fn: Callable, dcfg: DistillConfig,
-                      accum: int = 1) -> Callable:
-    """step(state, batch) -> (state, metrics): teacher frozen (its module
-    holds its weights), student QAT."""
-    want_states = dcfg.use_ad
-    dl = dcfg.distill_layer if want_states else None
+def _distill_layer(dcfg: DistillConfig) -> Optional[int]:
+    dl = dcfg.distill_layer if dcfg.use_ad else None
     if dl is not None and dl < 0:
         raise ValueError("resolve DistillConfig.distill_layer=-1 first "
                          "(default_distill_layer), as the pipeline does")
+    return dl
 
-    def loss_fn(mb):
-        with torch.no_grad():
-            t_logits, t_states, _ = forward(teacher_model, mb, distill_layer=dl)
-        logits, states, moe = forward(student_model, mb, distill_layer=dl)
-        loss, metrics = bitdistill_loss(
-            logits, t_logits if dcfg.use_ld else None,
-            states, t_states, mb["labels"], mb.get("loss_mask"), dcfg)
-        return loss + moe, metrics
+
+def make_distill_step(student_model, teacher_model, optimizer: AdamW,
+                      lr_fn: Callable, dcfg: DistillConfig,
+                      accum: int = 1, plan=None) -> Callable:
+    """step(state, batch) -> (state, metrics): teacher frozen (its module
+    holds its weights), student QAT.  With a ``plan`` (``state`` from
+    ``init_train_state(student, ..., plan)``, the teacher's parameters from
+    ``place_model(teacher, plan)``: JAX's ``t_shardings``) the step runs as
+    the CE step does under one, the teacher split or gathered as the
+    student is."""
+    if plan is not None:
+        return _sharded_step(student_model, optimizer, lr_fn, accum, plan,
+                             distill_loss_parts(student_model, teacher_model, dcfg),
+                             teacher=teacher_model)
+    loss_fn = distill_loss_parts(student_model, teacher_model, dcfg)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         _, metrics, grads = _accumulate(state, batch, accum, loss_fn)

@@ -3,9 +3,10 @@ test module: the test starts four of these).
 
     python tests/_torch_comm_worker.py RANK WORLD STORE_FILE OUT_DIR
 
-Runs reduced qwen3-0.6b's CE step under a dp 2 x tp 2 plan, with fp32 and
-with int8 moments, one warm step each and one step under
-``CommDebugMode``, and writes the collectives it counted to
+Runs reduced qwen3-0.6b's CE step under a dp 2 x tp 2 plan (the split
+route), with fp32 and with int8 moments, one warm step each and one step
+under ``CommDebugMode``, and writes the collectives it counted, and those
+the split recorded (``tensor_parallel.recording()``), to
 ``OUT_DIR/comm_<rank>.json``.  Imports torch and the port only.
 """
 import json
@@ -19,6 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from torch.distributed.tensor.debug import CommDebugMode  # noqa: E402
 
+from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
 from repro_torch.distributed.sharding import ShardingPlan, default_rules  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import build_model, get_config  # noqa: E402
@@ -37,17 +39,19 @@ def main(rank: int, world: int, store: str, out: Path) -> None:
     batch = {"tokens": torch.zeros((ROWS, SEQ), dtype=torch.int32),
              "labels": torch.zeros((ROWS, SEQ), dtype=torch.int32),
              "loss_mask": torch.ones((ROWS, SEQ))}
-    counts = {}
+    counts, recorded = {}, {}
     for state_dtype in ("float32", "int8_blockwise"):
         model = build_model(cfg, gen=torch.Generator().manual_seed(0), device="cpu")
         opt = AdamW(AdamWConfig(state_dtype=state_dtype))
         state = init_train_state(model, opt, plan)
         step = make_train_step(model, opt, lambda s: torch.tensor(1e-4), plan=plan)
         state, _ = step(state, batch)
-        with CommDebugMode() as comm:
+        with CommDebugMode() as comm, tp.recording() as rec:
             step(state, batch)
         counts[state_dtype] = {str(k): v for k, v in comm.get_comm_counts().items()}
-    (out / f"comm_{rank}.json").write_text(json.dumps(counts))
+        recorded[state_dtype] = rec
+    (out / f"comm_{rank}.json").write_text(json.dumps(
+        {"counts": counts, "recorded": recorded}))
     dist.destroy_process_group()
 
 
