@@ -93,11 +93,11 @@ result line):
      commit (async loop, speculation, supervisor) leaves the tokens; and
      ``python -m repro_torch.launch.serve --arch mamba2-780m`` exits 0 on
      the contiguous cache;
- 12. the dense configs: (a) ``gemma-7b`` at full width and depth (28
-     layers, 16 kv heads of 256, d_ff 24576, vocab 256000; packed, bf16)
+ 12. the dense configs: (a) ``gemma-7b`` at full width and 14 of its 28
+     layers (16 kv heads of 256, d_ff 24576, vocab 256000; packed, bf16)
      served through the port's ``Engine`` with the paged kernels at
      head_dim 256, phase 3's prompts x 32 greedy tokens, w2a8 counted at
-     196 launches a step and the paged kernels at 28, step times, tok/s,
+     98 launches a step and the paged kernels at 14, step times, tok/s,
      KV bytes, peak memory, a profile's idle share and the tokens the plain
      route gives alike (printed); (b) its widths at depth 2 in fp32, the
      kernel route against the plain one, teacher-forced: each layer's
@@ -110,7 +110,7 @@ result line):
      against the dense one, outputs and input gradients, bf16 scores
      against fp32, and each forward's peak memory;
  13. the MoE and hybrid families: granite-moe-1b-a400m served (a) and
-     distilled (b; 12 of its 24 layers) at full width, one full-width jamba
+     distilled (b), each at full width and 12 of its 24 layers, one full-width jamba
      (mamba, dense) block on both routes (c), jamba reduced served and
      stepped on both routes (d), and ``--arch granite-moe-1b-a400m``
      through the launcher (e);
@@ -150,9 +150,21 @@ result line):
      distill step (FP teacher, both kernels) under a plan on a one-rank
      NCCL group against the same steps without one: the split route taken
      (f/g calls counted), metrics and parameters bitwise, 56 bitlinear and
-     3 relation_kd launches a step; (c) granite-moe-1b-a400m at two layers,
-     CE and distill steps under the same plan on the gathered route (no
-     f/g call), metrics and parameters bitwise the steps without one;
+     3 relation_kd launches a step; (c) whisper-medium at two encoder and
+     two decoder layers, CE and distill steps under the same plan on the
+     gathered route (no f/g call), metrics and parameters bitwise the
+     steps without one;
+ 18. the split route for the MoE, SSM and hybrid families: (a)
+     full-width layers over emulated ranks, a collective at a time, against
+     the whole layer: granite-moe-1b-a400m's MoE layer over 8 ranks of 4
+     experts, grok-1-314b's over 16 ranks by d_ff (the fallback where the
+     experts do not divide) and mamba2-780m's Mamba2Block over 16 ranks of 3
+     heads on the kernel route; (b) ssd_scan on a rank's heads at tp 16 (mamba2-780m's 3 of 48,
+     jamba's 8 of 128 at (128, 128)) against the whole launch's slice and
+     ``ssd_chunked``, timed beside the whole launch; (c) granite at two
+     layers and mamba2-780m at four, full width, CE and distill steps under
+     the one-rank plan on the split route, bitwise the steps without one,
+     their (bitlinear, relation_kd, ssd_scan) launches a step asserted;
   then summary lines: card, kernels (JSON), and the result line last.
 
 ``python3 chip_smoke.py --phases 2,17`` runs phase 1, the named phases and
@@ -2865,18 +2877,25 @@ def _common_prefix(a, b):
     return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
 
+# 12a's and 13a's depths: half of gemma-7b's 28 and granite's 24 layers,
+# cut to keep the full run inside its time limit (12c serves gemma whole)
+GEMMA_SERVE_LAYERS, GRANITE_SERVE_LAYERS = 14, 12
+
+
 def serve_gemma(dev, out_dir):
-    """12a: gemma-7b at full width and depth (28 layers, d_model 3072, 16 kv
-    heads of 256, d_ff 24576, a tied 256,000-word vocabulary, GeGLU,
-    embed_scale), as ``serve_packed`` serves it: w2a8 counted at 7 x 28 =
-    196 launches a step.  The plain route's tokens are not a gate: at bf16
+    """12a: gemma-7b at full width (d_model 3072, 16 kv heads of 256, d_ff
+    24576, a tied 256,000-word vocabulary, GeGLU, embed_scale) and
+    ``GEMMA_SERVE_LAYERS`` of its 28 layers, as ``serve_packed`` serves it:
+    w2a8 counted at 7 a layer a step.  The plain route's tokens are not a gate: at bf16
     over 28 layers the two routes sum in other orders and a near tie may go
     either way."""
-    return serve_packed(dev, out_dir, "gemma-7b", 7, "gemma", gate_plain=False)
+    return serve_packed(dev, out_dir, "gemma-7b", 7, "gemma", gate_plain=False,
+                        layers=GEMMA_SERVE_LAYERS)
 
 
-def serve_packed(dev, out_dir, name, per_layer, tag, gate_plain):
-    """``name`` at full width and depth, packed ternary weights from the
+def serve_packed(dev, out_dir, name, per_layer, tag, gate_plain, layers=None):
+    """``name`` at full width and depth (or ``layers`` deep), packed ternary
+    weights from the
     port's seeded init, bf16, through the port's ``Engine``: phase 3's
     prompts at t=0 x 32 greedy tokens.  Gates: the engine resolves
     ``"fused"``, every request gets its tokens, w2a8 counts ``per_layer`` a
@@ -2899,6 +2918,8 @@ def serve_packed(dev, out_dir, name, per_layer, tag, gate_plain):
     from repro_torch.serving import ServeConfig
 
     base = get_config(name).replace(compute_dtype="bfloat16")
+    if layers is not None:
+        base = base.replace(n_layers=layers)
     cfg = base.with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3289,8 +3310,8 @@ class _Route:
             self.ssd.append(([t.detach() for t in (x, a, dt, B, C)], chunk))
             return ssd_inner(x, a, dt, B, C, chunk)
 
-        def fwd_tap(x2d, wt, scheme, shard=None):
-            out = fwd_inner(x2d, wt, scheme, shard)
+        def fwd_tap(x2d, wt, scheme, shard=None, delta=None):
+            out = fwd_inner(x2d, wt, scheme, shard, delta)
             # a copy of the weight: an fp32 master weight reaches the kernel
             # as the parameter itself, which the optimizer then updates
             self.bitlinear.append((x2d.detach(), wt.detach().clone(),
@@ -4703,7 +4724,8 @@ TP_BLOCKS = (("mistral-large-123b", 12288, 96, 8, 128, 28672, 512, (8,)),
              ("qwen3-0.6b", 1024, 16, 8, 128, 3072, TRAIN_BATCH * QWEN_SEQ,
               (2, 4, 16)))
 # 17b: phase 15a's model and batches, the distill step's steps; 17c: the
-# gathered route's depth (granite-moe-1b-a400m, MoE)
+# gathered route's depth (whisper-medium, cross attention: its decoder's and
+# its encoder's layers)
 TP_DISTILL_STEPS, TP_GATHERED_LAYERS = 3, 2
 
 
@@ -4839,26 +4861,39 @@ def tp_kernel_shards(dev, flush, card):
     return res
 
 
-def _plan_runs(dev, plan, name, layers, kind, route):
-    """17b and 17c: the same seeded teacher, student, batches and AdamW,
-    ``TP_DISTILL_STEPS`` steps of ``kind`` ("ce" or "distill") without a
-    plan and under ``plan``, both kernels on; the plan's step must take
-    ``route``.  -> ({tag: (metrics, bitlinear and relation_kd launches a
-    step, f/g calls, launches)}, the parameters' largest difference,
-    bitwise)."""
+PLAN_KERNELS = ("bitlinear", "relation_kd", "ssd_scan")
+
+
+def _plan_runs(dev, plan, name, layers, kind, route, seq=None):
+    """17b, 17c and 18c: the same seeded teacher, student, batches and
+    AdamW, ``TP_DISTILL_STEPS`` steps of ``kind`` ("ce" or "distill")
+    without a plan and under ``plan``, the kernels on; the plan's step must
+    take ``route``.  An encoder-decoder's batches carry seeded frames; an
+    attention-free student distills without relation KD.  -> ({tag:
+    (metrics, the launches of each of PLAN_KERNELS a step, f/g calls,
+    launches)}, the parameters' largest difference, bitwise)."""
     import torch
     from repro_torch.core.distill import DistillConfig
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.kernels.bitlinear import kernel as bl_k
     from repro_torch.kernels.relation_kd import kernel as rk_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
     from repro_torch.models import build_model, get_config
     from repro_torch.training.optimizer import AdamW, AdamWConfig
     from repro_torch.training.schedule import constant
     from repro_torch.training.trainer import (default_distill_layer, init_train_state,
                                               make_distill_step, make_train_step,
                                               place_model, step_route)
+    counters = (bl_k.launches, rk_k.launches, ssd_k.launches)
     tcfg = get_config(name).replace(n_layers=layers)
-    batches = _train_batches("corpus", 17, TP_DISTILL_STEPS, dev, QWEN_SEQ)
+    batches = _train_batches("corpus", 17, TP_DISTILL_STEPS, dev, seq or QWEN_SEQ)
+    if tcfg.family == "audio":
+        tcfg = tcfg.replace(n_encoder_layers=layers, compute_dtype="bfloat16")
+        gen = torch.Generator(device=dev).manual_seed(17)
+        batches = [dict({k: v[:CROSS_TRAIN_BATCH] for k, v in b_.items()},
+                        frames=torch.randn((CROSS_TRAIN_BATCH, tcfg.encoder_seq,
+                                            tcfg.d_model), generator=gen, device=dev))
+                   for b_ in batches]
     lr = lambda s: constant(s, 1e-4)
     runs, params = {}, {}
     for tag, p in (("plain", None), ("plan", plan)):
@@ -4866,32 +4901,33 @@ def _plan_runs(dev, plan, name, layers, kind, route):
                               device=dev)
         scfg, student = _student_from(teacher, tcfg, True, dev)
         if p is not None and step_route(student, p) != route:
-            fail(f"17: {scfg.name} under the plan takes the "
+            fail(f"{scfg.name} under the plan takes the "
                  f"{step_route(student, p)!r} route, not {route!r}")
         opt = AdamW(AdamWConfig())
         state = init_train_state(student, opt, p)
         if kind == "distill":
             if p is not None:
                 place_model(teacher, p)
-            dcfg = DistillConfig(distill_layer=default_distill_layer(scfg),
-                                 use_kernel=True)
+            dcfg = (DistillConfig(use_ad=False, use_kernel=True)
+                    if scfg.family == "ssm" else
+                    DistillConfig(distill_layer=default_distill_layer(scfg),
+                                  use_kernel=True))
             step = make_distill_step(student, teacher, opt, lr, dcfg, plan=p)
         else:
             del teacher
             step = make_train_step(student, opt, lr, plan=p)
         metrics, per_step = [], []
-        bl_k.launches.reset()
-        rk_k.launches.reset()
+        for c in counters:
+            c.reset()
         tp.counter.reset()
         for b in batches:
-            b0, r0 = bl_k.launches.count, rk_k.launches.count
+            before = [c.count for c in counters]
             state, m = step(state, b)
             torch.cuda.synchronize()
-            per_step.append((bl_k.launches.count - b0, rk_k.launches.count - r0))
+            per_step.append(tuple(c.count - b0 for c, b0 in zip(counters, before)))
             metrics.append({k: float(v) for k, v in m.items()})
         runs[tag] = (metrics, per_step, (tp.counter.f, tp.counter.g),
-                     {"bitlinear": bl_k.launches.count,
-                      "relation_kd": rk_k.launches.count})
+                     {c.name: c.count for c in counters})
         params[tag] = {k: (v.full_tensor() if p is not None else v).detach().clone()
                        for k, v in state.params.items()}
         del student, opt, state, step
@@ -4903,32 +4939,32 @@ def _plan_runs(dev, plan, name, layers, kind, route):
 
 
 def _check_plan_runs(what, runs, diff, bitwise, want=None):
-    """17b and 17c's fatal checks: finite losses, the launches a step (each
-    ``want``, else the plain step's), and the plan's metrics and parameters
-    bitwise the plain step's."""
+    """17b, 17c and 18c's fatal checks: finite losses, the launches a step
+    (each ``want``, else the plain step's), and the plan's metrics and
+    parameters bitwise the plain step's."""
     for tag, (metrics, per_step, fg, _) in runs.items():
         print(f"  ({what}) {tag}: losses {[m['loss'] for m in metrics]}, grad_norm "
-              f"{[m['grad_norm'] for m in metrics]}, (bitlinear, relation_kd) "
+              f"{[m['grad_norm'] for m in metrics]}, ({', '.join(PLAN_KERNELS)}) "
               f"launches a step {per_step}, f/g calls {fg}", flush=True)
         expect = [want] * TP_DISTILL_STEPS if want else runs["plain"][1]
         if per_step != expect or not all(math.isfinite(m["loss"]) for m in metrics):
-            fail(f"17{what} {tag}: launches a step {per_step} (want {expect}) or "
+            fail(f"{what} {tag}: launches a step {per_step} (want {expect}) or "
                  "losses not finite")
     print(f"  ({what}) parameters after step {TP_DISTILL_STEPS}: largest difference "
           f"{diff!r}, bitwise {bitwise} (bound 0: at one rank the plan's "
           "collectives are the identity and its reductions the unsharded ones)",
           flush=True)
     if runs["plan"][0] != runs["plain"][0] or not bitwise:
-        fail(f"17{what}: the plan's metrics {runs['plan'][0]} vs {runs['plain'][0]}, "
+        fail(f"{what}: the plan's metrics {runs['plan'][0]} vs {runs['plain'][0]}, "
              f"parameters {diff!r} apart: want them equal")
 
 
 def tensor_parallel(dev, out_dir, card):
     """Phase 17: (a) the bitlinear kernel at the split's shard shapes, full
     width; on a one-rank NCCL group, (b) the distill step under a plan on
-    the split route and (c) granite's CE and distill steps under it on the
-    gathered route, each against the plain step.  -> ({path: launches}, a
-    summary)."""
+    the split route and (c) whisper-medium's CE and distill steps under it
+    on the gathered route, each against the plain step.  -> ({path:
+    launches}, a summary)."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed.sharding import ShardingPlan, default_rules
@@ -4953,20 +4989,21 @@ def tensor_parallel(dev, out_dir, card):
         plan = ShardingPlan(make_mesh(1, 1), default_rules(False))
         runs, diff, bitwise = _plan_runs(dev, plan, "qwen3-0.6b", DIST_LAYERS,
                                          "distill", "split")
-        _check_plan_runs("b", runs, diff, bitwise,
-                         want=(2 * 7 * DIST_LAYERS, 3))  # forward + remat; q, k, v
+        _check_plan_runs("17b", runs, diff, bitwise,   # forward + remat; q, k, v
+                         want=(2 * 7 * DIST_LAYERS, 3, 0))
         if min(runs["plan"][2]) <= 0:
             fail(f"17b: f/g calls {runs['plan'][2]} under the plan: the step did "
                  "not take the split route")
         out["17b"] = dict(runs=runs, param_diff=diff, bitwise=bitwise)
-        part(f"17c: {GRANITE} (full width, {TP_GATHERED_LAYERS} layers), "
-             f"{TP_DISTILL_STEPS} CE and distill steps at {TRAIN_BATCH} x {QWEN_SEQ}, "
-             "both kernels, without and under the plan: the gathered route")
+        part(f"17c: {WHISPER} (full width, {TP_GATHERED_LAYERS} encoder and "
+             f"{TP_GATHERED_LAYERS} decoder layers), {TP_DISTILL_STEPS} CE and "
+             f"distill steps at {CROSS_TRAIN_BATCH} x {QWEN_SEQ}, both kernels, "
+             "without and under the plan: the gathered route")
         for kind in ("ce", "distill"):
-            g_runs, g_diff, g_bitwise = _plan_runs(dev, plan, GRANITE,
+            g_runs, g_diff, g_bitwise = _plan_runs(dev, plan, WHISPER,
                                                    TP_GATHERED_LAYERS, kind,
                                                    "gathered")
-            _check_plan_runs(f"c {kind}", g_runs, g_diff, g_bitwise)
+            _check_plan_runs(f"17c {kind}", g_runs, g_diff, g_bitwise)
             if g_runs["plan"][2] != (0, 0) or g_runs["plan"][3]["bitlinear"] <= 0 \
                     or (kind == "distill") != (g_runs["plan"][3]["relation_kd"] > 0):
                 fail(f"17c {kind}: f/g calls {g_runs['plan'][2]} (want none on the "
@@ -4981,10 +5018,377 @@ def tensor_parallel(dev, out_dir, card):
         json.dumps(out, indent=1, default=str))
     return {"distill qwen3-0.6b under a plan, split route (17b)":
             out["17b"]["runs"]["plan"][3],
-            f"CE {GRANITE} under a plan, gathered route (17c)":
+            f"CE {WHISPER} under a plan, gathered route (17c)":
             out["17c_ce"]["runs"]["plan"][3],
-            f"distill {GRANITE} under a plan, gathered route (17c)":
+            f"distill {WHISPER} under a plan, gathered route (17c)":
             out["17c_distill"]["runs"]["plan"][3]}, out
+
+
+# -- phase 18: the split route for the MoE, SSM and hybrid families -----------------
+
+# 18a: granite's MoE layer split by experts over this many emulated ranks
+# (4 experts each), grok's (8 experts) by d_ff and mamba2-780m's block by
+# heads over SPLIT_TP; 18b: ssd_scan on a rank's heads at SPLIT_TP: (label,
+# b, S, H, P, N); 18c: the depths of the one-rank runs
+MOE_SPLIT_RANKS, SPLIT_TP = 8, 16
+SSD_SPLIT_SHAPES = (("mamba2-780m", TRAIN_BATCH, MAMBA_SEQ, 48, 64, 128),
+                    ("jamba-1.5-large-398b", 2, MAMBA_SEQ, 128, 128, 128))
+SPLIT_RUNS = ((GRANITE, 2, QWEN_SEQ), ("mamba2-780m", 4, MAMBA_SEQ))
+GROK = "grok-1-314b"
+
+
+class _Stop(Exception):
+    pass
+
+
+class _RankSim:
+    """One rank of a ``size``-way split emulated in one process for a
+    layer's forward: its k-th collective returns ``known[k]``, the value
+    the ranks reduce to, where that is known; else it keeps the rank's
+    operand and stops the forward (``_emulate`` reduces the operands over
+    the ranks and runs them again).  ``parts`` maps a linear layer's
+    logical axes to its part ("col" or "row")."""
+
+    def __init__(self, size, rank, known, parts=None):
+        self.size, self.rank, self.known = size, rank, known
+        self.parts, self.calls, self.operand = parts or {}, 0, None
+
+    def all_reduce(self, t, axis="model", op="sum"):
+        self.calls += 1
+        if self.calls <= len(self.known):
+            return self.known[self.calls - 1]
+        self.operand = (op, t)
+        raise _Stop
+
+    def all_max(self, t):
+        return self.all_reduce(t, op="max")
+
+    def sum64(self, t):
+        return self.all_reduce(t)
+
+    def acc_sum(self, t):
+        return self.all_reduce(t)
+
+    def linear_part(self, logical, shape):
+        return self.parts.get(tuple(logical))
+
+
+def _emulate(size, rank_forward, parts=None):
+    """``rank_forward(sim)`` (the layer on the rank's shards, no gradient)
+    on each of ``size`` emulated ranks, a collective at a time: each
+    collective's operands summed (max: maximized) over the ranks in rank
+    order, as the group reduces them, until the ranks run through.  ->
+    (each rank's output, the collectives' reduced values)."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    known = []
+    while True:
+        outs, operands = [], []
+        for r in range(size):
+            sim = _RankSim(size, r, known, parts)
+            try:
+                with torch.no_grad(), tp.activated(sim):
+                    outs.append(rank_forward(sim))
+            except _Stop:
+                operands.append(sim.operand)
+        if not operands:
+            return outs, known
+        if len(operands) != size:
+            fail(f"18a: {len(operands)} of {size} ranks reached collective "
+                 f"{len(known)}")
+        total = operands[0][1]
+        for op, t in operands[1:]:
+            total = torch.maximum(total, t) if op == "max" else total + t
+        known.append(total)
+
+
+def _swapped(module, shards):
+    """A context: ``module``'s parameters named in ``shards`` replaced by
+    the given tensors (a rank's shards) for its duration."""
+    import contextlib
+    import torch
+
+    @contextlib.contextmanager
+    def swap():
+        saved = {}
+        for name, t in shards.items():
+            owner, attr = module, name
+            while "." in attr:
+                head, attr = attr.split(".", 1)
+                owner = getattr(owner, head)
+            saved[name] = (owner, attr, getattr(owner, attr))
+            setattr(owner, attr, torch.nn.Parameter(t, requires_grad=False))
+        try:
+            yield
+        finally:
+            for owner, attr, p in saved.values():
+                setattr(owner, attr, p)
+    return swap()
+
+
+def _split_check(what, layer, x, n, shards_of, flush, card, bound_rel, parts=None,
+                 call=lambda m, x: m(x)):
+    """``layer`` (switched to the exact forms a split takes,
+    ``models/lm.py::set_exact``) whole on ``x`` against ``n`` emulated ranks
+    on ``shards_of(rank)``: each rank's output (the layer's, after its
+    last collective) within ``bound_rel`` of the whole output's largest
+    entry (bitwise printed); then the whole forward and one rank's (its
+    collectives' results given) timed.  -> a summary."""
+    import torch
+    from repro_torch.models import lm
+    lm.set_exact(layer)
+    with torch.no_grad():
+        y = call(layer, x)
+
+    def rank_forward(sim):
+        with _swapped(layer, shards_of(sim.rank)):
+            return call(layer, x)
+
+    outs, known = _emulate(n, rank_forward, parts)
+    bound = bound_rel * float(y.abs().max())
+    err = max(float((o - y).abs().max()) for o in outs)
+    bitwise = all(bool(torch.equal(o, y)) for o in outs)
+    if not (all(bool(torch.isfinite(o).all()) for o in outs) and err <= bound):
+        fail(f"18a {what}: {n} emulated ranks differ from the whole layer by "
+             f"{err!r} (bound {bound!r})")
+
+    def whole_forward():
+        with torch.no_grad():
+            call(layer, x)
+
+    def one_rank():
+        from repro_torch.distributed import tensor_parallel as tp
+        sim = _RankSim(n, 0, known, parts)
+        with torch.no_grad(), tp.activated(sim), _swapped(layer, shards_of(0)):
+            call(layer, x)
+
+    whole_ms = time_ms(whole_forward, iters=5, flush=flush)
+    rank_ms = time_ms(one_rank, iters=5, flush=flush)
+    print(f"  (a) {what}: x {list(x.shape)} over {n} ranks, {len(known)} collectives a "
+          f"rank: largest difference {err!r} (bound {bound:.3g}), bitwise {bitwise}; "
+          f"forward ms ({card}): whole {whole_ms:.4f}, one rank {rank_ms:.4f}",
+          flush=True)
+    return dict(ranks=n, collectives=len(known), max_abs_err=err, bound=bound,
+                bitwise=bitwise, whole_ms=whole_ms, rank_ms=rank_ms)
+
+
+def moe_split_layer(dev, flush, card):
+    """18a: the split route's layers at full width in fp32, each whole and
+    on each of its emulated ranks (``_split_check``): granite-moe-1b-a400m's
+    MoE layer (32 experts of d_ff 512, top 8, SubLN, QAT) over
+    ``MOE_SPLIT_RANKS`` ranks of 4 experts (the replicated router, the
+    rank's slice of the dispatch, its experts, its partial combine in
+    float64: bound 1e-6); grok-1-314b's (8 experts of d_ff 32768, top 2)
+    over ``SPLIT_TP`` ranks by d_ff, the fallback where the experts do not
+    divide (each expert's Δ and SubLN over the shards; its ``down``
+    outputs fp32 partial sums over 2048 of the 32768 rows, summed in
+    float64: bound an fp32 ulp's random walk over the 32768 rows,
+    2^-23·sqrt(32768) = 2.2e-5); mamba2-780m's Mamba2Block on the kernel route
+    over ``SPLIT_TP`` ranks of 3 heads (in_proj's columns picked by
+    ``BitLinear.forward_cols`` with the whole weight's Δ, the conv's
+    channels, ssd_scan on the heads, SubLN over the shards, out_proj
+    row-parallel through ``bitlinear_forward_acc``: bound 1e-6).  ->
+    {label: summary}."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.models import get_config
+    from repro_torch.nn.module import DTypePolicy
+    from repro_torch.nn.moe import MoEMLP
+    from repro_torch.nn.ssm import Mamba2Block
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    out = {}
+
+    def moe(name, seed):
+        cfg = get_config(name)
+        return cfg, MoEMLP(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                           cfg.activation, capacity_factor=cfg.capacity_factor,
+                           group_size=cfg.moe_group_size, subln=True, quant=Q.QAT,
+                           policy=f32, gen=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+    def tokens(shape, seed):
+        return torch.randn(shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+
+    call = lambda m, x: m(x)[0]            # noqa: E731
+    cfg, layer = moe(GRANITE, 18)
+    x = tokens((TRAIN_BATCH, QWEN_SEQ, cfg.d_model), 19)
+    n, per = MOE_SPLIT_RANKS, cfg.n_experts // MOE_SPLIT_RANKS
+    w = {k: getattr(layer, k).w.data for k in ("up", "gate", "down")}
+    out[GRANITE] = _split_check(
+        f"{GRANITE} MoE layer, {per} experts a rank", layer, x, n,
+        lambda r: {f"{k}.w": t[r * per:(r + 1) * per] for k, t in w.items()},
+        flush, card, 1e-6, call=call)
+    del layer, x, w
+    torch.cuda.empty_cache()
+
+    cfg, layer = moe(GROK, 20)
+    x = tokens((2, QWEN_SEQ, cfg.d_model), 21)
+    n, f = SPLIT_TP, cfg.d_ff // SPLIT_TP
+    w = {k: getattr(layer, k).w.data for k in ("up", "gate", "down")}
+    scale = layer.subln.scale.data
+    out[GROK] = _split_check(
+        f"{GROK} MoE layer, d_ff {f} of {cfg.d_ff} a rank ({cfg.n_experts} experts)",
+        layer, x, n,
+        lambda r: {"up.w": w["up"][..., r * f:(r + 1) * f],
+                   "gate.w": w["gate"][..., r * f:(r + 1) * f],
+                   "down.w": w["down"][:, r * f:(r + 1) * f],
+                   "subln.scale": scale[r * f:(r + 1) * f]},
+        flush, card, 2.0 ** -23 * cfg.d_ff ** 0.5, call=call)
+    del layer, x, w, scale
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-780m")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    blk = Mamba2Block(cfg.d_model, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                      chunk=cfg.ssm_chunk, policy=f32, gen=gen,
+                      quant=Q.QuantConfig(mode="qat", use_kernel=True),
+                      device=dev)
+    with torch.no_grad():
+        blk.D.uniform_(0.5, 1.5, generator=gen)
+        blk.conv_b.uniform_(-0.1, 0.1, generator=gen)
+        blk.norm.scale.uniform_(0.8, 1.2, generator=gen)
+    x = tokens((TRAIN_BATCH, MAMBA_SEQ, cfg.d_model), 23)
+    n = SPLIT_TP
+    hr, di = blk.n_heads // n, blk.d_inner // n
+    whole = {k: getattr(blk, k).data for k in ("A_log", "D", "dt_bias")}
+    scale, w_out = blk.norm.scale.data, blk.out_proj.w.data
+
+    def shards(r):
+        s = {k: t[r * hr:(r + 1) * hr] for k, t in whole.items()}
+        s.update({"norm.scale": scale[r * di:(r + 1) * di],
+                  "out_proj.w": w_out[r * di:(r + 1) * di]})
+        return s
+
+    out["mamba2-780m"] = _split_check(
+        f"mamba2-780m Mamba2Block, {hr} of {blk.n_heads} heads a rank", blk, x, n,
+        shards, flush, card, 1e-6, parts={tuple(blk.out_proj.axes): "row"})
+    del blk, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_split_heads(dev, flush, card):
+    """18b: the ssd_scan kernel on a rank's heads at tp ``SPLIT_TP``
+    (mamba2-780m: 3 of 48 heads of 64; jamba's block: 8 of 128 heads of
+    128; N = 128, fp32, inputs as ``_ssd_scan_shape`` makes them), for the
+    first and the last rank: y and the final state against the whole
+    launch's slice of those heads and against ``ssd_chunked`` on them
+    (phase 2's tolerance 1e-4 + 1e-4·|y|; bitwise against the whole launch
+    printed), then the whole launch and one rank's, timed.  -> a
+    summary."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    out = {}
+    for label, b, s_, h, p, n in SSD_SPLIT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(18)
+        r = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+        A = -(1.0 + 7.0 * torch.rand((h,), generator=gen, device=dev))
+        dt = torch.nn.functional.softplus(r(b, s_, h) - 2.0)
+        x, a, B, C = r(b, s_, h, p), torch.exp(dt * A), r(b, s_, n), r(b, s_, n)
+        y, hT = ssd_scan_kernel(x, a, dt, B, C, 256)
+        hT = hT.reshape(b, h, n, p)
+        per = h // SPLIT_TP
+        worst, bitwise = 0.0, True
+        for rank in (0, SPLIT_TP - 1):
+            sl = slice(rank * per, (rank + 1) * per)
+            ins = (x[:, :, sl].contiguous(), a[:, :, sl].contiguous(),
+                   dt[:, :, sl].contiguous(), B, C)
+            yr, hr = ssd_scan_kernel(*ins, 256)
+            hr = hr.reshape(b, per, n, p)
+            yc, hc = ssd_chunked(*ins, chunk=256)
+            hc = hc.transpose(-1, -2)
+            for what, got, want in (("y vs the whole launch", yr, y[:, :, sl]),
+                                    ("h vs the whole launch", hr, hT[:, sl]),
+                                    ("y vs ssd_chunked", yr, yc),
+                                    ("h vs ssd_chunked", hr, hc)):
+                e = (got - want).abs()
+                if not (bool(torch.isfinite(got).all())
+                        and bool((e <= 1e-4 + 1e-4 * want.abs()).all())):
+                    fail(f"18b {label} tp {SPLIT_TP} rank {rank} {what}: max err "
+                         f"{float(e.max())!r}")
+                worst = max(worst, float(e.max()))
+            bitwise &= bool(torch.equal(yr, y[:, :, sl]) and torch.equal(hr, hT[:, sl]))
+        ins0 = (x[:, :, :per].contiguous(), a[:, :, :per].contiguous(),
+                dt[:, :, :per].contiguous(), B, C)
+        whole_ms = both_ms(lambda: ssd_scan_kernel(x, a, dt, B, C, 256), flush)
+        rank_ms = both_ms(lambda: ssd_scan_kernel(*ins0, 256), flush)
+        bd, by = bound_ms("ssd_scan", *ins0, 256)
+        print(f"  (b) ssd_scan {label} b={b} S={s_} P={p} N={n}: a rank's {per} of {h} "
+              f"heads (BH {b * per} of {b * h}) vs the whole launch's slice and "
+              f"ssd_chunked: max err {worst:.3g}, bitwise the whole launch {bitwise}; "
+              f"ms ({card}) whole {whole_ms[0]:.4f} (device alone {whole_ms[1]:.4f}), "
+              f"one rank {rank_ms[0]:.4f} ({rank_ms[1]:.4f}; bound {bd:.5f} by {by})",
+              flush=True)
+        out[label] = dict(heads=per, of=h, bh=b * per, max_abs_err=worst,
+                          bitwise=bitwise, whole_ms=whole_ms, rank_ms=rank_ms,
+                          rank_bound_ms=bd, rank_bound_by=by)
+        del x, a, dt, B, C, y, hT
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_families(dev, out_dir, card):
+    """Phase 18: (a) granite's and grok's MoE layers and mamba2's block
+    split over emulated ranks and (b) ssd_scan on a rank's heads, all full
+    width; on a one-rank NCCL group,
+    (c) granite-moe-1b-a400m (2 layers) and mamba2-780m (4 layers) at full
+    width, ``TP_DISTILL_STEPS`` CE and distill steps under the (1, 1) plan
+    on the split route, each bitwise the plain step, with its launches a
+    step.  -> ({path: launches}, a summary)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingPlan, default_rules
+    from repro_torch.launch.mesh import make_mesh
+    out, t0 = {}, time.perf_counter()
+
+    def part(title):
+        print(f"  {title} [+{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    part(f"18a: {GRANITE}'s and {GROK}'s MoE layers and mamba2-780m's block over "
+         "emulated ranks")
+    out["18a"] = moe_split_layer(dev, scratch.zero_, card)
+    part(f"18b: ssd_scan on a rank's heads at tp {SPLIT_TP}")
+    out["18b"] = ssd_split_heads(dev, scratch.zero_, card)
+    del scratch
+    # per step (bitlinear, relation_kd, ssd_scan): the student's projections
+    # (granite's q, k, v, o; mamba2's in_proj and out_proj) and SSDs, each
+    # forward recomputed once under remat; relation_kd's q, k, v; the FP
+    # teacher's SSDs (no remat without a gradient)
+    want = {(GRANITE, "ce"): (2 * 4 * 2, 0, 0), (GRANITE, "distill"): (2 * 4 * 2, 3, 0),
+            ("mamba2-780m", "ce"): (2 * 2 * 4, 0, 2 * 4),
+            ("mamba2-780m", "distill"): (2 * 2 * 4, 0, 3 * 4)}
+    paths = {}
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        plan = ShardingPlan(make_mesh(1, 1), default_rules(False))
+        for name, layers, seq in SPLIT_RUNS:
+            for kind in ("ce", "distill"):
+                part(f"18c: {name} (full width, {layers} layers), {TP_DISTILL_STEPS} "
+                     f"{kind} steps at {TRAIN_BATCH} x {seq}, the kernels on, without "
+                     "and under the (1, 1) plan: the split route")
+                runs, diff, bitwise = _plan_runs(dev, plan, name, layers, kind,
+                                                 "split", seq)
+                _check_plan_runs(f"18c {name} {kind}", runs, diff, bitwise,
+                                 want=want[name, kind])
+                if min(runs["plan"][2]) <= 0:
+                    fail(f"18c {name} {kind}: f/g calls {runs['plan'][2]} under the "
+                         "plan: the step did not take the split route")
+                out[f"18c {name} {kind}"] = dict(runs=runs, param_diff=diff,
+                                                 bitwise=bitwise)
+                paths[f"{kind} {name} under a plan, split route (18c)"] = \
+                    runs["plan"][3]
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    part(f"phase 18 done ({card})")
+    (out_dir / "smoke_split_families.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    return paths, out
 
 
 def kernels_of(root: Path) -> None:
@@ -5029,7 +5433,7 @@ def serving_of(root: Path) -> None:
 # phases --phases may name (1, the card and the build, always runs), and
 # what each needs run before it: 10b runs at the end of phase 5, and the
 # kernels line reads phase 2's checks
-PHASES = tuple(range(2, 18))
+PHASES = tuple(range(2, 19))
 NEEDS = {10: (5,)}
 
 
@@ -5188,7 +5592,8 @@ def main() -> None:
     # kernel route vs the plain one at its widths, its launcher, and the
     # blocked forward and bf16 scores at full width
     if run(12):
-        phase("phase 12a: serving gemma-7b at full width (head_dim 256)")
+        phase(f"phase 12a: serving gemma-7b at full width and {GEMMA_SERVE_LAYERS} of "
+              "its 28 layers (head_dim 256)")
         by_path["serve gemma-7b (12a)"], phase12 = serve_gemma(dev, out_dir)
         phase("phase 12b: on-card parity, gemma-7b widths at depth 2, kernel vs plain "
               "route")
@@ -5205,9 +5610,11 @@ def main() -> None:
     # before its steps), jamba's mamba + dense block at full width and its
     # reduced stack (each route's counters reset before it), the launcher
     if run(13):
-        phase("phase 13a: serving granite-moe-1b-a400m at full width (MoE, head_dim 64)")
+        phase(f"phase 13a: serving granite-moe-1b-a400m at full width and "
+              f"{GRANITE_SERVE_LAYERS} of its 24 layers (MoE, head_dim 64)")
         by_path["serve granite-moe-1b-a400m (13a)"], phase13 = serve_packed(
-            dev, out_dir, GRANITE, 4, "granite", gate_plain=True)
+            dev, out_dir, GRANITE, 4, "granite", gate_plain=True,
+            layers=GRANITE_SERVE_LAYERS)
         # 13b's depth cut to half of granite's 24 layers to leave room for phase 14
         phase("phase 13b: BitDistill training, granite-moe-1b-a400m full width, 12 "
               "of its 24 layers")
@@ -5257,6 +5664,17 @@ def main() -> None:
               "distill step under a plan; the gathered route)")
         paths17, _ = tensor_parallel(dev, out_dir, card)
         by_path.update(paths17)
+    # 18. the split route for the MoE, SSM and hybrid families: the MoE
+    # layers, the Mamba2 block and ssd_scan on a rank's share (comparisons),
+    # then granite's
+    # and mamba2's steps under a one-rank plan (the training kernels'
+    # counters reset just before each run under the plan, read after)
+    if run(18):
+        phase("phase 18: the split route for the MoE, SSM and hybrid families (the "
+              "MoE and Mamba2 layers over emulated ranks, ssd_scan on a rank's "
+              "heads, granite's and mamba2's steps under a plan)")
+        paths18, _ = split_families(dev, out_dir, card)
+        by_path.update(paths18)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -19,24 +19,31 @@ in axis (x is the rank's columns; *g* sums the partial outputs, then the
 bias is added).  Δ is the whole weight's on every route; a row-parallel
 shard quantizes x with the whole rows' γ (maximized over the shards).
 
-The QAT product in fp32 (the kernel route, and the plain absmean route of
-a dense decoder, whose ``CausalLM`` sets ``exact_product``:
-:class:`_TernaryMatmul`) multiplies the int8 codes by the ternary weight,
-exact integers below 2**24 in any order, and scales once by (γ/127)·Δ, so
-a shard's outputs and a row-parallel shard's accumulators summed over the
-ranks equal the unsharded layer's bit for bit: no activation code of the
-split step differs from the unsharded step's.  The other families keep
-JAX's product of the dequantized operands (the split does not take them;
-the exact product moved a reduced jamba's QAT loss 1.1e-4 from JAX's).
-On the fp route, and the plain QAT route in bf16, the row-parallel
-partial outputs are floats summed in another order than one matmul's
-(~1e-7 relative in fp32, ~1e-2 in bf16).  SubLN, which sits on
-every row-parallel input (before ``wo`` and ``down``), takes its mean of
-squares over the whole width: a sum over the shards.
+``forward_cols`` computes a set of the layer's output columns from the
+whole weight at use, Δ the whole weight's: a column shard whose columns are
+not one contiguous block (Mamba2's ``in_proj``, ``nn/ssm.py``).
+
+The QAT product in fp32 (the kernel route; the plain absmean route where
+``exact_product`` is set, as ``CausalLM`` sets it for the dense, MoE and
+SSM decoders; and under a split over more than one rank,
+``tensor_parallel.exact()``: :class:`_TernaryMatmul`) multiplies the int8
+codes by the ternary weight, exact integers below 2**24 in any order, and
+scales once by (γ/127)·Δ, so a shard's outputs and a row-parallel shard's
+accumulators summed over the ranks equal the unsharded layer's bit for bit:
+no activation code of the split step differs from the unsharded step's.
+The hybrid family's plain steps keep JAX's product of the dequantized
+operands (the exact product moved a reduced jamba's QAT loss 1.12e-4 from
+JAX's, past its 1e-4 bound).  On the fp route, and the plain QAT route in
+bf16, the row-parallel partial outputs are floats summed in another order
+than one matmul's (~1e-7 relative in fp32, ~1e-2 in bf16).  SubLN, which
+sits on every row-parallel input (before ``wo``, ``down`` and
+``out_proj``), takes its mean of squares over the whole width: under a
+split over more than one rank (or with ``exact_sum``) summed in float64
+and rounded once, the unsharded value in any order; else one fp32 mean.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,7 +68,7 @@ class BitLinear(nn.Module):
         self.use_bias, self.quant, self.policy = use_bias, quant, policy
         self.axes = axes
         # the plain absmean QAT product in fp32 as the kernel computes it
-        # (the dense decoders set it: see the module's docstring)
+        # (CausalLM sets it by family: see the module's docstring)
         self.exact_product = False
         if gen is not None:
             w = fan_in_init(gen, (in_dim, out_dim), policy.param_dtype, device)
@@ -108,8 +115,10 @@ class BitLinear(nn.Module):
                 y = kops.bitlinear_matmul(x.to(cd), self.w.to(torch.float32),
                                           scheme=quant.scheme)
             elif quant.scheme == "absmean" and not quant.low_precision_quant:
+                # under a split, a layer used whole (kv heads that do not
+                # divide over the ranks) computes as its shards would
                 y = _qat_absmean(x.to(cd), self.w.to(torch.float32), self.axes,
-                                 self.exact_product)
+                                 self.exact_product or tp.exact())
             else:
                 xq = Q.fake_quant_act(x.to(cd))
                 if quant.low_precision_quant and quant.scheme == "absmean":
@@ -131,30 +140,57 @@ class BitLinear(nn.Module):
 
     def _forward_split(self, x: torch.Tensor, split, kind: str) -> torch.Tensor:
         """The rank's part of the layer (see the module's docstring)."""
+        y = self._product(x, self.w, split, kind)
+        if kind == "row" and self.quant.mode == "fp":
+            y = tp.reduce_from(y)
+        if self.use_bias:
+            y = y + self.b.to(self.policy.compute_dtype)
+        return y
+
+    def forward_cols(self, x: torch.Tensor,
+                     cols: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """The output columns ``[lo, hi)`` of each of ``cols``, in their
+        order, from ``w`` whole (under a split, a tensor the module uses
+        whole): on the QAT routes with the whole weight's Δ, so each column
+        is the whole layer's.  The caller's *f* sums ``dx``; the weight's
+        gradient is the columns', zero elsewhere."""
+        w = torch.cat([self.w[:, lo:hi] for lo, hi in cols], dim=1)
+        delta = None
+        if self.quant.mode == "qat":
+            delta = Q.absmean_scale(self.w.to(torch.float32))
+        y = self._product(x, w, tp.active(), "cols", delta)
+        if self.use_bias:
+            b = torch.cat([self.b[lo:hi] for lo, hi in cols])
+            y = y + b.to(self.policy.compute_dtype)
+        return y
+
+    def _product(self, x: torch.Tensor, w: torch.Tensor, split, kind: str,
+                 delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x`` times the shard ``w`` on the layer's route: ``kind`` "col"
+        or "row" (a ``"model"`` shard: Δ over the shards), or "cols"
+        (columns of a weight used whole, Δ given)."""
         cd = self.policy.compute_dtype
         quant = self.quant
+        part = None if kind == "cols" else kind
+        shard = (part, split) if part else None
         if quant.mode == "fp":
-            y = torch.matmul(x.to(cd), self.w.to(cd))
-        elif quant.mode == "qat" and quant.use_kernel:
+            return torch.matmul(x.to(cd), w.to(cd))
+        if quant.mode == "qat" and quant.use_kernel:
             from repro_torch.kernels.bitlinear import ops as kops
-            y = kops.bitlinear_matmul(x.to(cd), self.w.to(torch.float32),
-                                      scheme=quant.scheme, shard=(kind, split))
-        elif quant.mode == "qat":
+            return kops.bitlinear_matmul(x.to(cd), w.to(torch.float32),
+                                         scheme=quant.scheme, shard=shard,
+                                         delta=delta)
+        if quant.mode == "qat":
             if quant.scheme != "absmean" or quant.low_precision_quant:
                 raise ValueError(
                     f"the tensor-parallel split takes the 'absmean' weight scheme "
                     f"in fp32, not {quant.scheme!r} with low_precision_quant="
                     f"{quant.low_precision_quant}")
-            y = _qat_absmean(x.to(cd), self.w.to(torch.float32), self.axes,
-                             self.exact_product, split, kind)
-        else:
-            raise ValueError(f"quant mode {quant.mode!r} takes no tensor-parallel "
-                             "split (the serving engine takes no plan)")
-        if kind == "row" and quant.mode == "fp":
-            y = tp.reduce_from(y)
-        if self.use_bias:
-            y = y + self.b.to(cd)
-        return y
+            exact = self.exact_product or tp.exact()
+            return _qat_absmean(x.to(cd), w.to(torch.float32), self.axes, exact,
+                                split if part else None, part, delta=delta)
+        raise ValueError(f"quant mode {quant.mode!r} takes no tensor-parallel "
+                         "split (the serving engine takes no plan)")
 
 
 class _TernaryMatmul(torch.autograd.Function):
@@ -189,22 +225,22 @@ class _TernaryMatmul(torch.autograd.Function):
 
 
 def _qat_absmean(x: torch.Tensor, w: torch.Tensor, axes, exact: bool,
-                 split=None, kind: Optional[str] = None) -> torch.Tensor:
+                 split=None, kind: Optional[str] = None,
+                 delta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain QAT route's absmean product of ``x`` (in the compute
     dtype) and the fp32 master weight ``w``, or of the rank's shards under
-    a split (``kind`` "col" or "row"): Δ the whole weight's, γ the whole
-    rows'.  With ``exact`` in fp32 the :class:`_TernaryMatmul`; else (bf16,
-    a DTensor weight, or a layer outside the dense decoders) the
+    a split (``kind`` "col" or "row"): Δ the whole weight's (or ``delta``),
+    γ the whole rows'.  With ``exact`` in fp32 the :class:`_TernaryMatmul`;
+    else (bf16, a DTensor weight, or the hybrid family's plain step) the
     dequantized operands' matmul, as JAX's, a row shard's partial outputs
     summed by *g*."""
     xf = x.to(torch.float32)
     gamma = xf.abs().amax(dim=-1, keepdim=True)
     if kind == "row":
         gamma = split.all_max(gamma)
-    if split is None or split.size == 1:
-        delta = Q.absmean_scale(w)
-    else:
-        delta = Q.absmean_scale(w, (split.sum64, w.numel() * split.size))
+    if delta is None:
+        delta = (Q.absmean_scale(w) if split is None or split.size == 1 else
+                 Q.absmean_scale(w, (split.sum64, w.numel() * split.size)))
     codes = Q.round_clip(Q.div(127.0, gamma + Q.EPS) * xf, -128.0, 127.0)
     tern = Q.round_clip(w / (delta + Q.EPS), -1.0, 1.0)
     scale = Q.div(gamma, 127.0)
@@ -245,6 +281,9 @@ class SubLN(nn.Module):
                  axis_name: str = "embed"):
         super().__init__()
         self.eps, self.axis_name, self.dim = eps, axis_name, dim
+        # the mean of squares summed in float64 and rounded once off a split
+        # too (an unsharded reference of a split's step)
+        self.exact_sum = False
         self.scale = nn.Parameter(torch.ones((dim,), dtype=policy.param_dtype,
                                              device=device))
 
@@ -252,14 +291,17 @@ class SubLN(nn.Module):
         return {"scale": (self.axis_name,)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """A shard of the width under a split (x narrower than the scale's
-        whole ``dim``): the mean of squares is the shards' fp32 sums, summed
-        over ``"model"`` (both ways), over the whole width; it differs from
-        one ``mean``'s by the summation order (~1 ulp)."""
+        """Under a split over more than one rank the mean of squares is
+        summed in float64 and rounded once; on a shard of the width (x
+        narrower than the scale's whole ``dim``) the shards' sums are summed
+        over ``"model"`` (both ways), over the whole width."""
         xf = x.to(torch.float32)
-        if x.shape[-1] != self.dim:
-            ss = tp.all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True))
-            var = Q.div(ss, float(self.dim))
+        if self.exact_sum or tp.exact():
+            x64 = xf.to(torch.float64)
+            ss = torch.sum(x64 * x64, dim=-1, keepdim=True)
+            if x.shape[-1] != self.dim:
+                ss = tp.all_reduce_sum(ss)
+            var = Q.div(ss, float(self.dim)).to(torch.float32)
         else:
             var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)

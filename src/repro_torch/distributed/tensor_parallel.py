@@ -1,13 +1,14 @@
 """Tensor parallelism over the plan's ``"model"`` axis: the collectives of
-the split route (the dense decoder families' CE and distill steps,
-``training/trainer.py``).
+the split route (the CE and distill steps of the dense, MoE, SSM and hybrid
+decoders, ``training/trainer.py``).
 
 JAX has no module for this: GSPMD inserts the collectives from the
 parameters' shardings.  Here a :class:`Split` holds, for one step, the plan,
 each parameter's spec and this rank's coordinates, and the modules ask it
 what to compute (``active()``).  Under a split a module computes on its
-parameters' ``"model"`` shards (its heads, ``d_ff`` columns and vocabulary
-slice), with Megatron's pair at the edges of each split region:
+parameters' ``"model"`` shards (its heads, ``d_ff`` columns, vocabulary
+slice, experts and SSM heads), with Megatron's pair at the edges of each
+split region:
 
 * ``copy_to`` (*f*): the identity forward, an all-reduce of ``dx`` backward,
   at the input of the column-parallel projections;
@@ -23,12 +24,22 @@ the relation states, from which every rank computes the same loss).
 ``using(module)`` swaps a module's parameters for their compute copies for
 the duration of a block (``param_copy``): each gathered along the plan's
 other axes (FSDP: an all-gather forward, a reduce-scatter of the gradient
-backward) with its ``"model"`` shard kept, but the kv projections, which
-are used whole where their heads do not divide over the ranks.
+backward) with its ``"model"`` shard kept, but those used whole: the kv
+projections where their heads do not divide over the ranks, and what a
+module names in its ``tp_whole(spec_of)`` (Mamba2's ``in_proj`` and conv,
+whose flat shards cut through their z | x | B | C | dt groups; an
+expert-split MoE's SubLN scale, which every expert uses whole).  A tensor
+used whole is gathered over ``"model"`` too and its gradient, a partial sum
+on each rank, reduce-scattered back to the shards (summed where the plan
+replicates it).
 
-A group of one rank moves nothing: every collective is then the identity,
-and each reduction the split route computes falls back to its unsharded
-form, so a one-rank step is the plain step bit for bit.  Under a
+Over more than one rank every reduction whose value depends on the order
+of its terms takes its exact form (``exact()``): the QAT product
+(``core/bitlinear.py``), SubLN's sum of squares and the MoE combine
+(``nn/moe.py``), so that the ranks' shares sum to the unsharded value in
+any order.  A group of one rank moves nothing: every collective is then the
+identity, and each reduction the split route computes falls back to its
+unsharded form, so a one-rank step is the plain step bit for bit.  Under a
 shapes-only plan (``{axis: size}``, meta tensors) a collective returns a
 tensor of its result's shape.  Every collective over more than one rank
 appends itself to the active ``recording()`` (kind, axis, group size,
@@ -47,10 +58,15 @@ import torch.distributed as dist
 from repro_torch.distributed.sharding import linear_part, local_shape
 
 MODEL = "model"
-# the logical axes a dense decoder splits over "model" (ShardingPlan rules),
-# and the kv projections', computed whole when the kv heads do not divide
-# over the ranks (the plan may still store them split, mid-head)
-SPLIT_AXES = ("heads", "mlp", "vocab")
+# the logical axes the split computes on a "model" shard of (ShardingPlan
+# rules): each must be split over "model" where it appears, but that an
+# expert weight takes "model" on its "expert" dim or, where the experts do
+# not divide over the ranks, on its "mlp" dim; and the kv projections',
+# computed whole when the kv heads do not divide over the ranks (the plan
+# may still store them split, mid-head)
+SPLIT_AXES = ("heads", "mlp", "vocab", "expert", "ssm_heads", "ssm_inner",
+              "ssm_in", "ssm_conv")
+EXPERT_AXES = ("expert", "mlp")
 KV_AXES = ("kv_heads",)
 # replicated parameters each "model" rank uses on its own share of the
 # activations: their gradients are partial sums over the axis
@@ -119,30 +135,35 @@ class Split:
     def register(self, model, local: bool = False) -> None:
         """Resolve the spec of each of ``model``'s parameters (placed by the
         plan, or with ``local`` already cut to the rank's shard on meta) and
-        check that the split takes it: a dense block's heads, ``d_ff``
-        columns and vocabulary must divide over ``"model"``.  Where the kv
+        check that the split takes it: heads, ``d_ff`` columns, the padded
+        vocabulary, the SSM heads and widths, and the experts (or, failing
+        them, their ``d_ff``) must divide over ``"model"``.  Where the kv
         heads do not (fewer kv heads than ranks), each rank projects all of
-        them: the kv tensors are used whole, their gradients summed."""
+        them: the kv tensors are used whole, their gradients summed; so are
+        the tensors a module's ``tp_whole`` names."""
         axes = model.param_axes()
         n_kv = getattr(getattr(model, "cfg", None), "n_kv_heads", 0)
         if n_kv and n_kv % self.size:
             self.kv_whole = True
+        shapes, specs = {}, {}
         for name, p in model.named_parameters():
-            logical = axes[name]
-            shape = tuple(p.shape) if not local else tuple(p._tp_whole)
-            spec = self.plan.spec(logical, shape, record=False)
-            if self.size > 1:
-                for d, a in enumerate(logical):
-                    if a in SPLIT_AXES and MODEL not in spec[d]:
-                        raise ValueError(
-                            f"{name}: its {a!r} dim ({shape[d]}) is not split over "
-                            f"the {self.size} ranks of \"model\" (spec {spec}); the "
-                            "split route takes heads, d_ff and the padded vocabulary "
-                            "divisible by the \"model\" axis")
+            shapes[name] = tuple(p.shape) if not local else tuple(p._tp_whole)
+            specs[name] = self.plan.spec(axes[name], shapes[name], record=False)
+        used_whole = set()
+        for prefix, m in model.named_modules():
+            if hasattr(m, "tp_whole"):
+                pre = f"{prefix}." if prefix else ""
+                used_whole.update(pre + n for n in m.tp_whole(
+                    lambda n, pre=pre: specs[pre + n]))
+        for name, p in model.named_parameters():
+            logical, shape, spec = axes[name], shapes[name], specs[name]
+            if self.size > 1 and name not in used_whole:
+                _check_split(name, logical, shape, spec, self.size)
             on_model = any(MODEL in s for s in spec)
             kv = any(a in KV_AXES for a in logical)
-            whole = on_model and kv and self.kv_whole
-            partial = (not on_model and any(a in PARTIAL_AXES for a in logical))
+            whole = (on_model and kv and self.kv_whole) or name in used_whole
+            partial = (not on_model and not whole
+                       and any(a in PARTIAL_AXES for a in logical))
             self.params[id(p)] = (p, ParamSplit(spec, shape, partial, whole))
 
     def linear_part(self, logical: Sequence[Optional[str]],
@@ -254,8 +275,36 @@ class Split:
         return self.all_reduce(t, MODEL, "sum")
 
 
+def _check_split(name, logical, shape, spec, size) -> None:
+    """Raise unless every dim of a :data:`SPLIT_AXES` axis is split over
+    ``"model"`` (an expert weight's experts or, else, its ``d_ff``)."""
+    if "expert" in logical:
+        if any(MODEL in spec[d] for d, a in enumerate(logical) if a in EXPERT_AXES):
+            return
+        raise ValueError(
+            f"{name}: neither its experts ({shape[logical.index('expert')]}) nor "
+            f"their d_ff ({shape[logical.index('mlp')]}) divide over the {size} "
+            f"ranks of \"model\" (spec {spec}); the split route computes a "
+            "rank's experts, or each expert's d_ff columns")
+    for d, a in enumerate(logical):
+        if a in SPLIT_AXES and MODEL not in spec[d]:
+            raise ValueError(
+                f"{name}: its {a!r} dim ({shape[d]}) is not split over the {size} "
+                f"ranks of \"model\" (spec {spec}); the split route takes heads, "
+                "d_ff, the padded vocabulary and the SSM heads and widths "
+                "divisible by the \"model\" axis")
+
+
 def active() -> Optional[Split]:
     return _ACTIVE[0]
+
+
+def exact() -> bool:
+    """Whether the active split spans more than one rank, where the
+    order-dependent reductions take their exact forms (see the module's
+    docstring)."""
+    split = _ACTIVE[0]
+    return split is not None and split.size > 1
 
 
 @contextlib.contextmanager

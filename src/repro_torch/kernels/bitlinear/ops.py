@@ -31,6 +31,8 @@ weight's (a float64 sum of |W| over the shards, ``Q.absmean_scale``):
 
 The backward stays rank-local (the gradient of the row-parallel sum is the
 identity); ``dx`` of a column-parallel layer is summed by the caller's *f*.
+A given ``delta`` (columns picked from a weight used whole, ``BitLinear.
+forward_cols``) is the whole weight's Δ, used as it is.
 """
 from __future__ import annotations
 
@@ -101,7 +103,8 @@ def _whole_scale(w: torch.Tensor, split) -> torch.Tensor:
     return Q.absmean_scale(w, (split.sum64, w.numel() * split.size))
 
 
-def _fwd_2d(x2d: torch.Tensor, w: torch.Tensor, scheme: str, shard=None):
+def _fwd_2d(x2d: torch.Tensor, w: torch.Tensor, scheme: str, shard=None,
+            delta=None):
     """-> (y, int8 codes [M, >= K], γ [M, 1], wq [K, N] int8, Δ); the card's
     codes carry the GEMM's zero K pad (and so do meta's), the CPU's none."""
     if scheme != "absmean":
@@ -114,7 +117,7 @@ def _fwd_2d(x2d: torch.Tensor, w: torch.Tensor, scheme: str, shard=None):
     if impl is None:
         raise ValueError(f"bitlinear_matmul: unsupported device {x2d.device}")
     if shard is None:
-        delta = Q.absmean_scale(w)
+        delta = Q.absmean_scale(w) if delta is None else delta
     else:
         kind, split = shard
         delta = _whole_scale(w, split)
@@ -145,8 +148,8 @@ def _row_2d(x2d: torch.Tensor, w: torch.Tensor, delta: torch.Tensor, split):
 
 class _BitLinearMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2d, w, scheme, shard):
-        y, codes, gamma, wq, delta = _fwd_2d(x2d, w, scheme, shard)
+    def forward(ctx, x2d, w, scheme, shard, delta):
+        y, codes, gamma, wq, delta = _fwd_2d(x2d, w, scheme, shard, delta)
         ctx.save_for_backward(codes, gamma, wq, delta)
         return y
 
@@ -159,14 +162,16 @@ class _BitLinearMatmul(torch.autograd.Function):
         x_deq = codes[:, :wq.shape[0]].to(torch.float32) * Q.div(gamma, 127.0)
         dx = torch.matmul(g2d, w_deq.t())
         dw = torch.matmul(x_deq.t(), g2d)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def bitlinear_matmul(x: torch.Tensor, w: torch.Tensor,
-                     scheme: str = "absmean", shard=None) -> torch.Tensor:
+                     scheme: str = "absmean", shard=None,
+                     delta=None) -> torch.Tensor:
     """x [..., K] float; w [K, N] float (the unquantized master weight) ->
     [..., N] in x's dtype.  ``shard``: ``("col" | "row", split)`` for a
-    tensor-parallel shard of the layer (see the module's docstring)."""
+    tensor-parallel shard of the layer; ``delta``: Δ of the weight ``w``'s
+    columns were picked from (see the module's docstring)."""
     lead = x.shape[:-1]
-    y = _BitLinearMatmul.apply(x.reshape(-1, x.shape[-1]), w, scheme, shard)
+    y = _BitLinearMatmul.apply(x.reshape(-1, x.shape[-1]), w, scheme, shard, delta)
     return y.reshape(*lead, w.shape[-1])

@@ -16,14 +16,15 @@ The port stores more than that, and these terms say what:
 
   gathered_params   P·bytes_param: the whole model on every rank.  The
                     port's plan-placed train step on the ``"gathered"``
-                    route (the MoE, SSM, hybrid and cross families) gathers
-                    every parameter whole for its forward and backward, and
-                    the serving engine takes no plan, so an inference rank
+                    route (the cross-attention families) gathers every
+                    parameter whole for its forward and backward, and the
+                    serving engine takes no plan, so an inference rank
                     holds the whole model too.  On the ``"split"`` route
-                    (the dense decoders) the weights live a rank at use: one
-                    block's parameters, gathered along the axes but
-                    ``"model"``, and the embedding and head, each /tp
-                    (``at_use_params``, in its place);
+                    (the dense, MoE, SSM and hybrid decoders) the weights
+                    live a rank at use: one block's parameters, gathered
+                    along the axes but ``"model"``, and the embedding and
+                    head, each /tp, plus a Mamba2 block's in_proj, which
+                    the split uses whole (``at_use_params``, in its place);
   moments           P · 8 / n_dev (fp32 m and v), or P · (2 + 8/256) / n_dev
                     with 8-bit moments (int8 codes in blocks of 256 along the
                     last axis, one fp32 scale a block:
@@ -125,8 +126,13 @@ def estimate(cfg: ModelConfig, shape: ShapeSpec, n_dev: int, tp: int,
         vocab_params = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
         block = (p - vocab_params) / max(cfg.n_layers, 1)
         teachers = 2 if with_teacher else 1
+        in_proj = 0
+        if any(s.mixer == "mamba" for s in cfg.resolved_pattern()):
+            di = 2 * d
+            in_proj = d * (2 * di + 2 * cfg.ssm_state + di // cfg.ssm_head_dim)
         terms["at_use_params"] = float(
-            (block + vocab_params) * bytes_param * teachers / tp)
+            ((block + vocab_params) / tp + in_proj * (1 - 1 / tp))
+            * bytes_param * teachers)
         port = tuple("at_use_params" if k == "gathered_params" else k
                      for k in port)
     terms["total"] = sum(terms[k] for k in port if k in terms)

@@ -10,9 +10,10 @@ is what ONE rank of that mesh computes, as the port computes it:
 * a train or distill step takes the rank's rows of the global batch (split
   over the mesh axes of the ``"batch"`` rule) on the trainer's route for
   the config (``training/trainer.py::step_route``): on ``"split"`` (the
-  dense decoders) the model holds the rank's shard of each parameter, each
-  block gathers its own along the other axes at its use and computes its
-  heads, ``d_ff`` columns and vocabulary slice, and the split's collectives
+  dense, MoE, SSM and hybrid decoders) the model holds the rank's shard of
+  each parameter, each block gathers its own along the other axes at its
+  use and computes its heads, ``d_ff`` columns, experts, SSM heads and
+  vocabulary slice, and the split's collectives
   record themselves as the step runs; on ``"gathered"`` every parameter is
   gathered whole.  Either way the rank updates its share of each parameter
   and moment, and ``roofline.plan_collectives`` counts the plan's
@@ -251,7 +252,7 @@ def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = 
                route: Optional[str] = None) -> Cell:
     """``mesh`` is ``{axis: size}`` (``make_production_mesh()``).  A train
     or distill cell takes the trainer's route for the config, or ``route``
-    (``"gathered"``: a dense config's step as the other families run it,
+    (``"gathered"``: a split family's step as the cross families run it,
     for comparison)."""
     base = get_config(arch)
     shape = SHAPES[shape_name]
@@ -321,7 +322,7 @@ def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = 
             raise ValueError(f"route {route!r}: 'split' or 'gathered'")
         if route == "split" and step_route(model, plan) != "split":
             raise ValueError(f"{arch} ({cfg.family}) takes no split route: the "
-                             "split covers the dense family")
+                             "split covers the dense, MoE, SSM and hybrid families")
         opt = AdamW(AdamWConfig(
             state_dtype="int8_blockwise" if opt_8bit else "float32"))
         if route == "split":

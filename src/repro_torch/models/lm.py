@@ -6,7 +6,8 @@ moe_loss)``; ``forward`` returns the logits alone.  A VLM stack (cross
 layers among its self-attention ones) reads ``memory``, precomputed image
 embeddings [B, T, d_model] (the vision tower is a stub, as in JAX).
 
-Under a tensor-parallel split (``distributed/tensor_parallel.py``) the
+Under a tensor-parallel split (``distributed/tensor_parallel.py``; the
+dense, MoE, SSM and hybrid stacks) the
 embedding, the final norm and the head take their compute copies at use,
 and the logits stay vocabulary-sharded: ``[rows, S, V/tp]`` a rank, the pad
 columns masked by their global index; no rank builds the whole
@@ -19,13 +20,37 @@ import torch
 from torch import nn
 
 from repro_torch.core import quant as Q
-from repro_torch.core.bitlinear import BitLinear
+from repro_torch.core.bitlinear import BitLinear, SubLN
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.base import ModelConfig
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.module import Axes, child_axes
+from repro_torch.nn.moe import MoEMLP
 from repro_torch.nn.transformer import LayerCache, Stack
+
+
+# the families whose plain QAT steps take the exact product
+# (core/bitlinear.py), each within its JAX bounds; the hybrid family keeps
+# JAX's float product (the exact one moved jamba's QAT loss 1.12e-4 from
+# JAX's).  Under a split over more than one rank every family takes the
+# exact forms (distributed/tensor_parallel.py::exact)
+EXACT_PRODUCT = ("dense", "moe", "ssm")
+
+
+def set_exact(model: nn.Module) -> None:
+    """Switch ``model``'s layers to the exact forms a split over more than
+    one rank takes: the ternary product (``BitLinear.exact_product``),
+    SubLN's float64 sum of squares (``SubLN.exact_sum``) and the MoE's
+    float64 combine (``MoEMLP.exact_combine``); an unsharded reference of
+    a split's step."""
+    for m in model.modules():
+        if isinstance(m, BitLinear):
+            m.exact_product = True
+        elif isinstance(m, SubLN):
+            m.exact_sum = True
+        elif isinstance(m, MoEMLP):
+            m.exact_combine = True
 
 
 class CausalLM(nn.Module):
@@ -45,9 +70,7 @@ class CausalLM(nn.Module):
             hq = cfg.quant if cfg.quant.quantize_lm_head else Q.FP
             self.head = BitLinear(cfg.d_model, cfg.padded_vocab, False, hq, pol,
                                   gen=gen, device=device, axes=("embed", "vocab"))
-        if cfg.family == "dense":
-            # the split's families compute the QAT product exactly
-            # (core/bitlinear.py), so that its shards sum order-free
+        if cfg.family in EXACT_PRODUCT:
             for m in self.modules():
                 if isinstance(m, BitLinear):
                     m.exact_product = True

@@ -21,6 +21,25 @@ In QAT mode each expert's weight is fake-quantized on its own (JAX's
 experts would hold e times an expert's float64 copy.  A packed model holds
 the experts already quantized (``serving/engine.py::convert_to_packed``, or
 a seeded packed init), so it runs the weights the QAT forward ran.
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) the
+router runs replicated in fp32 on the block's input, so every rank routes
+alike, and the rank computes on its experts' shards, as the plan lays them
+out: whole experts where their count divides over ``"model"`` (the
+``"expert"`` rule's priority), else every expert's ``d_ff`` columns.  The
+experts' input enters through *f* (each rank's ``dx`` is a partial sum),
+and so do the combine weights (each rank's gradient of them is its
+experts' part).  The rank dispatches to its experts, runs them (its
+experts quantized whole, or each expert's Δ summed over the ``d_ff``
+shards; SubLN over the ``d_ff`` shards), combines its partial outputs and
+*g* sums them over the ranks: an all-reduce of the layer's output, which
+moves 1/(top_k·capacity_factor) of the bytes of an all-gather of the
+experts' outputs and leaves the rank 1/tp of the combine's FLOPs.  In the
+compute dtype that sum would be a float sum in another order than one
+einsum's (a few ulps), so over more than one rank
+(``tensor_parallel.exact()``, or with ``exact_combine``) the combine is
+taken in float64 and rounded once, the unsharded value in any order.  The auxiliary loss comes from the replicated routing,
+the same on every rank.
 """
 from __future__ import annotations
 
@@ -32,6 +51,7 @@ from torch import nn
 
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import SubLN
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.nn.layers import ACTIVATIONS
 from repro_torch.nn.module import Axes, DEFAULT_POLICY, DTypePolicy, fan_in_init
 
@@ -48,11 +68,21 @@ class _Weight(nn.Module):
 
 
 def quantize_experts(w: torch.Tensor, scheme: Q.WeightScheme = "absmean",
-                     block: int = 128) -> torch.Tensor:
+                     block: int = 128, split=None) -> torch.Tensor:
     """Each expert's weight ``w[i]`` through ``fake_quant_weight`` on its
-    own, in fp32, cast back to w's dtype (JAX's ``vmap``)."""
+    own, in fp32, cast back to w's dtype (JAX's ``vmap``).  With ``split``
+    ``w`` holds a ``d_ff`` shard of every expert: each Δ is the whole
+    expert's, its float64 sum of |W| summed over ``"model"``."""
+    deltas = [None] * w.shape[0]
+    if split is not None:
+        if scheme != "absmean":
+            raise ValueError(f"experts split over their d_ff take the 'absmean' "
+                             f"weight scheme, not {scheme!r}")
+        sums = split.sum64(w.to(torch.float64).abs().flatten(1).sum(dim=1))
+        deltas = Q.div(sums, float(w[0].numel() * split.size)).to(torch.float32)
     return torch.stack([
-        Q.fake_quant_weight(w[i].to(torch.float32), scheme=scheme, block=block)
+        Q.fake_quant_weight(w[i].to(torch.float32), scheme=scheme, block=block,
+                            delta=deltas[i])
         for i in range(w.shape[0])]).to(w.dtype)
 
 
@@ -125,6 +155,9 @@ class MoEMLP(nn.Module):
         self.capacity_factor, self.group_size = capacity_factor, group_size
         self.aux_loss_weight, self.router_z_weight = aux_loss_weight, router_z_weight
         self.quant, self.policy = quant, policy
+        # the combine in float64, rounded once, off a split too (an
+        # unsharded reference of a split's step)
+        self.exact_combine = False
         pd = policy.param_dtype
         # the router is fp32 whatever the param dtype (JAX's init)
         self.router = _Weight((d, e), torch.float32, gen, device)
@@ -151,12 +184,19 @@ class MoEMLP(nn.Module):
             ax["subln.scale"] = ("mlp",)
         return ax
 
-    def quantized(self, w: torch.Tensor) -> torch.Tensor:
+    def tp_whole(self, spec_of) -> Tuple[str, ...]:
+        """Under a split of whole experts each uses the SubLN scale whole."""
+        if self.subln is not None and "model" in spec_of("up.w")[0]:
+            return ("subln.scale",)
+        return ()
+
+    def quantized(self, w: torch.Tensor, split=None) -> torch.Tensor:
         """The experts' weights as the forward uses them: quantized expert by
-        expert in QAT mode, ``w`` itself otherwise."""
+        expert in QAT mode (``split``: ``w`` is a ``d_ff`` shard of each),
+        ``w`` itself otherwise."""
         if self.quant.mode != "qat":
             return w
-        return quantize_experts(w, self.quant.scheme, self.quant.block)
+        return quantize_experts(w, self.quant.scheme, self.quant.block, split)
 
     def forward(self, x: torch.Tensor, full_capacity: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -175,19 +215,33 @@ class MoEMLP(nn.Module):
                               self.router.w.to(torch.float32))
         cap = capacity(gs, k, e, self.capacity_factor, full_capacity)
         probs, top_w, top_e, onehot, pos, in_cap = route(logits, k, cap)
-        combine = combine_weights(top_w, top_e, pos, in_cap, cap)
+        # under a split: the rank's experts [lo, lo + e_rank), or every
+        # expert's d_ff shard (d_split)
+        split = tp.active()
+        e_rank = self.up.w.shape[0]
+        lo = split.rank * e_rank if e_rank != e else 0
+        d_split = self.up.w.shape[-1] != self.d_ff
+        combine = combine_weights(tp.copy_to(top_w), top_e, pos, in_cap, cap)
+        if e_rank != e:
+            combine = combine[:, :, lo:lo + e_rank]
         dispatch = (combine > 0).to(cd)
 
-        xe = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cd))
-        up = self.quantized(self.up.w).to(cd)
-        gate = self.quantized(self.gate.w).to(cd)
-        down = self.quantized(self.down.w).to(cd)
+        xe = torch.einsum("gsec,gsd->gecd", dispatch, tp.copy_to(xg).to(cd))
+        shards = split if d_split else None
+        up = self.quantized(self.up.w, shards).to(cd)
+        gate = self.quantized(self.gate.w, shards).to(cd)
+        down = self.quantized(self.down.w, shards).to(cd)
         h = torch.einsum("gecd,edf->gecf", xe, up) * self.act(
             torch.einsum("gecd,edf->gecf", xe, gate))
         if self.subln is not None:
             h = self.subln(h)
         ye = torch.einsum("gecf,efd->gecd", h, down)
-        y = torch.einsum("gsec,gecd->gsd", combine.to(cd), ye)
+        if self.exact_combine or tp.exact():
+            y = torch.einsum("gsec,gecd->gsd", combine.to(torch.float64),
+                             ye.to(torch.float64))
+            y = tp.reduce_from(y).to(cd)
+        else:
+            y = tp.reduce_from(torch.einsum("gsec,gecd->gsd", combine.to(cd), ye))
 
         # Switch-style load-balance loss + router z-loss
         density = onehot.to(torch.float32).mean(dim=(1, 2))        # [g, e]

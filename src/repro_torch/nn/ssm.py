@@ -11,6 +11,18 @@ paper's SubLN placement.  ``init_cache`` / ``decode`` keep the O(1)
 recurrent state [B, H, P, N] (fp32) and the (k-1)-deep conv tail that serving
 runs on; ``decode`` advances them in place, where the JAX module returns new
 ones.
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) the
+rank computes its ``H/tp`` heads.  The plan stores ``in_proj``'s flat
+output (z | x | B | C | dt) and the conv's channels (x | B | C) split at
+flat offsets that cut through those groups, so the block uses both whole
+(``tp_whole``: gathered over ``"model"``, their gradients reduce-scattered
+back, B's and C's parts summed over the ranks) and takes its own columns:
+its heads' z, x and dt and B, C whole (one group).  The input enters
+through *f*, ``A_log``, ``D`` and ``dt_bias`` are the rank's heads' (the
+plan's ``"ssm_heads"`` shards), the SSD runs on them (``b·H/tp`` rows of
+the kernel), the gated SubLN sums its squares over the shards and
+``out_proj`` is row-parallel (``core/bitlinear.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from torch import nn
 
 from repro_torch.core import quant as Q
 from repro_torch.core.bitlinear import BitLinear, SubLN
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import chunk_len, ssd_chunked, ssd_sequential
 from repro_torch.nn.layers import silu
@@ -83,21 +96,41 @@ class Mamba2Block(nn.Module):
                     conv_b=("ssm_conv",), A_log=("ssm_heads",), D=("ssm_heads",),
                     dt_bias=("ssm_heads",))
 
+    def tp_whole(self, spec_of) -> Tuple[str, ...]:
+        """The flat tensors a split uses whole (see the module's docstring)."""
+        return ("in_proj.w", "conv_w", "conv_b")
+
     # -- pieces ----------------------------------------------------------------
 
-    def _split(self, zxbcdt: torch.Tensor):
-        di = self.d_inner
-        return (zxbcdt[..., :di], zxbcdt[..., di:di + self.conv_dim],
-                zxbcdt[..., di + self.conv_dim:])
+    def _own(self, split) -> Tuple[list, list]:
+        """The rank's ``in_proj`` output columns and conv channels, as
+        ``[lo, hi)`` ranges: its heads' z, x (and dt), B and C whole."""
+        di, n, h = self.d_inner, self.d_state, self.n_heads
+        zi, hi = di // split.size, h // split.size
+        z0, h0 = split.rank * zi, split.rank * hi
+        bc = (2 * di, 2 * di + 2 * n)
+        cols = [(z0, z0 + zi), (di + z0, di + z0 + zi), bc,
+                (bc[1] + h0, bc[1] + h0 + hi)]
+        return cols, [(z0, z0 + zi), (di, di + 2 * n)]
 
-    def _conv(self, xbc: torch.Tensor,
-              hist: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _split(self, zxbcdt: torch.Tensor, di: int):
+        conv_dim = di + 2 * self.d_state
+        return (zxbcdt[..., :di], zxbcdt[..., di:di + conv_dim],
+                zxbcdt[..., di + conv_dim:])
+
+    def _conv(self, xbc: torch.Tensor, hist: Optional[torch.Tensor] = None,
+              chans=None) -> torch.Tensor:
         """Causal depthwise conv over [B, S, conv_dim] in fp32, then SiLU,
         back in the input dtype.  ``hist`` [B, k-1+S, conv_dim] (decode: the
         cached tail, then ``xbc`` in the cache's dtype) replaces the zero
-        history."""
+        history; ``chans`` (``[lo, hi)`` ranges) picks the conv's channels
+        of a split's rank."""
         k, s = self.conv_kernel, xbc.shape[1]
-        w = self.conv_w.to(torch.float32)                            # [k, c]
+        w, b = self.conv_w, self.conv_b
+        if chans is not None:
+            w = torch.cat([w[:, lo:hi] for lo, hi in chans], dim=1)
+            b = torch.cat([b[lo:hi] for lo, hi in chans])
+        w = w.to(torch.float32)                                      # [k, c]
         if hist is None:
             pad = torch.nn.functional.pad(xbc.to(torch.float32), (0, 0, k - 1, 0))
         else:
@@ -105,7 +138,7 @@ class Mamba2Block(nn.Module):
         out = pad[:, 0:s, :] * w[0]
         for i in range(1, k):
             out = out + pad[:, i:i + s, :] * w[i]
-        return silu(out + self.conv_b.to(torch.float32)).to(xbc.dtype)
+        return silu(out + b.to(torch.float32)).to(xbc.dtype)
 
     def _gates(self, dt_raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """dt_raw [B, S, H] -> (a = exp(dt·A) in (0, 1), dt), both fp32."""
@@ -117,11 +150,20 @@ class Mamba2Block(nn.Module):
     # -- full-sequence forward ---------------------------------------------------
 
     def forward(self, u: torch.Tensor, sequential: bool = False) -> torch.Tensor:
-        """u [B, S, D] -> [B, S, D]; ``sequential`` runs the oracle core."""
+        """u [B, S, D] -> [B, S, D]; ``sequential`` runs the oracle core.
+        Under a split, the rank's heads (see the module's docstring)."""
         b, s, _ = u.shape
         di, n, h, p = self.d_inner, self.d_state, self.n_heads, self.head_dim
-        z, xbc, dt_raw = self._split(self.in_proj(u))
-        xbc = self._conv(xbc)
+        split = tp.active()
+        u = tp.copy_to(u)
+        if split is not None and split.size > 1:
+            cols, chans = self._own(split)
+            di, h = di // split.size, h // split.size
+            z, xbc, dt_raw = self._split(self.in_proj.forward_cols(u, cols), di)
+            xbc = self._conv(xbc, chans=chans)
+        else:
+            z, xbc, dt_raw = self._split(self.in_proj(u), di)
+            xbc = self._conv(xbc)
         # the SSD's heads along "ssm_heads" (JAX's TP hint)
         x = constrain(xbc[..., :di].reshape(b, s, h, p),
                       ("batch", "seq", "ssm_heads", "head_dim")).to(torch.float32)
@@ -160,7 +202,7 @@ class Mamba2Block(nn.Module):
         the cache, done at the one place the cache is written."""
         b = u.shape[0]
         di, n, h, p = self.d_inner, self.d_state, self.n_heads, self.head_dim
-        z, xbc_new, dt_raw = self._split(self.in_proj(u))
+        z, xbc_new, dt_raw = self._split(self.in_proj(u), di)
         conv, st = cache["conv"], cache["state"]
         hist = torch.cat([conv, xbc_new.to(conv.dtype)], dim=1)       # [B, k, c]
         xbc = self._conv(xbc_new, hist)

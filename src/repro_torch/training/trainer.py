@@ -22,22 +22,27 @@ step takes the whole batch on every rank and computes on the rank's rows
 of it (split over the mesh axes of the ``"batch"`` rule), on one of two
 routes, chosen from the config (``step_route``):
 
-* ``"split"`` (the dense decoders): the ranks along ``"model"`` split the
-  compute (``distributed/tensor_parallel.py``): each block gathers its
-  parameters along the other axes at its use, keeps their ``"model"``
-  shards and computes its heads, ``d_ff`` columns and vocabulary slice.  A
-  ``"model"``-sharded parameter's gradient is the rank's own; a
-  replicated one is left alone where *f* and *g* made the ranks' equal and
-  summed where their contributions differ (the kv projections replicated
-  by the fallback, the qk norms);
-* ``"gathered"`` (the MoE, SSM, hybrid and cross families): every
-  parameter gathered whole for the forward and backward, the ranks along
-  ``"model"`` computing the same rows, their gradients averaged.
+* ``"split"`` (the dense, MoE, SSM and hybrid decoders): the ranks along
+  ``"model"`` split the compute (``distributed/tensor_parallel.py``): each
+  block gathers its parameters along the other axes at its use, keeps
+  their ``"model"`` shards and computes its heads, ``d_ff`` columns,
+  experts (or each expert's ``d_ff`` columns), SSM heads and vocabulary
+  slice.  A ``"model"``-sharded parameter's gradient is the rank's own; a
+  replicated one is left alone where *f* and *g* made the ranks' equal
+  (the norms, the MoE router) and summed where their contributions differ
+  (the kv projections replicated by the fallback, the qk norms); a tensor
+  used whole (Mamba2's in_proj and conv) gets its shard of the ranks' sum;
+* ``"gathered"`` (the cross-attention families, whisper-medium and
+  llama-3.2-vision-11b): every parameter gathered whole for the forward and
+  backward, the ranks along ``"model"`` computing the same rows, their
+  gradients averaged.
 
 Either way a gradient is summed over the ranks that split the batch.  The
 CE is the whole batch's token mean (each rank's NLL sum over the batch's
-mask count), the MoE loss the mean of the ranks', and the metrics and
-``grad_norm`` are the whole batch's.
+mask count), the MoE loss the mean of the ranks' that split the batch
+(every ``"model"`` rank computes the same one from the replicated routing,
+and the metrics are summed over the batch's axes only), and the metrics
+and ``grad_norm`` are the whole batch's.
 """
 from __future__ import annotations
 
@@ -269,17 +274,22 @@ def _all_sum(t: torch.Tensor, plan, axes) -> torch.Tensor:
     return t
 
 
+# the CausalLM families whose steps take the split route
+SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def step_route(model, plan) -> str:
     """How a step computes under ``plan``, from the model's config before
-    the step is built: ``"split"`` for a dense decoder (``family ==
-    "dense"``: its heads, ``d_ff`` columns and vocabulary split over
-    ``"model"``, ``distributed/tensor_parallel.py``), ``"gathered"`` for the
-    other families (every parameter gathered whole for the step), and
-    ``"plain"`` without a plan."""
+    the step is built: ``"split"`` for a dense, MoE, SSM or hybrid decoder
+    (its heads, ``d_ff`` columns, experts, SSM heads and vocabulary split
+    over ``"model"``, ``distributed/tensor_parallel.py``), ``"gathered"``
+    for the cross-attention families (every parameter gathered whole for
+    the step), and ``"plain"`` without a plan."""
     if plan is None:
         return "plain"
     cfg = getattr(model, "cfg", None)
-    if isinstance(model, CausalLM) and cfg is not None and cfg.family == "dense":
+    if isinstance(model, CausalLM) and cfg is not None \
+            and cfg.family in SPLIT_FAMILIES:
         return "split"
     return "gathered"
 

@@ -11,7 +11,8 @@ step at dp 2 x tp 2 (with the shapes of every compute copy and of the
 logits recorded, and the step's FLOPs counted), the same step at tp 4 on
 qwen2.5-3b (one kv head, projected whole on every rank), the CE step at
 dp 2 x tp 2 on the plain QAT route, the distill step at dp 2 x tp 2 and
-granite-moe-1b-a400m's distill step at dp 2 x tp 2 (the gathered route).
+llama-3.2-vision-11b's distill step at dp 2 x tp 2 (the gathered route, one
+repeat of its pattern, with image embeddings).
 Imports torch and the port only.
 """
 import sys
@@ -58,7 +59,8 @@ def _tree(inp, prefix):
 
 def _batch(inp, prefix):
     return {k: torch.from_numpy(inp[f"{prefix}/{k}"])
-            for k in ("tokens", "labels", "loss_mask")}
+            for k in ("tokens", "labels", "loss_mask", "image_embeds")
+            if f"{prefix}/{k}" in inp}
 
 
 def _state_np(cfg, state):
@@ -160,12 +162,12 @@ def _watch_the_split(cfg, params, inp, plan):
     return seen, logits, cost.flops
 
 
-def _distill(name, quant, key, inp, plan):
-    """One distill step of ``name``'s reduced student on ``quant``'s route
-    (its FP teacher placed by the plan) on batch ``<key>_0``: (the route,
-    the metrics, the parameters)."""
-    cfg = get_config(name).reduced().with_quant(quant)
-    teacher = bridge.jax_params_to_torch(get_config(name).reduced(),
+def _distill(name, quant, key, inp, plan, layers=None):
+    """One distill step of ``name``'s reduced student (``layers`` deep) on
+    ``quant``'s route (its FP teacher placed by the plan) on batch
+    ``<key>_0``: (the route, the metrics, the parameters)."""
+    cfg = get_config(name).reduced(layers=layers).with_quant(quant)
+    teacher = bridge.jax_params_to_torch(get_config(name).reduced(layers=layers),
                                          _tree(inp, f"{key}/teacher/"), device="cpu")
     student = bridge.jax_params_to_torch(cfg, _tree(inp, f"{key}/student/"),
                                          device="cpu")
@@ -201,8 +203,8 @@ def main(rank: int, world: int, store: str, io: Path) -> None:
         out["ce_2x2_plain"] = _steps("qwen3_", qwen3.with_quant(Q.QAT), s_params,
                                      inp, plan)
         out["distill_2x2"] = _distill("qwen3-0.6b", QAT_KERNEL, "qwen3", inp, plan)
-        out["gathered_distill_2x2"] = _distill("granite-moe-1b-a400m", Q.QAT,
-                                               "granite", inp, plan)
+        out["gathered_distill_2x2"] = _distill("llama-3.2-vision-11b", Q.QAT,
+                                               "vision", inp, plan, layers=5)
     torch.save(out, io / f"out{world}_{rank}.pt")
     dist.destroy_process_group()
 
