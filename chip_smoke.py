@@ -69,7 +69,7 @@ result line):
      were; the async loop's tok/s and step gap beside the synchronous
      loop's, and its device idle share from a profile;
  10. the training launcher and the rest of the training path: (a) ``python
-     -m repro_torch.launch.train`` at full width (qwen3-0.6b cut to 4 of
+     -m repro_torch.launch.train`` at full width (qwen3-0.6b cut to 2 of
      its 28 layers, 6 CE steps at 8 x 256) uninterrupted, then sent SIGTERM after its first
      step lines (it must save and exit 0), then restarted in that
      directory (it must resume and reach step 6): the resumed run's final
@@ -116,11 +116,11 @@ result line):
      through the launcher (e);
  14. the cross-attention families: (a) ``whisper-medium`` at full width
      (24 + 24 layers, packed, bf16) served through the port's ``Engine`` on
-     the contiguous cache, 8 prompts of 8–48 tokens x 24 greedy tokens, 192
+     the contiguous cache, 8 prompts of 8–32 tokens x 16 greedy tokens, 192
      w2a8 launches a decode pass, the plain route alike but at bf16 ties;
      (b) its cross caches seeded from frames [4, 1500, 1024] through
-     ``encode`` (w2a8 at M = 6,000), bitwise on both routes, 16 forced and
-     16 greedy tokens; (c) it distilled (fp32 master weights, remat, 4 x
+     ``encode`` (w2a8 at M = 6,000), bitwise on both routes, 8 forced and
+     8 greedy tokens; (c) it distilled (fp32 master weights, remat, 4 x
      256 with those frames), 768 bitlinear and 3 relation_kd launches a
      step, both routes within phase 6's bound; (d)
      ``llama-3.2-vision-11b`` at full width and depth served as (a), 264
@@ -150,21 +150,34 @@ result line):
      distill step (FP teacher, both kernels) under a plan on a one-rank
      NCCL group against the same steps without one: the split route taken
      (f/g calls counted), metrics and parameters bitwise, 56 bitlinear and
-     3 relation_kd launches a step; (c) whisper-medium at two encoder and
-     two decoder layers, CE and distill steps under the same plan on the
-     gathered route (no f/g call), metrics and parameters bitwise the
-     steps without one;
- 18. the split route for the MoE, SSM and hybrid families: (a)
-     full-width layers over emulated ranks, a collective at a time, against
-     the whole layer: granite-moe-1b-a400m's MoE layer over 8 ranks of 4
-     experts, grok-1-314b's over 16 ranks by d_ff (the fallback where the
-     experts do not divide) and mamba2-780m's Mamba2Block over 16 ranks of 3
-     heads on the kernel route; (b) ssd_scan on a rank's heads at tp 16 (mamba2-780m's 3 of 48,
-     jamba's 8 of 128 at (128, 128)) against the whole launch's slice and
-     ``ssd_chunked``, timed beside the whole launch; (c) granite at two
-     layers and mamba2-780m at four, full width, CE and distill steps under
-     the one-rank plan on the split route, bitwise the steps without one,
-     their (bitlinear, relation_kd, ssd_scan) launches a step asserted;
+     3 relation_kd launches a step;
+ 18. the split route for the MoE, SSM and hybrid families: (a) full-width
+     layers over emulated ranks (phase 19a's lockstep threads, each rank's
+     shard cut by the plan), against the whole layer: granite-moe-1b-a400m's
+     MoE layer over 8 ranks of 4 experts, grok-1-314b's over 16 ranks by d_ff
+     (the fallback where the experts do not divide) and mamba2-780m's
+     Mamba2Block over 16 ranks of 3 heads on the kernel route; (b) ssd_scan on
+     a rank's heads at tp 16 (mamba2-780m's 3 of 48, jamba's 8 of 128 at (128,
+     128)) against the whole launch's slice and ``ssd_chunked``, timed beside
+     the whole launch; (c) granite at two layers and mamba2-780m at four, full
+     width, CE and distill steps under the one-rank plan on the split route,
+     bitwise the steps without one, their (bitlinear, relation_kd, ssd_scan)
+     launches a step asserted;
+ 19. the split route for the cross-attention families and for decode:
+     (a) whisper-medium's encoder block and decoder attn_cross block and
+     llama-3.2-vision-11b's cross block, full width, QAT on the bitlinear
+     kernel route, fp32, over 16 emulated ranks in lockstep threads (the
+     port's Split at each rank's coordinate) against the whole block;
+     (b) ``w2a8_forward_acc`` on qwen3-0.6b's o_proj and down_proj row
+     shards at tp 16, M = 8 and 256: each shard exactly its plain version,
+     the shards' scaled sum bitwise the whole launch, timed; (c) a packed
+     decode step, fp32, over 16 emulated ranks: qwen3-0.6b at full width and
+     depth on the cache split by positions and one layer of qwen1.5-0.5b on
+     the cache split by heads, logits within a stated bound of the whole
+     step and the greedy tokens equal but at ties, the packed kernels'
+     launches asserted; (d) whisper-medium at two encoder and two decoder
+     layers, CE and distill steps under the one-rank plan on the split
+     route, bitwise the steps without one;
   then summary lines: card, kernels (JSON), and the result line last.
 
 ``python3 chip_smoke.py --phases 2,17`` runs phase 1, the named phases and
@@ -2211,10 +2224,11 @@ def _kv_corruption(cfg, model, base, prompts, want):
 # -- phase 10: the training launcher, checkpoints, remat policies, Table 4 -------
 
 # the launcher as a user starts it: full width, 6 CE steps; the depth cut
-# to 4 of qwen3-0.6b's 28 layers (``--layers``), which cuts the checkpoints
-# the phase writes and reads (~7 of them) from 7.15 GB to ~2.3 GB each, to
-# leave the run room for phase 14
-LAUNCH_LAYERS = 4
+# to 2 of qwen3-0.6b's 28 layers (``--layers``), which cuts the checkpoints
+# the phase writes and reads (~7 of them) from 7.15 GB to ~2.25 GB each (the
+# tied embedding and its moments are 1.87 GB of it), to keep the run inside
+# its time limit
+LAUNCH_LAYERS = 2
 LAUNCH_CLI = ["--arch", "qwen3-0.6b", "--layers", str(LAUNCH_LAYERS), "--steps", "6",
               "--batch", "8", "--seq", "256",
               "--task", "corpus", "--log-every", "1"]
@@ -3620,21 +3634,23 @@ def jamba_reduced(dev):
 # -- phase 14: the cross-attention families -----------------------------------------
 
 WHISPER, VISION = "whisper-medium", "llama-3.2-vision-11b"
-# 14a and 14d: the engine's config, 8 prompts of 8..48 tokens x 24 greedy tokens
+# 14a and 14d: the engine's config, 8 prompts of 8..32 tokens x 16 greedy
+# tokens (a decode pass per prompt and greedy token on the contiguous cache:
+# the lengths set the plain route's time, ~1 s a pass for llama-vision)
 CROSS_SERVE = dict(max_batch=8, max_len=128, prefill_chunk=16, cache_dtype="bfloat16")
-CROSS_TOKENS = 24
+CROSS_TOKENS = 16
 # 14b and 14d at the model level: rows of audio or image memory, and the
 # prompt tokens teacher-forced before as many greedy ones
-MEMORY_ROWS, FORCED = 4, 16
+MEMORY_ROWS, FORCED = 4, 8
 # 14c: the distillation steps' batch and decoder length
 CROSS_TRAIN_BATCH, CROSS_TRAIN_SEQ = 4, 256
 
 
 def _cross_prompts(vocab: int, seed: int = 14):
-    """Eight prompts of 8..48 tokens."""
+    """Eight prompts of 8..32 tokens."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(8, 49, 8)]
+    return [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(8, 33, 8)]
 
 
 def _w2a8_per_pass(cfg) -> int:
@@ -3691,7 +3707,7 @@ def _ties_only(what, want, got, gaps_at):
 def serve_cross(dev, out_dir, name, per_pass, tag):
     """14a / 14d: ``name`` at full width and depth, packed ternary weights
     from the port's seeded init, bf16, through the port's ``Engine``: 8
-    prompts of 8..48 tokens x 24 greedy tokens at ``CROSS_SERVE``.  Gates:
+    prompts of 8..32 tokens x 16 greedy tokens at ``CROSS_SERVE``.  Gates:
     the engine picks the contiguous cache (the decoder's pattern has cross
     layers), w2a8 counts ``per_pass`` launches a decode pass (reckoned from
     the config by ``_w2a8_per_pass`` too) and the paged kernels none, every
@@ -4723,10 +4739,8 @@ def tooling(dev, out_dir, card):
 TP_BLOCKS = (("mistral-large-123b", 12288, 96, 8, 128, 28672, 512, (8,)),
              ("qwen3-0.6b", 1024, 16, 8, 128, 3072, TRAIN_BATCH * QWEN_SEQ,
               (2, 4, 16)))
-# 17b: phase 15a's model and batches, the distill step's steps; 17c: the
-# gathered route's depth (whisper-medium, cross attention: its decoder's and
-# its encoder's layers)
-TP_DISTILL_STEPS, TP_GATHERED_LAYERS = 3, 2
+# 17b: phase 15a's model and batches, the distill step's steps
+TP_DISTILL_STEPS = 3
 
 
 class _ShardSim:
@@ -4864,14 +4878,14 @@ def tp_kernel_shards(dev, flush, card):
 PLAN_KERNELS = ("bitlinear", "relation_kd", "ssd_scan")
 
 
-def _plan_runs(dev, plan, name, layers, kind, route, seq=None):
-    """17b, 17c and 18c: the same seeded teacher, student, batches and
+def _plan_runs(dev, plan, name, layers, kind, seq=None):
+    """17b, 18c and 19d: the same seeded teacher, student, batches and
     AdamW, ``TP_DISTILL_STEPS`` steps of ``kind`` ("ce" or "distill")
-    without a plan and under ``plan``, the kernels on; the plan's step must
-    take ``route``.  An encoder-decoder's batches carry seeded frames; an
-    attention-free student distills without relation KD.  -> ({tag:
-    (metrics, the launches of each of PLAN_KERNELS a step, f/g calls,
-    launches)}, the parameters' largest difference, bitwise)."""
+    without a plan and under ``plan``, the kernels on.  An encoder-decoder's
+    batches carry seeded frames; an attention-free student distills without
+    relation KD.  -> ({tag: (metrics, the launches of each of PLAN_KERNELS a
+    step, f/g calls, launches)}, the parameters' largest difference,
+    bitwise)."""
     import torch
     from repro_torch.core.distill import DistillConfig
     from repro_torch.distributed import tensor_parallel as tp
@@ -4883,7 +4897,7 @@ def _plan_runs(dev, plan, name, layers, kind, route, seq=None):
     from repro_torch.training.schedule import constant
     from repro_torch.training.trainer import (default_distill_layer, init_train_state,
                                               make_distill_step, make_train_step,
-                                              place_model, step_route)
+                                              place_model)
     counters = (bl_k.launches, rk_k.launches, ssd_k.launches)
     tcfg = get_config(name).replace(n_layers=layers)
     batches = _train_batches("corpus", 17, TP_DISTILL_STEPS, dev, seq or QWEN_SEQ)
@@ -4900,9 +4914,6 @@ def _plan_runs(dev, plan, name, layers, kind, route, seq=None):
         teacher = build_model(tcfg, gen=torch.Generator(device=dev).manual_seed(0),
                               device=dev)
         scfg, student = _student_from(teacher, tcfg, True, dev)
-        if p is not None and step_route(student, p) != route:
-            fail(f"{scfg.name} under the plan takes the "
-                 f"{step_route(student, p)!r} route, not {route!r}")
         opt = AdamW(AdamWConfig())
         state = init_train_state(student, opt, p)
         if kind == "distill":
@@ -4939,7 +4950,7 @@ def _plan_runs(dev, plan, name, layers, kind, route, seq=None):
 
 
 def _check_plan_runs(what, runs, diff, bitwise, want=None):
-    """17b, 17c and 18c's fatal checks: finite losses, the launches a step
+    """17b, 18c and 19d's fatal checks: finite losses, the launches a step
     (each ``want``, else the plain step's), and the plan's metrics and
     parameters bitwise the plain step's."""
     for tag, (metrics, per_step, fg, _) in runs.items():
@@ -4962,9 +4973,8 @@ def _check_plan_runs(what, runs, diff, bitwise, want=None):
 def tensor_parallel(dev, out_dir, card):
     """Phase 17: (a) the bitlinear kernel at the split's shard shapes, full
     width; on a one-rank NCCL group, (b) the distill step under a plan on
-    the split route and (c) whisper-medium's CE and distill steps under it
-    on the gathered route, each against the plain step.  -> ({path:
-    launches}, a summary)."""
+    the split route against the plain step.  -> ({path: launches}, a
+    summary)."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed.sharding import ShardingPlan, default_rules
@@ -4988,28 +4998,13 @@ def tensor_parallel(dev, out_dir, card):
     try:
         plan = ShardingPlan(make_mesh(1, 1), default_rules(False))
         runs, diff, bitwise = _plan_runs(dev, plan, "qwen3-0.6b", DIST_LAYERS,
-                                         "distill", "split")
+                                         "distill")
         _check_plan_runs("17b", runs, diff, bitwise,   # forward + remat; q, k, v
                          want=(2 * 7 * DIST_LAYERS, 3, 0))
         if min(runs["plan"][2]) <= 0:
             fail(f"17b: f/g calls {runs['plan'][2]} under the plan: the step did "
                  "not take the split route")
         out["17b"] = dict(runs=runs, param_diff=diff, bitwise=bitwise)
-        part(f"17c: {WHISPER} (full width, {TP_GATHERED_LAYERS} encoder and "
-             f"{TP_GATHERED_LAYERS} decoder layers), {TP_DISTILL_STEPS} CE and "
-             f"distill steps at {CROSS_TRAIN_BATCH} x {QWEN_SEQ}, both kernels, "
-             "without and under the plan: the gathered route")
-        for kind in ("ce", "distill"):
-            g_runs, g_diff, g_bitwise = _plan_runs(dev, plan, WHISPER,
-                                                   TP_GATHERED_LAYERS, kind,
-                                                   "gathered")
-            _check_plan_runs(f"17c {kind}", g_runs, g_diff, g_bitwise)
-            if g_runs["plan"][2] != (0, 0) or g_runs["plan"][3]["bitlinear"] <= 0 \
-                    or (kind == "distill") != (g_runs["plan"][3]["relation_kd"] > 0):
-                fail(f"17c {kind}: f/g calls {g_runs['plan'][2]} (want none on the "
-                     f"gathered route), launches {g_runs['plan'][3]}")
-            out[f"17c_{kind}"] = dict(runs=g_runs, param_diff=g_diff,
-                                      bitwise=g_bitwise)
     finally:
         dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
@@ -5017,11 +5012,7 @@ def tensor_parallel(dev, out_dir, card):
     (out_dir / "smoke_tensor_parallel.json").write_text(
         json.dumps(out, indent=1, default=str))
     return {"distill qwen3-0.6b under a plan, split route (17b)":
-            out["17b"]["runs"]["plan"][3],
-            f"CE {WHISPER} under a plan, gathered route (17c)":
-            out["17c_ce"]["runs"]["plan"][3],
-            f"distill {WHISPER} under a plan, gathered route (17c)":
-            out["17c_distill"]["runs"]["plan"][3]}, out
+            out["17b"]["runs"]["plan"][3]}, out
 
 
 # -- phase 18: the split route for the MoE, SSM and hybrid families -----------------
@@ -5037,114 +5028,183 @@ SPLIT_RUNS = ((GRANITE, 2, QWEN_SEQ), ("mamba2-780m", 4, MAMBA_SEQ))
 GROK = "grok-1-314b"
 
 
-class _Stop(Exception):
-    pass
+def _emulated_rank(plan, rank, meet):
+    """The port's ``tensor_parallel.Split`` at ``rank`` of ``plan``'s
+    ``"model"`` axis, in one process: each collective over more than one
+    rank is ``meet(kind, t)``, which returns the value the ranks reduce
+    ``t`` to (kind ``("reduce", op)`` or ``("gather", dim)``)."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    class Rank(tp.Split):
+        def __init__(self):
+            super().__init__(plan)
+            self.rank = rank
+            self.coord = dict(self.coord, model=rank)
+
+        def all_reduce(self, t, axis=tp.MODEL, op="sum"):
+            if self.axis_size(axis) == 1:
+                return t
+            self._note("all-reduce", axis, t)
+            return meet(("reduce", op), t)
+
+        def all_gather(self, t, axis, dim):
+            if self.axis_size(axis) == 1:
+                return t
+            out = meet(("gather", dim % t.dim()), t)
+            self._note("all-gather", axis, out)
+            return out
+
+        def reduce_scatter(self, t, axis, dim, op="sum"):
+            raise NotImplementedError("the emulated ranks run without gradients")
+
+    return Rank()
 
 
-class _RankSim:
-    """One rank of a ``size``-way split emulated in one process for a
-    layer's forward: its k-th collective returns ``known[k]``, the value
-    the ranks reduce to, where that is known; else it keeps the rank's
-    operand and stops the forward (``_emulate`` reduces the operands over
-    the ranks and runs them again).  ``parts`` maps a linear layer's
-    logical axes to its part ("col" or "row")."""
-
-    def __init__(self, size, rank, known, parts=None):
-        self.size, self.rank, self.known = size, rank, known
-        self.parts, self.calls, self.operand = parts or {}, 0, None
-
-    def all_reduce(self, t, axis="model", op="sum"):
-        self.calls += 1
-        if self.calls <= len(self.known):
-            return self.known[self.calls - 1]
-        self.operand = (op, t)
-        raise _Stop
-
-    def all_max(self, t):
-        return self.all_reduce(t, op="max")
-
-    def sum64(self, t):
-        return self.all_reduce(t)
-
-    def acc_sum(self, t):
-        return self.all_reduce(t)
-
-    def linear_part(self, logical, shape):
-        return self.parts.get(tuple(logical))
-
-
-def _emulate(size, rank_forward, parts=None):
-    """``rank_forward(sim)`` (the layer on the rank's shards, no gradient)
-    on each of ``size`` emulated ranks, a collective at a time: each
-    collective's operands summed (max: maximized) over the ranks in rank
-    order, as the group reduces them, until the ranks run through.  ->
-    (each rank's output, the collectives' reduced values)."""
+def _lockstep(plan, ranks, rank_fn, keep=None):
+    """``rank_fn(rank, split)`` on each of ``ranks`` emulated ranks of
+    ``plan``'s ``"model"`` axis (``_emulated_rank``), in lockstep threads,
+    without gradients: the ranks' collectives meet at a barrier and reduce
+    there once, in rank order (sums in the operands' dtype, maxima, gathers
+    joined), as the group reduces them.  One rank computes at a time (a
+    baton passed at each collective), so the kernels' launches never
+    interleave.  ``keep``, a list, gains each collective's reduced value in
+    turn (for ``_replay``).  -> (each rank's result, the collectives one
+    rank made)."""
+    import threading
     import torch
     from repro_torch.distributed import tensor_parallel as tp
-    known = []
-    while True:
-        outs, operands = [], []
-        for r in range(size):
-            sim = _RankSim(size, r, known, parts)
+
+    baton = threading.Lock()
+    slots, kinds, result, calls, errors = [None] * ranks, [None] * ranks, [None], [0], []
+
+    def reduce():
+        kind = kinds[0]
+        if any(k != kind for k in kinds):
+            raise RuntimeError(f"the emulated ranks reached different collectives: "
+                               f"{kinds}")
+        calls[0] += 1
+        if kind[0] == "gather":
+            result[0] = torch.cat(slots, dim=kind[1])
+        else:
+            out = slots[0]
+            for t in slots[1:]:
+                out = torch.maximum(out, t) if kind[1] == "max" else out + t
+            result[0] = out / ranks if kind[1] == "avg" else out
+        if keep is not None:
+            keep.append(result[0])
+
+    barrier = threading.Barrier(ranks, action=reduce)
+
+    def meet_at(rank):
+        def meet(kind, t):
+            slots[rank], kinds[rank] = t.contiguous(), kind
+            baton.release()
             try:
-                with torch.no_grad(), tp.activated(sim):
-                    outs.append(rank_forward(sim))
-            except _Stop:
-                operands.append(sim.operand)
-        if not operands:
-            return outs, known
-        if len(operands) != size:
-            fail(f"18a: {len(operands)} of {size} ranks reached collective "
-                 f"{len(known)}")
-        total = operands[0][1]
-        for op, t in operands[1:]:
-            total = torch.maximum(total, t) if op == "max" else total + t
-        known.append(total)
+                barrier.wait(timeout=600)
+                out = result[0]
+            finally:
+                baton.acquire()
+            return out.clone()
+        return meet
+
+    local = threading.local()
+
+    class Active:
+        """The calling thread's rank (``tensor_parallel`` keeps one active
+        split for the process)."""
+
+        def __getattr__(self, name):
+            return getattr(local.split, name)
+
+    splits = [_emulated_rank(plan, r, meet_at(r)) for r in range(ranks)]
+    outs = [None] * ranks
+
+    def run(r):
+        local.split = splits[r]
+        with baton:
+            try:
+                with torch.no_grad():
+                    outs[r] = rank_fn(r, splits[r])
+            except BaseException as e:        # noqa: BLE001 (re-raised below)
+                errors.append(e)
+                barrier.abort()
+
+    with tp.activated(Active()):
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(ranks)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    return outs, calls[0]
 
 
-def _swapped(module, shards):
-    """A context: ``module``'s parameters named in ``shards`` replaced by
-    the given tensors (a rank's shards) for its duration."""
-    import contextlib
-    import torch
+def _replay(plan, rank, kept):
+    """One emulated rank alone (``_emulated_rank``): its collectives return
+    ``kept``, the values the ranks reduced to (``_lockstep(..., keep=)``),
+    in turn and from the start again after the last, so that each forward
+    of the rank takes them all once."""
+    at = [0]
 
-    @contextlib.contextmanager
-    def swap():
-        saved = {}
-        for name, t in shards.items():
-            owner, attr = module, name
-            while "." in attr:
-                head, attr = attr.split(".", 1)
-                owner = getattr(owner, head)
-            saved[name] = (owner, attr, getattr(owner, attr))
-            setattr(owner, attr, torch.nn.Parameter(t, requires_grad=False))
-        try:
-            yield
-        finally:
-            for owner, attr, p in saved.values():
-                setattr(owner, attr, p)
-    return swap()
+    def meet(kind, t):
+        out = kept[at[0]]
+        at[0] = (at[0] + 1) % len(kept)
+        return out
+
+    return _emulated_rank(plan, rank, meet)
 
 
-def _split_check(what, layer, x, n, shards_of, flush, card, bound_rel, parts=None,
-                 call=lambda m, x: m(x)):
+def _rank_models(model, plan, ranks):
+    """Each emulated rank's copy of ``model``: the module tree copied, its
+    parameters and packed buffers cut to the rank's share under ``plan``
+    (``tensor_parallel.shard_model``)."""
+    import copy
+    import itertools
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.nn.layers import Embedding
+    keep = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    for m in model.modules():
+        if isinstance(m, Embedding):
+            keep[id(m._table_cd)] = m._table_cd
+    out = []
+    for r in range(ranks):
+        local = copy.deepcopy(model, dict(keep))
+        tp.shard_model(local, plan, coord={"data": 0, "model": r})
+        out.append(local)
+    return out
+
+
+def _split_plan(ranks):
+    from repro_torch.distributed.sharding import ShardingPlan, default_rules
+    return ShardingPlan({"data": 1, "model": ranks}, default_rules(False))
+
+
+def _split_check(what, layer, x, n, flush, card, bound_rel, call=lambda m, x: m(x)):
     """``layer`` (switched to the exact forms a split takes,
     ``models/lm.py::set_exact``) whole on ``x`` against ``n`` emulated ranks
-    on ``shards_of(rank)``: each rank's output (the layer's, after its
-    last collective) within ``bound_rel`` of the whole output's largest
-    entry (bitwise printed); then the whole forward and one rank's (its
-    collectives' results given) timed.  -> a summary."""
+    (``_lockstep``), each on its shard of ``layer`` under the ``n``-rank
+    plan (``_rank_models``), taking its parameters' compute copies at use
+    as a block does (``tensor_parallel.using``): each rank's output within
+    ``bound_rel`` of the whole output's largest entry (bitwise printed);
+    then the whole forward and one rank's (its collectives' results
+    replayed, ``_replay``) timed.  -> a summary."""
     import torch
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import lm
     lm.set_exact(layer)
     with torch.no_grad():
         y = call(layer, x)
+    plan = _split_plan(n)
+    models = _rank_models(layer, plan, n)
 
-    def rank_forward(sim):
-        with _swapped(layer, shards_of(sim.rank)):
-            return call(layer, x)
+    def rank_fn(r, split):
+        split.register(models[r], local=True)
+        with tp.using(models[r]):
+            return call(models[r], x)
 
-    outs, known = _emulate(n, rank_forward, parts)
+    kept = []
+    outs, collectives = _lockstep(plan, n, rank_fn, keep=kept)
     bound = bound_rel * float(y.abs().max())
     err = max(float((o - y).abs().max()) for o in outs)
     bitwise = all(bool(torch.equal(o, y)) for o in outs)
@@ -5156,19 +5216,20 @@ def _split_check(what, layer, x, n, shards_of, flush, card, bound_rel, parts=Non
         with torch.no_grad():
             call(layer, x)
 
+    replay = _replay(plan, 0, kept)
+    replay.register(models[0], local=True)
+
     def one_rank():
-        from repro_torch.distributed import tensor_parallel as tp
-        sim = _RankSim(n, 0, known, parts)
-        with torch.no_grad(), tp.activated(sim), _swapped(layer, shards_of(0)):
-            call(layer, x)
+        with torch.no_grad(), tp.activated(replay), tp.using(models[0]):
+            call(models[0], x)
 
     whole_ms = time_ms(whole_forward, iters=5, flush=flush)
     rank_ms = time_ms(one_rank, iters=5, flush=flush)
-    print(f"  (a) {what}: x {list(x.shape)} over {n} ranks, {len(known)} collectives a "
-          f"rank: largest difference {err!r} (bound {bound:.3g}), bitwise {bitwise}; "
+    print(f"  (a) {what}: x {list(x.shape)} over {n} ranks, {collectives} collectives "
+          f"a rank: largest difference {err!r} (bound {bound:.3g}), bitwise {bitwise}; "
           f"forward ms ({card}): whole {whole_ms:.4f}, one rank {rank_ms:.4f}",
           flush=True)
-    return dict(ranks=n, collectives=len(known), max_abs_err=err, bound=bound,
+    return dict(ranks=n, collectives=collectives, max_abs_err=err, bound=bound,
                 bitwise=bitwise, whole_ms=whole_ms, rank_ms=rank_ms)
 
 
@@ -5184,11 +5245,11 @@ def moe_split_layer(dev, flush, card):
     outputs fp32 partial sums over 2048 of the 32768 rows, summed in
     float64: bound an fp32 ulp's random walk over the 32768 rows,
     2^-23·sqrt(32768) = 2.2e-5); mamba2-780m's Mamba2Block on the kernel route
-    over ``SPLIT_TP`` ranks of 3 heads (in_proj's columns picked by
-    ``BitLinear.forward_cols`` with the whole weight's Δ, the conv's
-    channels, ssd_scan on the heads, SubLN over the shards, out_proj
-    row-parallel through ``bitlinear_forward_acc``: bound 1e-6).  ->
-    {label: summary}."""
+    over ``SPLIT_TP`` ranks of 3 heads (in_proj and the conv gathered whole
+    at use, in_proj's columns picked by ``BitLinear.forward_cols`` with the
+    whole weight's Δ, the conv's channels, ssd_scan on the heads, SubLN
+    over the shards, out_proj row-parallel through
+    ``bitlinear_forward_acc``: bound 1e-6).  -> {label: summary}."""
     import torch
     from repro_torch.core import quant as Q
     from repro_torch.models import get_config
@@ -5214,28 +5275,18 @@ def moe_split_layer(dev, flush, card):
     cfg, layer = moe(GRANITE, 18)
     x = tokens((TRAIN_BATCH, QWEN_SEQ, cfg.d_model), 19)
     n, per = MOE_SPLIT_RANKS, cfg.n_experts // MOE_SPLIT_RANKS
-    w = {k: getattr(layer, k).w.data for k in ("up", "gate", "down")}
-    out[GRANITE] = _split_check(
-        f"{GRANITE} MoE layer, {per} experts a rank", layer, x, n,
-        lambda r: {f"{k}.w": t[r * per:(r + 1) * per] for k, t in w.items()},
-        flush, card, 1e-6, call=call)
-    del layer, x, w
+    out[GRANITE] = _split_check(f"{GRANITE} MoE layer, {per} experts a rank", layer,
+                                x, n, flush, card, 1e-6, call=call)
+    del layer, x
     torch.cuda.empty_cache()
 
     cfg, layer = moe(GROK, 20)
     x = tokens((2, QWEN_SEQ, cfg.d_model), 21)
     n, f = SPLIT_TP, cfg.d_ff // SPLIT_TP
-    w = {k: getattr(layer, k).w.data for k in ("up", "gate", "down")}
-    scale = layer.subln.scale.data
     out[GROK] = _split_check(
         f"{GROK} MoE layer, d_ff {f} of {cfg.d_ff} a rank ({cfg.n_experts} experts)",
-        layer, x, n,
-        lambda r: {"up.w": w["up"][..., r * f:(r + 1) * f],
-                   "gate.w": w["gate"][..., r * f:(r + 1) * f],
-                   "down.w": w["down"][:, r * f:(r + 1) * f],
-                   "subln.scale": scale[r * f:(r + 1) * f]},
-        flush, card, 2.0 ** -23 * cfg.d_ff ** 0.5, call=call)
-    del layer, x, w, scale
+        layer, x, n, flush, card, 2.0 ** -23 * cfg.d_ff ** 0.5, call=call)
+    del layer, x
     torch.cuda.empty_cache()
 
     cfg = get_config("mamba2-780m")
@@ -5250,19 +5301,9 @@ def moe_split_layer(dev, flush, card):
         blk.norm.scale.uniform_(0.8, 1.2, generator=gen)
     x = tokens((TRAIN_BATCH, MAMBA_SEQ, cfg.d_model), 23)
     n = SPLIT_TP
-    hr, di = blk.n_heads // n, blk.d_inner // n
-    whole = {k: getattr(blk, k).data for k in ("A_log", "D", "dt_bias")}
-    scale, w_out = blk.norm.scale.data, blk.out_proj.w.data
-
-    def shards(r):
-        s = {k: t[r * hr:(r + 1) * hr] for k, t in whole.items()}
-        s.update({"norm.scale": scale[r * di:(r + 1) * di],
-                  "out_proj.w": w_out[r * di:(r + 1) * di]})
-        return s
-
     out["mamba2-780m"] = _split_check(
-        f"mamba2-780m Mamba2Block, {hr} of {blk.n_heads} heads a rank", blk, x, n,
-        shards, flush, card, 1e-6, parts={tuple(blk.out_proj.axes): "row"})
+        f"mamba2-780m Mamba2Block, {blk.n_heads // n} of {blk.n_heads} heads a rank",
+        blk, x, n, flush, card, 1e-6)
     del blk, x
     torch.cuda.empty_cache()
     return out
@@ -5371,8 +5412,7 @@ def split_families(dev, out_dir, card):
                 part(f"18c: {name} (full width, {layers} layers), {TP_DISTILL_STEPS} "
                      f"{kind} steps at {TRAIN_BATCH} x {seq}, the kernels on, without "
                      "and under the (1, 1) plan: the split route")
-                runs, diff, bitwise = _plan_runs(dev, plan, name, layers, kind,
-                                                 "split", seq)
+                runs, diff, bitwise = _plan_runs(dev, plan, name, layers, kind, seq)
                 _check_plan_runs(f"18c {name} {kind}", runs, diff, bitwise,
                                  want=want[name, kind])
                 if min(runs["plan"][2]) <= 0:
@@ -5387,6 +5427,343 @@ def split_families(dev, out_dir, card):
     out["seconds"] = time.perf_counter() - t0
     part(f"phase 18 done ({card})")
     (out_dir / "smoke_split_families.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    return paths, out
+
+
+# -- phase 19: the split route for the cross families, prefill and decode -----------
+
+# 19a: full-width blocks over SPLIT_TP emulated ranks: (label, config, mixer,
+# rows x positions of x, positions of the memory or 0); 19b: qwen3-0.6b's
+# row-parallel projections (label, K, N) at SPLIT_TP and the rows of a
+# decode pass and of a chunk step; 19c: the decode step's rows, each at its
+# own depth, against a cache of DECODE_MAX_LEN seeded positions
+SPLIT_BLOCKS = (("whisper-medium encoder block", WHISPER, "encoder", (2, 1500), 0),
+                ("whisper-medium decoder attn_cross block", WHISPER, "attn_cross",
+                 (2, 256), 1500),
+                ("llama-3.2-vision-11b cross block", VISION, "cross", (2, 256), 1601))
+ACC_SHAPES = (("o_proj", 2048, 1024), ("down_proj", 3072, 1024))
+ACC_ROWS = (8, 256)
+DECODE_DEPTHS = (100, 257, 700, 1500)
+DECODE_MAX_LEN = 2048
+# 19d: whisper-medium's depth (its encoder's and its decoder's layers)
+CROSS_LAYERS = 2
+# 19c's bound on the logits, relative to the whole step's largest: over 16
+# ranks every reduction of the decode takes its exact form (the packed
+# products' integer sums, SubLN's and the attention's float64 sums, each
+# rounded once), as the whole step does under ``set_exact``; what remains
+# is the tied head's fp32 product over the rank's vocabulary columns
+# against the whole table's (another matmul shape, ~1e-7 relative) and a
+# float64 sum rounding the other way at an fp32 boundary (~1e-6 of an
+# element's chance), which could round one int8 code of a later layer apart
+DECODE_BOUND_REL = 1e-5
+
+
+def cross_split_blocks(dev, flush, card):
+    """19a: whisper-medium's encoder block and decoder ``attn_cross`` block
+    and llama-3.2-vision-11b's ``cross`` block at full width, QAT on the
+    bitlinear kernel route, fp32, each whole (in the split's exact forms,
+    ``models/lm.py::set_exact``) and over ``SPLIT_TP`` emulated ranks
+    (``_lockstep``): q column-parallel by heads, K/V from the memory by kv
+    heads (whisper's 16 divide over 16 ranks; llama-vision's 8 do not, so
+    each rank projects them whole), ``wo`` row-parallel through
+    ``bitlinear_forward_acc``, the MLP split by d_ff.  Each rank's output
+    within 1e-6 of the whole block's largest entry (bitwise printed).  ->
+    {label: summary}."""
+    import dataclasses
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.models import get_config, lm
+    from repro_torch.nn.transformer import Block, LayerSpec
+    plan, n = _split_plan(SPLIT_TP), SPLIT_TP
+    out = {}
+    for label, name, mixer, (b, s_), t in SPLIT_BLOCKS:
+        cfg = get_config(name).with_quant(Q.QuantConfig(mode="qat", use_kernel=True))
+        cfg = cfg.replace(compute_dtype="float32")
+        bc = cfg.block_config()
+        spec = LayerSpec("attn" if mixer == "encoder" else mixer, "dense")
+        if mixer == "encoder":
+            bc = dataclasses.replace(bc, causal=False)
+        gen = torch.Generator(device=dev).manual_seed(19)
+        blk = Block(bc, spec, gen=gen, device=dev)
+        with torch.no_grad():
+            for m in blk.modules():
+                if hasattr(m, "scale") and isinstance(m.scale, torch.nn.Parameter):
+                    m.scale.uniform_(0.8, 1.2, generator=gen)
+        lm.set_exact(blk)
+        x = torch.randn((b, s_, cfg.d_model), generator=gen, device=dev)
+        mem = (torch.randn((b, t, cfg.d_model), generator=gen, device=dev)
+               if t else None)
+
+        def call(m):
+            return m(x, None, mem)[0]
+
+        with torch.no_grad():
+            y = call(blk)
+        models = _rank_models(blk, plan, n)
+
+        def rank_fn(r, split):
+            split.register(models[r], local=True)
+            return call(models[r])
+
+        t0 = time.perf_counter()
+        outs, collectives = _lockstep(plan, n, rank_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bound = 1e-6 * float(y.abs().max())
+        err = max(float((o - y).abs().max()) for o in outs)
+        bitwise = all(bool(torch.equal(o, y)) for o in outs)
+        if not (all(bool(torch.isfinite(o).all()) for o in outs) and err <= bound):
+            fail(f"19a {label}: {n} emulated ranks differ from the whole block by "
+                 f"{err!r} (bound {bound!r})")
+        with torch.no_grad():
+            whole_ms = time_ms(lambda: call(blk), iters=5, flush=flush)
+        print(f"  (a) {label}: x {list(x.shape)}"
+              f"{f', memory {list(mem.shape)}' if mem is not None else ''} over {n} "
+              f"ranks, {collectives} collectives a rank: largest difference {err!r} "
+              f"(bound {bound:.3g}), bitwise {bitwise}; whole forward {whole_ms:.4f} "
+              f"ms ({card}); the {n} ranks in lockstep {wall:.2f} s of host time",
+              flush=True)
+        out[label] = dict(ranks=n, collectives=collectives, max_abs_err=err,
+                          bound=bound, bitwise=bitwise, whole_ms=whole_ms,
+                          lockstep_s=wall)
+        del blk, models, outs, x, mem
+        torch.cuda.empty_cache()
+    return out
+
+
+def w2a8_row_shards(dev, flush, card, results):
+    """19b: ``w2a8_forward_acc`` on qwen3-0.6b's row-parallel projections
+    (o_proj K 2048, down_proj K 3072; N 1024) at tp ``SPLIT_TP``, M = 8 and
+    256, bf16 and fp32, on every rank's shard: each rank's accumulators
+    equal the plain version's exactly, and the ranks' sum (in rank order)
+    scaled once by (γ/127)·Δ equals the whole ``w2a8_kernel`` launch bit for
+    bit.  Each shard's time (as a caller sees it and device alone) beside
+    the whole launch's, the plain version's, ``torch._int_mm``'s on the
+    shard's codes and the bound.  -> summary (the kernel's row in
+    ``results``)."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.w2a8_gemv import kernel as wk
+    from repro_torch.kernels.w2a8_gemv.ref import w2a8_forward_acc_ref
+    rows = []
+    n_ranks = SPLIT_TP
+    for label, k, n in ACC_SHAPES:
+        kk = k // n_ranks
+        for m in ACC_ROWS:
+            gen = torch.Generator(device=dev).manual_seed(k + m)
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            q, delta = Q.weight_quant_absmean(w)
+            wp = Q.pack_ternary(q.to(torch.int8))
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                gamma = x.float().abs().amax(dim=-1, keepdim=True)
+                shards = [(x[:, r * kk:(r + 1) * kk].contiguous(),
+                           wp[r * kk // 4:(r + 1) * kk // 4]) for r in range(n_ranks)]
+                total = None
+                for r, (xs, ws) in enumerate(shards):
+                    acc = wk.w2a8_forward_acc(xs, ws, gamma)
+                    if not torch.equal(acc, w2a8_forward_acc_ref(xs, ws, gamma)):
+                        fail(f"19b {label} M={m} {dt} rank {r}: the accumulators "
+                             "differ from the plain version's")
+                    total = acc if total is None else total + acc
+                y = (total * (Q.div(gamma, 127.0) * delta)).to(dt)
+                if not torch.equal(y, wk.w2a8_kernel(x, wp, delta)):
+                    fail(f"19b {label} M={m} {dt}: the ranks' scaled sum differs "
+                         "from the whole launch")
+            xs, ws = shards[0]
+            shard = both_ms(lambda: wk.w2a8_forward_acc(xs, ws, gamma), flush)
+            whole = both_ms(lambda: wk.w2a8_kernel(x, wp, delta), flush)
+            plain = both_ms(lambda: w2a8_forward_acc_ref(xs, ws, gamma), flush)
+            codes = Q.round_clip(xs.float() * Q.div(127.0, gamma + 1e-5), -128.0,
+                                 127.0).to(torch.int8)
+            lib, why = _int_mm_ms(codes, Q.unpack_ternary(ws, kk), 1.0,
+                                  torch.float32, flush)
+            bd, by = bound_ms("w2a8_forward_acc", xs, ws, gamma)
+            row = dict(proj=label, m=m, k=k, k_shard=kk, n=n, ms=shard[0],
+                       device_ms=shard[1], whole_ms=whole[0], whole_device_ms=whole[1],
+                       plain_ms=plain[0], plain_device_ms=plain[1],
+                       library_ms=lib[0], library_device_ms=lib[1], library_why=why,
+                       bound_ms=bd, bound_by=by)
+            rows.append(row)
+            print(f"  (b) w2a8_forward_acc {label} M={m} K {kk} of {k} N={n} fp32 x: "
+                  f"{n_ranks} shards exact, their scaled sum bitwise the whole launch "
+                  f"(bf16 and fp32); ms ({card}) a shard {shard[0]:.4f} (device alone "
+                  f"{shard[1]:.4f}), whole launch {whole[0]:.4f} ({whole[1]:.4f}), "
+                  f"plain {plain[0]:.4f} ({plain[1]:.4f}), _int_mm {_fmt(lib[0])} "
+                  f"({_fmt(lib[1])}), bound {bd:.5f} by {by}", flush=True)
+    head = rows[0]                       # o_proj's shard at the decode rows
+    results["w2a8_forward_acc"] = dict(
+        name="w2a8_forward_acc", route="cuda", source="src/repro_torch/csrc/w2a8_gemv.cu",
+        replaces="src/repro/kernels/w2a8_gemv/kernel.py:58", max_abs_err=0.0,
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        device_ms=head["device_ms"],
+        shape=f"M=8 K={head['k_shard']} of {head['k']} N={head['n']} fp32 (o_proj, tp "
+              f"{SPLIT_TP})", rows=rows)
+    return rows
+
+
+def _top2_gap(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def split_decode(dev, flush, card):
+    """19c: a packed decode step at full width in fp32 over ``SPLIT_TP``
+    emulated ranks against the whole ``decode_step`` on the same cache:
+    qwen3-0.6b (28 layers, 8 kv heads: the cache split by positions, the
+    ranks' attention merged by log-sum-exp) and one layer of qwen1.5-0.5b
+    (16 kv heads: split by heads).  Rows at depths ``DECODE_DEPTHS`` of a
+    cache of seeded K/V; each rank's share of it cut from the whole
+    (``Split.local_of``); the whole step in the exact forms the split takes
+    (``models/lm.py::set_exact``).  Logits within ``DECODE_BOUND_REL`` of
+    the whole step's largest, the greedy token equal wherever the whole
+    step's top-2 gap is more than twice the difference (a tie otherwise,
+    printed).  The
+    packed kernels' counters are reset just before the ranks' run and read
+    after: every projection of every rank a launch, ``w2a8_forward_acc``
+    for ``wo`` and ``down``.  -> ({path: launches}, summary)."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.w2a8_gemv import kernel as wk
+    from repro_torch.models import build_model, get_config, lm
+    plan, n = _split_plan(SPLIT_TP), SPLIT_TP
+    paths, out = {}, {}
+    for name, layers, placement in (("qwen3-0.6b", None, "positions"),
+                                    ("qwen1.5-0.5b", 1, "heads")):
+        cfg = get_config(name).with_quant(Q.QuantConfig(mode="packed", use_kernel=True))
+        cfg = cfg.replace(compute_dtype="float32", vocab_pad_multiple=512)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        gen = torch.Generator(device=dev).manual_seed(19)
+        model = build_model(cfg, gen=gen, device=dev)
+        rows = len(DECODE_DEPTHS)
+        idx = torch.tensor(DECODE_DEPTHS, dtype=torch.int32, device=dev)
+        tok = torch.randint(0, cfg.vocab, (rows,), generator=gen, device=dev)
+        whole = model.init_cache(rows, DECODE_MAX_LEN, torch.float32, dev)
+        for layer in whole:
+            for t in layer["attn"].values():
+                t.normal_(generator=gen)
+        keep = [{k: t.clone() for k, t in layer["attn"].items()} for layer in whole]
+        lm.set_exact(model)
+        with torch.no_grad():
+            want, _ = model.decode_step(tok, whole, idx)
+        models = _rank_models(model, plan, n)
+
+        def rank_fn(r, split):
+            split.register(models[r], local=True)
+            cache = models[r].init_cache(rows, DECODE_MAX_LEN, torch.float32, dev)
+            for layer, src in zip(cache, keep):
+                for k, t in layer["attn"].items():
+                    t.copy_(split.local_of(src[k], split.cache_spec(t), t._tp_whole))
+            if r == 0:
+                out.setdefault(name, {})["cache"] = list(cache[0]["attn"]["k"].shape)
+            logits = models[r].decode_step(tok, cache, idx)[0]
+            if logits.shape != (rows, cfg.padded_vocab):
+                raise ValueError(f"rank {r}: logits {tuple(logits.shape)}, not the "
+                                 f"whole vocabulary's ({rows}, {cfg.padded_vocab})")
+            return logits
+
+        wk.launches.reset()
+        wk.acc_launches.reset()
+        t0 = time.perf_counter()
+        outs, collectives = _lockstep(plan, n, rank_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"w2a8_gemv": wk.launches.count,
+                  "w2a8_forward_acc": wk.acc_launches.count}
+        want_counts = {"w2a8_gemv": n * cfg.n_layers * 5,
+                       "w2a8_forward_acc": n * cfg.n_layers * 2}
+        if counts != want_counts:
+            fail(f"19c {name}: launches {counts}, want {want_counts} (q, k, v, gate, "
+                 "up on column shards; wo, down on row shards; every rank)")
+        # the vocabulary's columns (the pad's are -1e30 on both sides)
+        want = want[:, :cfg.vocab]
+        outs = [o[:, :cfg.vocab] for o in outs]
+        bound = DECODE_BOUND_REL * float(want.abs().max())
+        err = max(float((o - want).abs().max()) for o in outs)
+        gap = _top2_gap(want)
+        ties = [b for b in range(rows) if float(gap[b]) <= 2 * err]
+        wrong = [(r, b) for r, o in enumerate(outs) for b in range(rows)
+                 if b not in ties and int(o[b].argmax()) != int(want[b].argmax())]
+        if not all(bool(torch.isfinite(o).all()) for o in outs) or err > bound \
+                or wrong:
+            fail(f"19c {name}: logits {err!r} from the whole step (bound {bound!r}), "
+                 f"greedy tokens differ at (rank, row) {wrong[:8]}")
+        with torch.no_grad():
+            step_ms = time_ms(lambda: model.decode_step(tok, whole, idx), iters=5,
+                              flush=flush)
+        print(f"  (c) {name} packed{f', {layers} layer' if layers else ''}, fp32, "
+              f"{rows} rows at depths {list(DECODE_DEPTHS)} of {DECODE_MAX_LEN}: the "
+              f"cache split by {placement} (a rank's k {out[name]['cache']}), {n} "
+              f"ranks, {collectives} collectives a rank; logits {err!r} from the "
+              f"whole step (bound {bound:.3g}), greedy tokens equal (ties "
+              f"{ties}: top-2 gaps {[round(float(g), 6) for g in gap]}); launches "
+              f"{counts}; whole step {step_ms:.4f} ms ({card}), the ranks in lockstep "
+              f"{wall:.2f} s of host time", flush=True)
+        out[name].update(ranks=n, placement=placement, collectives=collectives,
+                         max_abs_err=err, bound=bound, ties=ties,
+                         gaps=[float(g) for g in gap], launches=counts,
+                         step_ms=step_ms, lockstep_s=wall)
+        paths[f"decode {name} packed over {n} emulated ranks, cache split by "
+              f"{placement} (19c)"] = counts
+        del model, models, outs, whole, keep
+        torch.cuda.empty_cache()
+    return paths, out
+
+
+def cross_split(dev, out_dir, card, results):
+    """Phase 19: the split route for the cross-attention families and for
+    prefill and decode.  (a) whisper-medium's and llama-3.2-vision-11b's
+    blocks over emulated ranks, (b) ``w2a8_forward_acc`` on qwen3-0.6b's row
+    shards, (c) a packed decode step over emulated ranks on both cache
+    placements, all full width; on a one-rank NCCL group, (d) whisper-medium
+    at two encoder and two decoder layers, CE and distill steps under the
+    (1, 1) plan on the split route, each bitwise the plain step.  -> ({path:
+    launches}, a summary); ``results`` gains ``w2a8_forward_acc``'s row."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingPlan, default_rules
+    from repro_torch.launch.mesh import make_mesh
+    out, paths, t0 = {}, {}, time.perf_counter()
+
+    def part(title):
+        print(f"  {title} [+{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    part(f"19a: the cross families' blocks over {SPLIT_TP} emulated ranks")
+    out["19a"] = cross_split_blocks(dev, scratch.zero_, card)
+    part(f"19b: w2a8_forward_acc on qwen3-0.6b's row shards at tp {SPLIT_TP}")
+    out["19b"] = w2a8_row_shards(dev, scratch.zero_, card, results)
+    part(f"19c: a packed decode step over {SPLIT_TP} emulated ranks")
+    paths19c, out["19c"] = split_decode(dev, scratch.zero_, card)
+    paths.update(paths19c)
+    del scratch
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        plan = ShardingPlan(make_mesh(1, 1), default_rules(False))
+        for kind in ("ce", "distill"):
+            part(f"19d: {WHISPER} (full width, {CROSS_LAYERS} encoder and "
+                 f"{CROSS_LAYERS} decoder layers), {TP_DISTILL_STEPS} {kind} "
+                 f"steps at {CROSS_TRAIN_BATCH} x {QWEN_SEQ}, both kernels, without "
+                 "and under the (1, 1) plan: the split route")
+            runs, diff, bitwise = _plan_runs(dev, plan, WHISPER, CROSS_LAYERS, kind)
+            _check_plan_runs(f"19d {kind}", runs, diff, bitwise)
+            if min(runs["plan"][2]) <= 0 or runs["plan"][3]["bitlinear"] <= 0 \
+                    or (kind == "distill") != (runs["plan"][3]["relation_kd"] > 0):
+                fail(f"19d {kind}: f/g calls {runs['plan'][2]} (the split route "
+                     f"makes them), launches {runs['plan'][3]}")
+            out[f"19d {kind}"] = dict(runs=runs, param_diff=diff, bitwise=bitwise)
+            paths[f"{kind} {WHISPER} under a plan, split route (19d)"] = \
+                runs["plan"][3]
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    part(f"phase 19 done ({card})")
+    (out_dir / "smoke_cross_split.json").write_text(
         json.dumps(out, indent=1, default=str))
     return paths, out
 
@@ -5433,7 +5810,7 @@ def serving_of(root: Path) -> None:
 # phases --phases may name (1, the card and the build, always runs), and
 # what each needs run before it: 10b runs at the end of phase 5, and the
 # kernels line reads phase 2's checks
-PHASES = tuple(range(2, 19))
+PHASES = tuple(range(2, 20))
 NEEDS = {10: (5,)}
 
 
@@ -5656,12 +6033,11 @@ def main() -> None:
         paths16, _ = tooling(dev, out_dir, card)
         by_path.update(paths16)
     # 17. tensor-parallel compute: the bitlinear kernel at the split's shard
-    # shapes (comparisons), then the distill step under a plan and granite's
-    # steps on the gathered route (the training kernels' counters reset just
-    # before each run under the plan, read after)
+    # shapes (comparisons), then the distill step under a plan (the training
+    # kernels' counters reset just before the run under the plan, read after)
     if run(17):
         phase("phase 17: tensor-parallel compute (the kernel at shard shapes, the "
-              "distill step under a plan; the gathered route)")
+              "distill step under a plan)")
         paths17, _ = tensor_parallel(dev, out_dir, card)
         by_path.update(paths17)
     # 18. the split route for the MoE, SSM and hybrid families: the MoE
@@ -5675,6 +6051,17 @@ def main() -> None:
               "heads, granite's and mamba2's steps under a plan)")
         paths18, _ = split_families(dev, out_dir, card)
         by_path.update(paths18)
+    # 19. the split route for the cross families and for decode: the blocks
+    # and the accumulator entry on a rank's share (comparisons), a packed
+    # decode step over emulated ranks (the packed kernels' counters reset
+    # just before the ranks' run, read after), whisper's steps under a
+    # one-rank plan (the training kernels' counters likewise)
+    if run(19):
+        phase("phase 19: the split route for the cross families and for decode "
+              "(blocks over emulated ranks, w2a8_forward_acc on row shards, a packed "
+              "decode step over emulated ranks, whisper's steps under a plan)")
+        paths19, _ = cross_split(dev, out_dir, card, results)
+        by_path.update(paths19)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -19,6 +19,15 @@ in axis (x is the rank's columns; *g* sums the partial outputs, then the
 bias is added).  Δ is the whole weight's on every route; a row-parallel
 shard quantizes x with the whole rows' γ (maximized over the shards).
 
+A packed layer (inference: prefill and decode under a split) holds the
+rank's shard of ``w_packed`` and the whole weight's Δ: a column shard runs
+the w2a8 product on its columns, each the unsharded layer's; a row shard
+(K/tp input rows, a whole number of packed bytes: K/tp divisible by 4)
+quantizes x with the whole rows' γ (maximized over the shards) and returns
+the accumulators of its rows (``w2a8_forward_acc`` on the kernel route),
+integers summed exactly over the ranks (*g*, ``Split.acc_sum``) before the
+one scale (γ/127)·Δ: the unsharded output bit for bit.
+
 ``forward_cols`` computes a set of the layer's output columns from the
 whole weight at use, Δ the whole weight's: a column shard whose columns are
 not one contiguous block (Mamba2's ``in_proj``, ``nn/ssm.py``).
@@ -140,12 +149,38 @@ class BitLinear(nn.Module):
 
     def _forward_split(self, x: torch.Tensor, split, kind: str) -> torch.Tensor:
         """The rank's part of the layer (see the module's docstring)."""
+        if self.quant.mode == "packed":
+            y = self._packed_split(x, split, kind)
+            if self.use_bias:
+                y = y + self.b.to(self.policy.compute_dtype)
+            return y
         y = self._product(x, self.w, split, kind)
         if kind == "row" and self.quant.mode == "fp":
             y = tp.reduce_from(y)
         if self.use_bias:
             y = y + self.b.to(self.policy.compute_dtype)
         return y
+
+    def _packed_split(self, x: torch.Tensor, split, kind: str) -> torch.Tensor:
+        """A packed layer's column or row shard (see the module's
+        docstring)."""
+        cd = self.policy.compute_dtype
+        use_kernel = self.quant.use_kernel
+        if kind == "col":
+            return packed_matmul(x.to(cd), self.w_packed, self.delta, self.in_dim,
+                                 use_kernel=use_kernel)
+        if self.in_dim % (4 * split.size) or self.in_dim > MAX_ROW_K:
+            raise ValueError(
+                f"a packed layer's row shard: K = {self.in_dim} over {split.size} "
+                f"ranks; K/tp must be a whole number of packed bytes (divisible "
+                f"by 4) and K at most {MAX_ROW_K}, where the summed accumulators "
+                "stay exact in fp32")
+        lead = x.shape[:-1]
+        x2d = x.to(cd).reshape(-1, x.shape[-1])
+        gamma = split.all_max(x2d.to(torch.float32).abs().amax(dim=-1, keepdim=True))
+        acc = split.acc_sum(packed_acc(x2d, self.w_packed, gamma, use_kernel))
+        y = (acc * (Q.div(gamma, 127.0) * self.delta)).to(cd)
+        return y.reshape(*lead, y.shape[-1])
 
     def forward_cols(self, x: torch.Tensor,
                      cols: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -154,6 +189,14 @@ class BitLinear(nn.Module):
         whole): on the QAT routes with the whole weight's Δ, so each column
         is the whole layer's.  The caller's *f* sums ``dx``; the weight's
         gradient is the columns', zero elsewhere."""
+        if self.quant.mode == "packed":
+            wp = torch.cat([self.w_packed[:, lo:hi] for lo, hi in cols], dim=1)
+            y = packed_matmul(x.to(self.policy.compute_dtype), wp, self.delta,
+                              self.in_dim, use_kernel=self.quant.use_kernel)
+            if self.use_bias:
+                b = torch.cat([self.b[lo:hi] for lo, hi in cols])
+                y = y + b.to(self.policy.compute_dtype)
+            return y
         w = torch.cat([self.w[:, lo:hi] for lo, hi in cols], dim=1)
         delta = None
         if self.quant.mode == "qat":
@@ -190,7 +233,7 @@ class BitLinear(nn.Module):
             return _qat_absmean(x.to(cd), w.to(torch.float32), self.axes, exact,
                                 split if part else None, part, delta=delta)
         raise ValueError(f"quant mode {quant.mode!r} takes no tensor-parallel "
-                         "split (the serving engine takes no plan)")
+                         "split of this kind")
 
 
 class _TernaryMatmul(torch.autograd.Function):
@@ -270,6 +313,27 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, delta: torch.Tensor,
     acc = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
     scale = Q.div(gamma, 127.0) * delta
     return (acc * scale).to(x.dtype)
+
+
+# the largest whole K whose row shards' summed accumulators stay exact in fp32
+# (128·K < 2**24)
+MAX_ROW_K = (1 << 24) // 128 - 1
+
+
+def packed_acc(x2d: torch.Tensor, w_packed: torch.Tensor, gamma: torch.Tensor,
+               use_kernel: bool = False) -> torch.Tensor:
+    """A packed row shard's unscaled accumulators: x2d [M, K] quantized with
+    the given γ [M, 1] against the ternary rows of ``w_packed`` [K/4, N],
+    fp32 [M, N] (exact integers).  Kernel path: ``w2a8_forward_acc``
+    (kernels/w2a8_gemv); plain path: the codes' fp32 matmul, as
+    :func:`packed_matmul` computes it."""
+    if use_kernel:
+        from repro_torch.kernels.w2a8_gemv import ops as kops
+        return kops.w2a8_matmul_acc(x2d, w_packed, gamma)
+    wq = Q.unpack_ternary(w_packed, x2d.shape[-1])
+    xq = Q.round_clip(Q.div(127.0, gamma + Q.EPS) * x2d.to(torch.float32),
+                      -128.0, 127.0)
+    return torch.matmul(xq, wq.to(torch.float32))
 
 
 class SubLN(nn.Module):

@@ -171,11 +171,12 @@ __device__ __forceinline__ void mainloop(int (&acc)[64], const uint8_t* sA,
 }
 
 // Epilogue of the CONSUMERS warpgroups of a CTA whose tile starts at (m0,
-// n0): scale, stage each warp's 16 x 128 outputs in the drained ring at
-// `stage` (every load has landed and every MMA has read its stage once all
-// consumers pass the barrier), then store 16 bytes a lane, masking the
-// ragged M and N edges.
-template <typename T, int CONSUMERS>
+// n0): scale (SCALE false: none, the accumulators as they are, exact;
+// gamma and delta are not read), stage each warp's 16 x 128 outputs in the
+// drained ring at `stage` (every load has landed and every MMA has read its
+// stage once all consumers pass the barrier), then store 16 bytes a lane,
+// masking the ragged M and N edges.
+template <typename T, int CONSUMERS, bool SCALE = true>
 __device__ __forceinline__ void epilogue(int (&acc)[64], uint8_t* stage,
                                          const float* __restrict__ gamma,
                                          const float* __restrict__ delta,
@@ -185,9 +186,12 @@ __device__ __forceinline__ void epilogue(int (&acc)[64], uint8_t* stage,
   const int wg = warp >> 2;
   const int wr = (warp & 3) * 16;                 // warp's first row in the WG
   const int r0 = m0 + wg * 64 + wr + (lane >> 2); // and rows r0 + 8
-  const float d = delta[0];
-  const float sc0 = r0 < M ? (gamma[r0] / 127.0f) * d : 0.0f;
-  const float sc1 = r0 + 8 < M ? (gamma[r0 + 8] / 127.0f) * d : 0.0f;
+  float sc0 = r0 < M ? 1.0f : 0.0f, sc1 = r0 + 8 < M ? 1.0f : 0.0f;
+  if constexpr (SCALE) {
+    const float d = delta[0];
+    sc0 = r0 < M ? (gamma[r0] / 127.0f) * d : 0.0f;
+    sc1 = r0 + 8 < M ? (gamma[r0 + 8] / 127.0f) * d : 0.0f;
+  }
   T* so = reinterpret_cast<T*>(stage) + warp * 16 * LDO;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {

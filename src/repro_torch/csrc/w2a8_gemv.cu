@@ -41,6 +41,18 @@
 //      and arrives on the stage's barrier.  The tensor maps are cached: the
 //      packed weight's by pointer and shape, the codes buffer's by its
 //      pointer, rows and pitch, so a call encodes none once warm.
+//
+// w2a8_forward_acc (w2a8_gemv_acc_launch): a row-parallel shard of the
+// product under a tensor-parallel split.  x is the rank's K columns of the
+// rows and wp the rank's K/4 packed rows; gamma [M] (the whole rows' absmax,
+// maximized over the ranks) is given, and the entry returns the fp32
+// accumulators acc[M, N] = q8(x) @ unpack(wp), unscaled: the int32 sums
+// exactly (|acc| <= 128 K < 2^24), for the ranks to sum before the one
+// scale (gamma/127) * delta.  The same two routes by M, stopping before the
+// scale, each a separate instantiation (ACC / SCALE template flags, so the
+// scaled kernels are unchanged): split-K reads gamma instead of taking the
+// row absmax and writes the int32 sums as floats; the wgmma route's
+// quantizing pass reads gamma and its epilogue runs with no scale.
 #include "igemm_core.cuh"
 
 #include <mutex>
@@ -161,12 +173,14 @@ __device__ __forceinline__ void dp4a_step(int (&acc)[MR][4], const uint32_t (&w)
   }
 }
 
-template <typename T, int MR>
+// ACC: a row shard's accumulators (gamma_in given, acc_out written, no scale)
+template <typename T, int MR, bool ACC>
 __global__ void __launch_bounds__(SK_THREADS)
 w2a8_kernel_splitk(const T* __restrict__ x, const uint8_t* __restrict__ wp,
                    const float* __restrict__ delta, T* __restrict__ y,
                    int* __restrict__ ws, unsigned* __restrict__ counters, int M,
-                   int K, int N, int kps, int xvec, int wvec) {
+                   int K, int N, int kps, int xvec, int wvec,
+                   const float* __restrict__ gamma_in, float* __restrict__ acc_out) {
   extern __shared__ __align__(16) uint8_t sk_smem[];
   int* red = reinterpret_cast<int*>(sk_smem);                       // [4][MR][SK_BN]
   float* xs = reinterpret_cast<float*>(red + 4 * MR * SK_BN);       // [MR][4 kps]
@@ -188,12 +202,15 @@ w2a8_kernel_splitk(const T* __restrict__ x, const uint8_t* __restrict__ wp,
   for (int j = 0; j < SK_PRE; ++j)
     pre[j] = n < N && j < q && wa + j < kp1 ? packed_word(wp, wa + j, n, N, wvec) : 0u;
 
-  // gamma of the CTA's rows over the whole row, keeping the slice, then the
-  // slice's codes
+  // gamma of the CTA's rows over the whole row (or the given one), keeping
+  // the slice, then the slice's codes
   for (int r = warp; r < MR; r += 4) {
-    const float g = r < mr ? row_absmax(x + (size_t)(m0 + r) * K, K, lane, xvec,
-                                        4 * kp0, 4 * kp1, xs + r * ks)
-                           : 0.0f;
+    float g = r < mr ? row_absmax(x + (size_t)(m0 + r) * K, K, lane, xvec,
+                                  4 * kp0, 4 * kp1, xs + r * ks)
+                     : 0.0f;
+    if constexpr (ACC) {
+      if (r < mr) g = gamma_in[m0 + r];
+    }
     if (lane == 0) {
       gam[r] = g;
       inv[r] = 127.0f / (g + 1e-5f);
@@ -238,12 +255,14 @@ w2a8_kernel_splitk(const T* __restrict__ x, const uint8_t* __restrict__ wp,
 
   // thread t owns column n0 + t: the 4 warps' sums, then one split's share
   const int nt = n0 + tid;
-  const float d = delta[0];
+  const float d = ACC ? 1.0f : delta[0];
   if (gridDim.y == 1) {   // one split: the sums are whole
     for (int r = 0; r < mr && nt < N; ++r) {
       const int s = red[r * SK_BN + tid] + red[(MR + r) * SK_BN + tid] +
                     red[(2 * MR + r) * SK_BN + tid] + red[(3 * MR + r) * SK_BN + tid];
-      y[(size_t)(m0 + r) * N + nt] = from_f32<T>((float)s * ((gam[r] / 127.0f) * d));
+      const size_t at = (size_t)(m0 + r) * N + nt;
+      if constexpr (ACC) acc_out[at] = (float)s;
+      else y[at] = from_f32<T>((float)s * ((gam[r] / 127.0f) * d));
     }
     return;
   }
@@ -264,35 +283,49 @@ w2a8_kernel_splitk(const T* __restrict__ x, const uint8_t* __restrict__ wp,
     int* p = ws + (size_t)(m0 + r) * N + nt;
     const int s = __ldcg(p);
     __stcg(p, 0);
-    y[(size_t)(m0 + r) * N + nt] = from_f32<T>((float)s * ((gam[r] / 127.0f) * d));
+    const size_t at = (size_t)(m0 + r) * N + nt;
+    if constexpr (ACC) acc_out[at] = (float)s;
+    else y[at] = from_f32<T>((float)s * ((gam[r] / 127.0f) * d));
   }
   if (tid == 0) *counter = 0u;
 }
 
-template <typename T, int MR>
+// ACC: the accumulators of a row shard into acc_out, gamma_in given (see the top)
+template <typename T, int MR, bool ACC>
 int splitk_t(const void* x, const void* wp, const void* delta, void* y, void* ws,
-             int M, int K, int N, const SplitPlan& p, cudaStream_t stream) {
+             int M, int K, int N, const SplitPlan& p, cudaStream_t stream,
+             const float* gamma_in, float* acc_out) {
   static size_t allowed = 0;
   const size_t smem = (size_t)4 * MR * SK_BN * 4 + (size_t)MR * 4 * p.kps * 5;
-  cudaError_t err = allow_smem(w2a8_kernel_splitk<T, MR>, smem, &allowed);
+  cudaError_t err = allow_smem(w2a8_kernel_splitk<T, MR, ACC>, smem, &allowed);
   if (err != cudaSuccess) return (int)err;
   constexpr int V = 16 / sizeof(T);
   const int xvec = (K % V == 0) && aligned16(x);
   const int wvec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(wp) & 3) == 0);
   int* sums = (int*)ws;
   const dim3 grid(p.tiles, p.splits, p.groups);
-  w2a8_kernel_splitk<T, MR><<<grid, SK_THREADS, smem, stream>>>(
+  w2a8_kernel_splitk<T, MR, ACC><<<grid, SK_THREADS, smem, stream>>>(
       (const T*)x, (const uint8_t*)wp, (const float*)delta, (T*)y, sums,
-      (unsigned*)(sums + (size_t)M * N), M, K, N, p.kps, xvec, wvec);
+      (unsigned*)(sums + (size_t)M * N), M, K, N, p.kps, xvec, wvec, gamma_in,
+      acc_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int splitk(const void* x, const void* wp, const void* delta, void* y, void* ws,
-           int M, int K, int N, cudaStream_t s) {
+           int M, int K, int N, cudaStream_t s, const float* gamma_in = nullptr,
+           float* acc_out = nullptr) {
   const SplitPlan p = splitk_plan(M, K, N);
-  if (p.mr == 4) return splitk_t<T, 4>(x, wp, delta, y, ws, M, K, N, p, s);
-  return splitk_t<T, SK_MR>(x, wp, delta, y, ws, M, K, N, p, s);
+  if (acc_out != nullptr) {
+    if (p.mr == 4)
+      return splitk_t<T, 4, true>(x, wp, delta, y, ws, M, K, N, p, s, gamma_in, acc_out);
+    return splitk_t<T, SK_MR, true>(x, wp, delta, y, ws, M, K, N, p, s, gamma_in,
+                                    acc_out);
+  }
+  if (p.mr == 4)
+    return splitk_t<T, 4, false>(x, wp, delta, y, ws, M, K, N, p, s, nullptr, nullptr);
+  return splitk_t<T, SK_MR, false>(x, wp, delta, y, ws, M, K, N, p, s, nullptr,
+                                   nullptr);
 }
 
 // -- route A: int8 wgmma, the B tile unpacked in shared memory ------------------------
@@ -307,7 +340,8 @@ constexpr int GEMM_SMEM = 1024 + STAGES * (TILE_A + TILE_B + TILE_P) + 3 * STAGE
 
 static_assert(staged_bytes<CONSUMERS>() <= STAGES * (TILE_A + TILE_B), "");
 
-template <typename T>
+// SCALE false: a row shard's accumulators, unscaled (gamma, delta not read)
+template <typename T, bool SCALE>
 __global__ void __launch_bounds__(THREADS, 2)
 w2a8_kernel_gemm(const __grid_constant__ CUtensorMap tma_a,
                  const __grid_constant__ CUtensorMap tma_p,
@@ -387,7 +421,8 @@ w2a8_kernel_gemm(const __grid_constant__ CUtensorMap tma_a,
   int acc[64];
   mainloop<STAGES, TILE_A, TILE_B>(acc, sA, sB, full, loaded, empty, nk,
                                    warp >> 2, lane);
-  epilogue<T, CONSUMERS>(acc, smem, gamma, delta, y, M, N, m0, n0, warp, lane);
+  epilogue<T, CONSUMERS, SCALE>(acc, smem, gamma, delta, y, M, N, m0, n0, warp,
+                                lane);
 }
 
 struct MapKey {
@@ -426,24 +461,27 @@ bool cached_map(CUtensorMap* out, const void* base, int rows, int cols, int box)
 // 1024 bytes further on
 size_t codes_offset(int rows_cap) { return ((size_t)4 * rows_cap + 1023) / 1024 * 1024; }
 
-template <typename T>
+// SCALE false: the accumulators of a row shard into y (T = float), the codes
+// quantized with the given gamma_in and no scale in the epilogue
+template <typename T, bool SCALE = true>
 int gemm(const void* x, const void* wp, const void* delta, void* y, int M, int K,
-         int N, int dtype, void* scratch, int rows_cap, cudaStream_t stream) {
+         int N, int dtype, void* scratch, int rows_cap, cudaStream_t stream,
+         const float* gamma_in = nullptr) {
   static size_t allowed = 0;
   const int Kp = (K + BK - 1) / BK * BK;
   float* gamma = (float*)scratch;
   int8_t* codes = (int8_t*)scratch + codes_offset(rows_cap);
-  int err = bitlinear_quant_launch(x, nullptr, gamma, codes, M, K, Kp, dtype,
-                                   (void*)stream);
+  int err = bitlinear_quant_launch(x, gamma_in, SCALE ? gamma : nullptr, codes, M, K,
+                                   Kp, dtype, (void*)stream);
   if (err != 0) return err;
   CUtensorMap ma, mp;
   if (!cached_map(&ma, codes, rows_cap, Kp, BM) ||
       !cached_map(&mp, wp, K / 4, N, BK / 4))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(w2a8_kernel_gemm<T>, GEMM_SMEM, &allowed);
+  cudaError_t e = allow_smem(w2a8_kernel_gemm<T, SCALE>, GEMM_SMEM, &allowed);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  w2a8_kernel_gemm<T><<<grid, THREADS, GEMM_SMEM, stream>>>(
+  w2a8_kernel_gemm<T, SCALE><<<grid, THREADS, GEMM_SMEM, stream>>>(
       ma, mp, gamma, (const float*)delta, (T*)y, M, N, Kp);
   return (int)cudaGetLastError();
 }
@@ -482,4 +520,30 @@ extern "C" int w2a8_gemv_launch(const void* x, const void* wp, const void* delta
   if (dtype == DT_BF16)
     return gemm<__nv_bfloat16>(x, wp, delta, y, M, K, N, dtype, scratch, rows_cap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// w2a8_forward_acc: x [M, K] (a row shard's columns), wp [K/4, N], gamma_in
+// [M] fp32 -> acc [M, N] fp32, the unscaled sums (see the top); route, scratch,
+// rows_cap and ws as for w2a8_gemv_launch.
+extern "C" int w2a8_gemv_acc_launch(const void* x, const void* wp,
+                                    const void* gamma_in, void* acc, int M, int K,
+                                    int N, int dtype, int route, void* scratch,
+                                    int rows_cap, void* ws, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || gamma_in == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float* g = (const float*)gamma_in;
+  if (route == 0) {
+    if (dtype == DT_F32)
+      return splitk<float>(x, wp, nullptr, nullptr, ws, M, K, N, s, g, (float*)acc);
+    if (dtype == DT_BF16)
+      return splitk<__nv_bfloat16>(x, wp, nullptr, nullptr, ws, M, K, N, s, g,
+                                   (float*)acc);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != 1 || N % 16 != 0 || !aligned16(wp) || rows_cap < M ||
+      (dtype != DT_F32 && dtype != DT_BF16))
+    return (int)cudaErrorInvalidValue;
+  return gemm<float, false>(x, wp, nullptr, acc, M, K, N, dtype, scratch, rows_cap, s,
+                            g);
 }

@@ -22,16 +22,14 @@ tensor under a spec, and ``linear_part`` says which part of a linear layer
 a spec makes it: column-parallel where ``"model"`` splits the weight's out
 axis, row-parallel where it splits the in axis.  The port's sharded steps
 (``training/trainer.py``) compute on plain local tensors, their rows of the
-batch: on the split route (``distributed/tensor_parallel.py``, the dense,
-MoE, SSM and hybrid decoders) each rank computes on its ``"model"`` shards,
-each block's parameters gathered along the other axes at its use; on the
-gathered route (the cross-attention families) with every parameter
-gathered whole.
+batch: each rank computes on its ``"model"`` shards
+(``distributed/tensor_parallel.py``, every family), each block's
+parameters gathered along the other axes at its use.
 
-``constrain`` is JAX's activation hint.  Neither route has a layout to
-hint: a plain tensor comes back as it is, a DTensor is redistributed to the
-logical names' placements, and with no active plan every argument comes
-back unchanged.
+``constrain`` is JAX's activation hint.  The split has no layout to hint: a
+plain tensor comes back as it is, a DTensor is redistributed to the logical
+names' placements, and with no active plan every argument comes back
+unchanged.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Tensor parallelism over the plan's ``"model"`` axis: the collectives of
-the split route (the CE and distill steps of the dense, MoE, SSM and hybrid
-decoders, ``training/trainer.py``).
+the split route (the CE and distill steps of every family,
+``training/trainer.py``, and the prefill and decode steps,
+``launch/specs.py``).
 
 JAX has no module for this: GSPMD inserts the collectives from the
 parameters' shardings.  Here a :class:`Split` holds, for one step, the plan,
@@ -20,7 +21,8 @@ rank then uses on its own columns), ``Split.all_max`` (no gradient: γ and
 the loss's row maximum), ``Split.sum64`` (a scale's float64 sum of |W|),
 ``Split.acc_sum`` (*g* on a row-parallel kernel's accumulators) and
 ``gather_heads`` (an all-gather whose backward takes the rank's own slice:
-the relation states, from which every rank computes the same loss).
+the relation states, from which every rank computes the same loss; a
+decode step's logits, joined whole over the vocabulary).
 ``using(module)`` swaps a module's parameters for their compute copies for
 the duration of a block (``param_copy``): each gathered along the plan's
 other axes (FSDP: an all-gather forward, a reduce-scatter of the gradient
@@ -31,13 +33,24 @@ whose flat shards cut through their z | x | B | C | dt groups; an
 expert-split MoE's SubLN scale, which every expert uses whole).  A tensor
 used whole is gathered over ``"model"`` too and its gradient, a partial sum
 on each rank, reduce-scattered back to the shards (summed where the plan
-replicates it).
+replicates it).  A packed layer's buffers (``w_packed``, ``delta``) are
+registered and swapped as parameters are, without a gradient.
+
+Inference holds the rank's shards (``shard_model``: each tensor cut to its
+share under the plan, its whole shape remembered) and a decode cache placed
+by the plan from the model's ``cache_axes()`` (``Split.place_cache``): an
+attention cache split by kv heads where they divide over ``"model"``, else
+by positions (``"kv_seq"``), else whole; a Mamba2 state by heads and its
+conv tail by channels.  The layers read each cache tensor's spec
+(``Split.cache_spec``) to take their part of it.
 
 Over more than one rank every reduction whose value depends on the order
 of its terms takes its exact form (``exact()``): the QAT product
 (``core/bitlinear.py``), SubLN's sum of squares and the MoE combine
-(``nn/moe.py``), so that the ranks' shares sum to the unsharded value in
-any order.  A group of one rank moves nothing: every collective is then the
+(``nn/moe.py``), and a decode step's attention sums (``nn/attention.py``:
+float64, the ranks' merge over a cache split by positions among them), so
+that the ranks' shares sum to the unsharded value in any order.  A group
+of one rank moves nothing: every collective is then the
 identity, and each reduction the split route computes falls back to its
 unsharded form, so a one-rank step is the plain step bit for bit.  Under a
 shapes-only plan (``{axis: size}``, meta tensors) a collective returns a
@@ -55,7 +68,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import linear_part, local_shape
+from repro_torch.distributed.sharding import is_axes, linear_part, local_shape
 
 MODEL = "model"
 # the logical axes the split computes on a "model" shard of (ShardingPlan
@@ -128,25 +141,27 @@ class Split:
         self.batch_axes: Tuple[str, ...] = ()
         self.params: Dict[int, Tuple[torch.Tensor, ParamSplit]] = {}
         self.kv_whole = False
+        self.caches: Dict[int, Tuple[torch.Tensor, Tuple]] = {}
         self._parts: Dict[Tuple, Optional[str]] = {}
 
     # -- parameters --------------------------------------------------------------
 
     def register(self, model, local: bool = False) -> None:
-        """Resolve the spec of each of ``model``'s parameters (placed by the
-        plan, or with ``local`` already cut to the rank's shard on meta) and
-        check that the split takes it: heads, ``d_ff`` columns, the padded
-        vocabulary, the SSM heads and widths, and the experts (or, failing
-        them, their ``d_ff``) must divide over ``"model"``.  Where the kv
-        heads do not (fewer kv heads than ranks), each rank projects all of
-        them: the kv tensors are used whole, their gradients summed; so are
-        the tensors a module's ``tp_whole`` names."""
+        """Resolve the spec of each of ``model``'s parameters and packed
+        buffers (placed by the plan, or with ``local`` already cut to the
+        rank's shard: ``shard_model``) and check that the split takes it:
+        heads, ``d_ff`` columns, the padded vocabulary, the SSM heads and
+        widths, and the experts (or, failing them, their ``d_ff``) must
+        divide over ``"model"``.  Where the kv heads do not (fewer kv heads
+        than ranks), each rank projects all of them: the kv tensors are used
+        whole, their gradients summed; so are the tensors a module's
+        ``tp_whole`` names."""
         axes = model.param_axes()
-        n_kv = getattr(getattr(model, "cfg", None), "n_kv_heads", 0)
-        if n_kv and n_kv % self.size:
+        if any(getattr(m, "n_kv_heads", 0) % self.size for m in model.modules()):
             self.kv_whole = True
         shapes, specs = {}, {}
-        for name, p in model.named_parameters():
+        tensors = dict(named_tensors(model))
+        for name, p in tensors.items():
             shapes[name] = tuple(p.shape) if not local else tuple(p._tp_whole)
             specs[name] = self.plan.spec(axes[name], shapes[name], record=False)
         used_whole = set()
@@ -155,7 +170,7 @@ class Split:
                 pre = f"{prefix}." if prefix else ""
                 used_whole.update(pre + n for n in m.tp_whole(
                     lambda n, pre=pre: specs[pre + n]))
-        for name, p in model.named_parameters():
+        for name, p in tensors.items():
             logical, shape, spec = axes[name], shapes[name], specs[name]
             if self.size > 1 and name not in used_whole:
                 _check_split(name, logical, shape, spec, self.size)
@@ -191,6 +206,44 @@ class Split:
                              f"query heads of each of the {n_kv} kv heads")
         lo = self.rank * per // g
         return lo, max(lo + 1, (self.rank + 1) * per // g)
+
+    # -- decode caches -----------------------------------------------------------
+
+    def index(self, axes: Sequence[str]) -> int:
+        """The rank's index among the shards of a dim split over ``axes``."""
+        return _index(axes, self.shape, self.coord)
+
+    def local_of(self, t: torch.Tensor, spec, whole: Sequence[int]) -> torch.Tensor:
+        """The rank's share of ``t`` under ``spec``, cut along each dim
+        that ``t`` holds whole (of ``whole`` size) and ``spec`` splits."""
+        spec = tuple(a if t.shape[d] == whole[d] else () for d, a in enumerate(spec))
+        return cut(t, spec, self.shape, self.coord)
+
+    def place_cache(self, cache, axes, device=None):
+        """The rank's decode cache: ``cache`` whole (its shapes; meta
+        tensors do), each leaf placed by the plan from ``axes``
+        (``model.cache_axes()``, the same tree): a zero tensor of the rank's
+        shape on ``device`` (as ``torch.zeros`` takes it), registered for
+        :meth:`cache_spec`."""
+        if is_axes(axes):
+            spec = self.plan.spec(axes, tuple(cache.shape), record=False)
+            shape = local_shape(cache.shape, spec, self.shape)
+            local = torch.zeros(shape, dtype=cache.dtype, device=device)
+            local._tp_whole = tuple(cache.shape)
+            self.caches[id(local)] = (local, spec)
+            return local
+        if isinstance(axes, Mapping):
+            return {k: self.place_cache(cache[k], a, device) for k, a in axes.items()}
+        return [self.place_cache(c, a, device) for c, a in zip(cache, axes)]
+
+    def cache_spec(self, t: torch.Tensor):
+        """The spec of a cache tensor :meth:`place_cache` made."""
+        entry = self.caches.get(id(t))
+        if entry is None or entry[0] is not t:
+            raise ValueError("a decode under a split takes a cache placed by it "
+                             "(init_cache under the split, Split.place_cache); "
+                             f"this one ({tuple(t.shape)}) was not")
+        return entry[1]
 
     # -- collectives (see the module's docstring) ------------------------------------
 
@@ -258,9 +311,9 @@ class Split:
         n = self.axis_size(axis)
         return t if n == 1 else t.chunk(n, dim=dim)[self.coord[axis]]
 
-    def all_max(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` (no gradient) maximized over ``"model"``."""
-        return self.all_reduce(t.detach(), MODEL, "max")
+    def all_max(self, t: torch.Tensor, axis: str = MODEL) -> torch.Tensor:
+        """``t`` (no gradient) maximized over ``axis``."""
+        return self.all_reduce(t.detach(), axis, "max")
 
     def sum64(self, t: torch.Tensor) -> torch.Tensor:
         """A float64 value (no gradient: a scale's) summed over
@@ -288,6 +341,12 @@ def _check_split(name, logical, shape, spec, size) -> None:
             "rank's experts, or each expert's d_ff columns")
     for d, a in enumerate(logical):
         if a in SPLIT_AXES and MODEL not in spec[d]:
+            if name.endswith("w_packed") and d == 0:
+                raise ValueError(
+                    f"{name}: a packed layer's row shard holds K/tp input rows, "
+                    f"four to a byte: its {shape[0]} packed rows (K = "
+                    f"{4 * shape[0]}) do not divide over the {size} ranks of "
+                    f"\"model\" (K/tp must be divisible by 4)")
             raise ValueError(
                 f"{name}: its {a!r} dim ({shape[d]}) is not split over the {size} "
                 f"ranks of \"model\" (spec {spec}); the split route takes heads, "
@@ -403,8 +462,9 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def gather_heads(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The ranks' heads of ``x`` joined along ``dim``; the gradient of the
-    rank's own slice comes back (each rank computes the same loss)."""
+    """The ranks' shards of ``x`` (heads, vocabulary columns) joined along
+    ``dim``; the gradient of the rank's own slice comes back (each rank
+    computes the same loss)."""
     split = _ACTIVE[0]
     if split is None or split.size == 1:
         return x
@@ -454,23 +514,80 @@ def _using(split: Split, module):
     swapped = []
     try:
         for m in module.modules():
-            for name, p in list(m._parameters.items()):
-                entry = split.params.get(id(p)) if p is not None else None
-                if entry is None or entry[0] is not p:
-                    continue
-                m._parameters[name] = param_copy(split, p, entry[1])
-                swapped.append((m, name, p))
+            for store in (m._parameters, m._buffers):
+                for name, p in list(store.items()):
+                    entry = split.params.get(id(p)) if p is not None else None
+                    if entry is None or entry[0] is not p:
+                        continue
+                    store[name] = param_copy(split, p, entry[1])
+                    swapped.append((store, name, p))
         yield
     finally:
-        for m, name, p in swapped:
-            m._parameters[name] = p
+        for store, name, p in swapped:
+            store[name] = p
 
 
-def shard_for_meta(p: torch.Tensor, spec, shape: Mapping[str, int]) -> torch.nn.Parameter:
-    """A meta parameter of the rank's local shape under ``spec`` (every
-    axis split), remembering the whole shape for :meth:`Split.register`."""
-    q = torch.nn.Parameter(torch.empty(local_shape(p.shape, spec, shape),
-                                       dtype=p.dtype, device="meta"),
-                           requires_grad=p.requires_grad)
-    q._tp_whole = tuple(p.shape)
-    return q
+def named_tensors(model):
+    """``model``'s parameters and the buffers its ``param_axes()`` names (a
+    packed layer's ``w_packed`` and ``delta``), by name."""
+    axes = model.param_axes()
+    yield from model.named_parameters()
+    for name, b in model.named_buffers():
+        if name in axes:
+            yield name, b
+
+
+def _index(axes: Sequence[str], shape: Mapping[str, int],
+           coord: Mapping[str, int]) -> int:
+    """A rank's index among the shards of a dim split over ``axes``
+    (DTensor's chunk order: the mesh's axes outermost first)."""
+    i = 0
+    for a in shape:
+        if a in axes:
+            i = i * shape[a] + coord[a]
+    return i
+
+
+def cut(t: torch.Tensor, spec, shape: Mapping[str, int],
+        coord: Mapping[str, int]) -> torch.Tensor:
+    """The share of ``t`` under ``spec`` of the rank at ``coord`` on a mesh
+    of ``shape`` (a view)."""
+    for d, axes in enumerate(spec):
+        n = 1
+        for a in axes:
+            n *= shape[a]
+        if n > 1:
+            size = t.shape[d] // n
+            t = t.narrow(d, _index(axes, shape, coord) * size, size)
+    return t
+
+
+def shard_model(model, plan, coord: Optional[Mapping[str, int]] = None) -> None:
+    """Cut each of ``model``'s parameters and packed buffers (alike on every
+    rank) to the rank's share under ``plan`` (every axis of its spec), as
+    plain tensors remembering their whole shape (``_tp_whole``), for
+    ``Split.register(model, local=True)``: the share of the rank at
+    ``coord`` (default: this rank's on the plan's mesh), or on a
+    shapes-only plan without ``coord`` a meta tensor of the rank's shape."""
+    from repro_torch.nn.layers import Embedding
+    axes = model.param_axes()
+    if coord is None and not isinstance(plan.mesh, Mapping):
+        coord = dict(zip(plan.shape, plan.mesh.get_coordinate()))
+    for name, t in list(named_tensors(model)):
+        *path, attr = name.split(".")
+        owner = model.get_submodule(".".join(path))
+        spec = plan.spec(axes[name], tuple(t.shape), record=False)
+        if coord is None:
+            local = torch.empty(local_shape(t.shape, spec, plan.shape),
+                                dtype=t.dtype, device="meta")
+        else:
+            local = cut(t.detach(), spec, plan.shape, coord).contiguous()
+        if attr in owner._parameters:
+            local = torch.nn.Parameter(local, requires_grad=t.requires_grad)
+            owner._parameters[attr] = local
+        else:
+            owner._buffers[attr] = local
+        local._tp_whole = tuple(t.shape)
+    for m in model.modules():
+        if isinstance(m, Embedding):     # the rank's rows as the compute copy
+            m._refresh()

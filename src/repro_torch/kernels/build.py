@@ -35,6 +35,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "w2a8_gemv_launch": [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _vp],
+    "w2a8_gemv_acc_launch": [_vp] * 4 + [_i] * 5 + [_vp, _i, _vp, _vp],
     "w2a8_gemv_info": [ctypes.POINTER(_ll)],
     "paged_plan_query": [_i] * 7 + [ctypes.POINTER(_ll)],
     "paged_attention_decode_launch": [_vp] * 9 + [_ll] + [_i] * 6 + [_f] * 2 + [_i] * 2 + [_vp],

@@ -24,6 +24,13 @@ bytes are about even.  So the wrapper routes on M (see the .cu):
   into the K-major shared-memory operand by a producer warpgroup.
 
 Both routes enter C once per call; the launch counter counts one per call.
+
+``w2a8_forward_acc`` is a row-parallel shard of the product under a
+tensor-parallel split (``core/bitlinear.py``): x the rank's K columns, wp its
+K/4 packed rows, γ given (the whole rows', maximized over the ranks), and the
+fp32 accumulators ``q8(x) @ unpack(wp)`` returned unscaled for the ranks to
+sum before the one scale (γ/127)·Δ.  The same routes by M, stopping before
+the scale (``w2a8_gemv_acc_launch``); its own launch counter.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 from repro_torch.kernels import build
 
 launches = build.LaunchCounter("w2a8_gemv")
+acc_launches = build.LaunchCounter("w2a8_forward_acc")
 
 ROUTES = {"splitk": 0, "wgmma": 1}
 _INFO_KEYS = ("split_k_max_m", "bm", "bn", "k_tile", "stages", "smem_bytes")
@@ -150,3 +158,51 @@ def w2a8_kernel(x: torch.Tensor, wp: torch.Tensor, delta: torch.Tensor,
         build.check(err, f"w2a8_gemv ({route})")
     launches.count += 1
     return y
+
+
+def w2a8_forward_acc(x: torch.Tensor, wp: torch.Tensor, gamma: torch.Tensor,
+                     route: Optional[str] = None) -> torch.Tensor:
+    """x [M, K] fp32/bf16 (a row shard's columns); wp uint8 [K//4, N] (its
+    packed rows); gamma fp32 [M, 1] (the whole rows' absmax) -> acc [M, N]
+    fp32, the unscaled integer sums (exact while 128·K_whole < 2**24: the
+    caller's bound).  ``route`` as for :func:`w2a8_kernel`.  CUDA tensors
+    only."""
+    build.require_cuda("w2a8_forward_acc", x, wp, gamma)
+    if x.dim() != 2 or wp.dim() != 2:
+        raise ValueError(f"w2a8_forward_acc: x {tuple(x.shape)} and wp "
+                         f"{tuple(wp.shape)} must be 2-D")
+    m, k = x.shape
+    kp, n = wp.shape
+    if kp * 4 != k:
+        raise ValueError(f"w2a8_forward_acc: wp has {kp} packed rows but x has "
+                         f"k={k} columns; wp must have exactly k/4 rows")
+    if wp.dtype != torch.uint8:
+        raise TypeError(f"w2a8_forward_acc: wp must be uint8, got {wp.dtype}")
+    if gamma.dtype != torch.float32 or gamma.numel() != m:
+        raise TypeError(f"w2a8_forward_acc: gamma must be {m} fp32 values, got "
+                        f"{gamma.numel()} {gamma.dtype}")
+    code = build.dtype_code(x, "w2a8_forward_acc")
+    dev = x.device
+    acc = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0 or k == 0:
+        return acc.zero_()
+    wp_ptr = wp.data_ptr()
+    if route is None:
+        route = route_for(m, n, wp_ptr)
+    elif route not in ROUTES:
+        raise ValueError(f"w2a8_forward_acc: route {route!r} is not one of "
+                         f"{sorted(ROUTES)}")
+    stream = build.stream_ptr(dev)
+    scratch = rows = ws = None
+    if route == "wgmma":
+        tile = _K_TILE or _k_tile()
+        scratch, rows = _codes_ptr(m, -(-k // tile) * tile, dev, stream)
+    else:
+        ws = _workspace_ptr(m * (n + (n + 127) // 128), dev, stream)
+    err = build.library().w2a8_gemv_acc_launch(
+        x.data_ptr(), wp_ptr, gamma.data_ptr(), acc.data_ptr(), m, k, n, code,
+        ROUTES[route], scratch, rows or 0, ws, stream)
+    if err:
+        build.check(err, f"w2a8_forward_acc ({route})")
+    acc_launches.count += 1
+    return acc

@@ -24,6 +24,17 @@ def w2a8_ref(x: torch.Tensor, wp: torch.Tensor, delta: torch.Tensor) -> torch.Te
     return (acc * scale).to(x.dtype)
 
 
+def w2a8_forward_acc_ref(x: torch.Tensor, wp: torch.Tensor,
+                         gamma: torch.Tensor) -> torch.Tensor:
+    """The kernel's row-shard entry: x [M, K] (a shard's columns), wp uint8
+    [K//4, N], gamma fp32 [M, 1] (the whole rows') -> the unscaled
+    accumulators q8(x) @ unpack(wp), fp32 [M, N] (exact integers)."""
+    wq = Q.unpack_ternary(wp, x.shape[-1])
+    xq = Q.round_clip(x.to(torch.float32) * Q.div(127.0, gamma + 1e-5),
+                      -128.0, 127.0)
+    return torch.matmul(xq, wq.to(torch.float32))
+
+
 # -- the card kernel's two routes, as plain models (csrc/w2a8_gemv.cu) --------------
 
 TILE = 128   # the wgmma route's K tile in bytes and N tile in columns

@@ -11,7 +11,8 @@ allocated and nothing runs on a card, so the whole grid runs on a CPU.
 
 ``--all`` runs every (arch x shape) cell and, unless ``--step`` names one,
 each arch's distill step on ``train_4k`` (tagged ``distill``).  Each cell
-records its step's route (``training/trainer.py::step_route``).
+records and prints its step's route (``launch/specs.py::build_cell``:
+``split`` for every family and step kind, ``gathered`` where asked for).
 
 One JSON per cell under ``--out`` (default ``build/dryrun/`` in the
 checkout), with JAX's keys where they mean the same: ``status`` (``ok``,
@@ -100,7 +101,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, step_override=None,
     }
     if verbose:
         print(f"[{arch} × {shape} × {'2pod' if multi_pod else '1pod'}"
-              f"{' × ' + tag if tag else ''}] "
+              f"{' × ' + tag if tag else ''} × {cell.route}] "
               f"count {t_count:.1f}s  memest {memest['total'] / 2**30:.2f} GiB/chip "
               f"(peak live {cost.peak_live_bytes / 2**30:.2f})  "
               f"flops/chip {cost.flops:.3e}  bottleneck {roof.bottleneck}")

@@ -14,33 +14,34 @@ Every term of JAX's model is kept with JAX's value (per chip):
 
 The port stores more than that, and these terms say what:
 
-  gathered_params   P·bytes_param: the whole model on every rank.  The
-                    port's plan-placed train step on the ``"gathered"``
-                    route (the cross-attention families) gathers every
-                    parameter whole for its forward and backward, and the
-                    serving engine takes no plan, so an inference rank
-                    holds the whole model too.  On the ``"split"`` route
-                    (the dense, MoE, SSM and hybrid decoders) the weights
-                    live a rank at use: one block's parameters, gathered
-                    along the axes but ``"model"``, and the embedding and
-                    head, each /tp, plus a Mamba2 block's in_proj, which
-                    the split uses whole (``at_use_params``, in its place);
+  gathered_params   P·bytes_param: the whole model on every rank, as a
+                    step on the ``"gathered"`` route (``route="gathered"``,
+                    for comparison) holds it: every parameter gathered
+                    whole.  On the ``"split"`` route (every family, every
+                    step kind) the weights live a rank at use: one block's
+                    parameters, gathered along the axes but ``"model"``,
+                    and the embedding and head, each /tp, plus a Mamba2
+                    block's in_proj, which the split uses whole
+                    (``at_use_params``, in its place);
   moments           P · 8 / n_dev (fp32 m and v), or P · (2 + 8/256) / n_dev
                     with 8-bit moments (int8 codes in blocks of 256 along the
                     last axis, one fp32 scale a block:
                     ``training/optimizer.py::Moment8``); JAX's ``opt_states``
                     rounds the 8-bit figure to 2.06;
-  caches_whole      the decode caches of the rank's rows over every head (the
-                    engine does not split heads over ranks): caches · tp.
+  caches_whole      the decode caches of the rank's rows over every head and
+                    position, as the gathered route holds them: caches · tp.
 
 ``total`` sums what a rank of the port holds: for a train or distill step
-params, gathered_params, grads, moments (in place of JAX's opt_states),
-teacher_params, residual_stack, logits and layer_transient; for inference
-gathered_params (in place of JAX's sharded params), caches_whole (in place
-of caches) and layer_transient.  The activation terms are JAX's model, split
-over tp where JAX's are; the port's rank computes its rows unsplit, which the
-dry run's counted ``peak_live_bytes`` shows.  ``fits_hbm`` reads the total
-against the card's 80 GB (``roofline.HBM_PER_CHIP``).
+params, gathered_params (at_use_params on the split route), grads, moments
+(in place of JAX's opt_states), teacher_params, residual_stack, logits and
+layer_transient; for inference on the split route JAX's params and caches
+(the cache placed by the plan: split by kv heads or positions) with
+at_use_params and layer_transient, and on the gathered route
+gathered_params, caches_whole and layer_transient.  The activation terms
+are JAX's model, split over tp where JAX's are; the port's rank computes
+its rows unsplit, which the dry run's counted ``peak_live_bytes`` shows.
+``fits_hbm`` reads the total against the card's 80 GB
+(``roofline.HBM_PER_CHIP``).
 """
 from __future__ import annotations
 
@@ -56,11 +57,12 @@ MOMENT_BYTES = {False: 8.0, True: 2.0 + 8.0 / 256}
 TRAIN_TERMS = ("params", "gathered_params", "grads", "moments",
                "teacher_params", "residual_stack", "logits", "layer_transient")
 INFER_TERMS = ("gathered_params", "caches_whole", "layer_transient")
+SPLIT_INFER_TERMS = ("params", "at_use_params", "caches", "layer_transient")
 
 
 def estimate(cfg: ModelConfig, shape: ShapeSpec, n_dev: int, tp: int,
              opt_8bit: bool, step_kind: str, with_teacher: bool = False,
-             route: str = "gathered") -> Dict[str, float]:
+             route: str = "split") -> Dict[str, float]:
     p = cfg.param_count()
     bytes_param = 2 if cfg.param_dtype == "bfloat16" else 4
     dp = n_dev // tp
@@ -122,7 +124,7 @@ def estimate(cfg: ModelConfig, shape: ShapeSpec, n_dev: int, tp: int,
     if train:
         terms["moments"] = p * MOMENT_BYTES[bool(opt_8bit)] / n_dev
     port = TRAIN_TERMS if train else INFER_TERMS
-    if route == "split" and train:
+    if route == "split":
         vocab_params = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
         block = (p - vocab_params) / max(cfg.n_layers, 1)
         teachers = 2 if with_teacher else 1
@@ -133,8 +135,8 @@ def estimate(cfg: ModelConfig, shape: ShapeSpec, n_dev: int, tp: int,
         terms["at_use_params"] = float(
             ((block + vocab_params) / tp + in_proj * (1 - 1 / tp))
             * bytes_param * teachers)
-        port = tuple("at_use_params" if k == "gathered_params" else k
-                     for k in port)
+        port = (tuple("at_use_params" if k == "gathered_params" else k
+                      for k in port) if train else SPLIT_INFER_TERMS)
     terms["total"] = sum(terms[k] for k in port if k in terms)
     terms["fits_hbm"] = terms["total"] < HBM_PER_CHIP
     return terms

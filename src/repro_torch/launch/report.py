@@ -5,8 +5,9 @@
 
 The times are floors from the H100 data sheet's peaks
 (``launch/roofline.py``), not measurements.  Each row names its step's
-route (``split``, ``gathered``, or ``plain`` for inference); a train_4k
-row is followed by the arch's distill cell where ``--all`` ran it.
+route (``split``, every step kind's by default, or ``gathered``); a
+train_4k row is followed by the arch's distill cell where ``--all`` ran
+it.
 """
 from __future__ import annotations
 

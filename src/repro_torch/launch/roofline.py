@@ -125,16 +125,17 @@ def plan_collectives(plan, params, step_kind: str, axes=None,
 
     ``params`` maps names to anything with ``.shape`` and ``.dtype`` (meta
     tensors), ``axes`` names to their logical axes (``model.param_axes()``)
-    and ``ranks`` to their JAX ranks (default: their own).  Inference
-    steps move nothing: the engine takes no plan.  The ring factors are
-    JAX's (:func:`ring_wire_bytes`)."""
+    and ``ranks`` to their JAX ranks (default: their own).  An inference
+    step (prefill, decode) on the split route moves what it recorded alone
+    (each block's parameters gathered along the axes but ``"model"``, the
+    embedding's and the row-parallel projections' sums, γ's maxima,
+    SubLN's sums of squares, a decode's merge over a cache split by
+    positions and its logits' gather); on the gathered route nothing: the
+    rank holds the whole model.  The ring factors are JAX's
+    (:func:`ring_wire_bytes`)."""
     counts: Dict[str, int] = {}
     wire = raw = 0.0
     widest = 1
-    if step_kind not in ("train", "distill"):
-        return CollectiveStats(counts, 0.0, 0.0, 1)
-    shape = plan.shape
-    axes_order = list(shape)
 
     def add(kind, result_bytes, g):
         nonlocal wire, raw, widest
@@ -146,6 +147,10 @@ def plan_collectives(plan, params, step_kind: str, axes=None,
     if route == "split":
         for kind, _, g, result_bytes in recorded or ():
             add(kind, float(result_bytes), g)
+    if step_kind not in ("train", "distill"):
+        return CollectiveStats(counts, wire, raw, widest)
+    shape = plan.shape
+    axes_order = list(shape)
     for name, p in params.items():
         spec = plan.spec(axes[name], tuple(p.shape), record=False)
         nbytes = _numel(p.shape) * _itemsize(p.dtype)
@@ -388,6 +393,15 @@ def _w2a8(x, wp, delta, *_):
     return KernelWork(2.0 * m * k * n, nbytes, "int8")
 
 
+def _w2a8_acc(x, wp, gamma, *_):
+    """A row shard's accumulators: x, the packed rows and γ read, the fp32
+    sums written."""
+    m, k = x.shape
+    n = wp.shape[-1]
+    return KernelWork(2.0 * m * k * n, _size(x) + _size(wp) + _size(gamma)
+                      + 4 * m * n, "int8")
+
+
 def _bitlinear(x, w, *rest):
     """``bitlinear_kernel(x, wq, gamma, delta)`` (int8 codes in), the
     training op's ``bitlinear_forward(x, w, delta)`` (the master weight in;
@@ -502,6 +516,7 @@ def _ssd_scan(x, a, dt, B, C, chunk=256, *_):
 # wrapper name (its launch counter's) -> work of one call from its arguments
 KERNELS = {
     "w2a8_gemv": _w2a8,
+    "w2a8_forward_acc": _w2a8_acc,
     "paged_attention_decode": _paged_decode,
     "paged_prefill_chunk": _paged_prefill,
     "bitlinear": _bitlinear,

@@ -8,21 +8,24 @@ Where JAX lowers the whole SPMD program over a mesh of devices, a port cell
 is what ONE rank of that mesh computes, as the port computes it:
 
 * a train or distill step takes the rank's rows of the global batch (split
-  over the mesh axes of the ``"batch"`` rule) on the trainer's route for
-  the config (``training/trainer.py::step_route``): on ``"split"`` (the
-  dense, MoE, SSM and hybrid decoders) the model holds the rank's shard of
-  each parameter, each block gathers its own along the other axes at its
-  use and computes its heads, ``d_ff`` columns, experts, SSM heads and
-  vocabulary slice, and the split's collectives
-  record themselves as the step runs; on ``"gathered"`` every parameter is
-  gathered whole.  Either way the rank updates its share of each parameter
-  and moment, and ``roofline.plan_collectives`` counts the plan's
-  collectives.  A distill cell's FP teacher is placed and split as the
-  student is (JAX's ``t_shardings``);
+  over the mesh axes of the ``"batch"`` rule) on one of two routes: on
+  ``"split"`` (the trainer's, ``training/trainer.py``) the model holds the
+  rank's shard of each parameter, each block gathers its own along the
+  other axes at its use and computes its heads, ``d_ff`` columns, experts,
+  SSM heads and vocabulary slice, and the split's collectives record
+  themselves as the step runs; on ``"gathered"`` (``route="gathered"``, for
+  comparison) every parameter is gathered whole.  Either way the rank
+  updates its share of each parameter and moment, and
+  ``roofline.plan_collectives`` counts the plan's collectives.  A distill
+  cell's FP teacher is placed and split as the student is (JAX's
+  ``t_shardings``);
 * a prefill step is the forward over the rank's rows, a decode step
   ``decode_step`` of one token against a ``seq``-long contiguous cache of
-  the rank's rows, as in JAX; the serving engine takes no plan, so the
-  rank holds the whole model.
+  the rank's rows, as in JAX.  On ``"split"`` the rank holds its shard of
+  each parameter and packed buffer (JAX's ``p_shardings``) and of the cache
+  (placed by the plan from ``model.cache_axes()``: JAX's ``c_shardings``),
+  and the split's collectives record themselves; on ``"gathered"`` it
+  holds the whole model and every head's cache of its rows.
 
 The plan resolves against ``launch/mesh.py::make_production_mesh()`` (a
 shape only: 16 x 16, or 2 x 16 x 16).  The model is built with
@@ -49,7 +52,7 @@ from repro_torch.training.optimizer import AdamW, AdamWConfig
 from repro_torch.training.trainer import (TrainState, _microbatches,
                                           ce_loss_parts, default_distill_layer,
                                           distill_loss_parts, jax_ranks,
-                                          make_split, step_route)
+                                          make_split)
 
 META = torch.device("meta")
 
@@ -172,7 +175,7 @@ class Cell:
     rows: int                       # the rank's batch rows
     opt_8bit: bool = False
     accum: int = 1
-    route: str = "plain"            # step_route: split | gathered | plain
+    route: str = "split"            # split | gathered
     teacher: Any = None             # a distill cell's teacher, on meta
 
     @property
@@ -233,27 +236,17 @@ def _rank_step(model, opt: AdamW, accum: int, parts, dp: int, split,
     return step
 
 
-def _local_model(model, plan: ShardingPlan) -> None:
-    """Replace each of ``model``'s (meta) parameters by a meta parameter of
-    the rank's shape under ``plan`` (tensor_parallel.shard_for_meta)."""
-    axes = model.param_axes()
-    for name, p in list(model.named_parameters()):
-        *path, attr = name.split(".")
-        owner = model.get_submodule(".".join(path))
-        spec = plan.spec(axes[name], tuple(p.shape), record=False)
-        owner._parameters[attr] = tp.shard_for_meta(p, spec, plan.shape)
-
-
 def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = None,
                rules_overrides: Optional[Dict] = None,
                model_overrides: Optional[Dict] = None,
                remat_policy: Optional[str] = None,
                accum: int = 1, use_kernels: bool = False,
-               route: Optional[str] = None) -> Cell:
-    """``mesh`` is ``{axis: size}`` (``make_production_mesh()``).  A train
-    or distill cell takes the trainer's route for the config, or ``route``
-    (``"gathered"``: a split family's step as the cross families run it,
-    for comparison)."""
+               route: str = "split") -> Cell:
+    """``mesh`` is ``{axis: size}`` (``make_production_mesh()``).  A cell
+    takes the trainer's route (``"split"``), or ``route="gathered"`` (every
+    parameter whole on the rank, for comparison)."""
+    if route not in ("split", "gathered"):
+        raise ValueError(f"route {route!r}: 'split' or 'gathered'")
     base = get_config(arch)
     shape = SHAPES[shape_name]
     multi_pod = "pod" in mesh
@@ -317,18 +310,12 @@ def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = 
             parts = distill_loss_parts(model, teacher, dcfg)
         else:
             parts = ce_loss_parts(model)
-        route = route or step_route(model, plan)
-        if route not in ("split", "gathered"):
-            raise ValueError(f"route {route!r}: 'split' or 'gathered'")
-        if route == "split" and step_route(model, plan) != "split":
-            raise ValueError(f"{arch} ({cfg.family}) takes no split route: the "
-                             "split covers the dense, MoE, SSM and hybrid families")
         opt = AdamW(AdamWConfig(
             state_dtype="int8_blockwise" if opt_8bit else "float32"))
         if route == "split":
             for m in (model, teacher):
                 if m is not None:
-                    _local_model(m, plan)
+                    tp.shard_model(m, plan)
             split = make_split(plan, *[m for m in (model, teacher) if m is not None],
                                local=True)
             split.batch_axes = tuple(
@@ -345,26 +332,37 @@ def build_cell(arch: str, shape_name: str, mesh, step_override: Optional[str] = 
         return Cell(arch, shape, step_kind, fn, (state, batch), plan, cfg,
                     model, dp, rows, opt_8bit, accum, route, teacher)
 
+    if step_kind not in ("prefill", "decode"):
+        raise ValueError(f"unknown step {step_kind!r}")
+    split = None
+    if route == "split":
+        tp.shard_model(model, plan)
+        split = make_split(plan, model, local=True)
     if step_kind == "prefill":
         @torch.no_grad()
         def prefill_fn(b):
-            logits, _, _ = _forward(model, b)
+            with tp.activated(split):
+                logits, _, _ = _forward(model, b)
             return logits
         return Cell(arch, shape, step_kind, prefill_fn, (batch,), plan, cfg,
-                    model, dp, rows)
+                    model, dp, rows, route=route)
 
-    if step_kind != "decode":
-        raise ValueError(f"unknown step {step_kind!r}")
-    # decode: one new token against a seq-long cache
-    cache = _init_cache(model, cfg, shape, rows)
+    # decode: one new token against a seq-long cache, the rank's share of it
+    # on the split route (placed from the whole batch's)
+    if split is None:
+        cache = _init_cache(model, cfg, shape, rows)
+    else:
+        cache = split.place_cache(_init_cache(model, cfg, shape, shape.global_batch,
+                                              seed=False), model.cache_axes(), META)
     index = _meta((rows,), torch.int32)
 
     @torch.no_grad()
     def decode_fn(b, cache, index):
-        return model.decode_step(b["token"], cache, index)
+        with tp.activated(split):
+            return model.decode_step(b["token"], cache, index)
 
     return Cell(arch, shape, step_kind, decode_fn, (batch, cache, index), plan,
-                cfg, model, dp, rows)
+                cfg, model, dp, rows, route=route)
 
 
 def _forward(model, batch):
@@ -373,9 +371,16 @@ def _forward(model, batch):
     return model.apply(batch["tokens"], memory=batch.get("image_embeds"))
 
 
-def _init_cache(model, cfg, shape: ShapeSpec, rows: int):
+def _init_cache(model, cfg, shape: ShapeSpec, rows: int, seed: bool = True):
     """The contiguous cache of ``rows`` rows at ``shape.seq`` (bf16), its
-    cross caches seeded from zero frames or image embeddings (JAX's)."""
+    cross caches seeded from zero frames or image embeddings (JAX's), or
+    without ``seed`` only of their length (the step reads the cache, not
+    its seeding)."""
+    if not seed:
+        dec = model.decoder if isinstance(model, EncDecLM) else model
+        t = {"audio": cfg.encoder_seq, "vlm": cfg.num_image_tokens}.get(cfg.family)
+        mem = None if t is None else _meta((rows, t, cfg.d_model), torch.bfloat16)
+        return dec.stack.init_cache(rows, shape.seq, torch.bfloat16, META, mem)
     with torch.no_grad():
         if cfg.family == "audio":
             frames = _meta((rows, cfg.encoder_seq, cfg.d_model), torch.bfloat16)

@@ -9,6 +9,12 @@ and ``enc_norm``; the decoder is a ``CausalLM`` whose every layer carries
 self- and cross-attention (pattern ``attn_cross``).  Module names follow the
 JAX param tree: ``frontend.w``, ``encoder.layers.<l>.*``, ``enc_norm``,
 ``decoder.*``.
+
+Under a tensor-parallel split (``distributed/tensor_parallel.py``) the
+frontend's weight and ``enc_norm`` take their compute copies at use, the
+encoder's blocks split as a decoder's do (``causal=False`` attention), and
+the decoder is a split ``CausalLM``: its cross layers attend the memory,
+which every rank holds whole.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.lm import CausalLM
 from repro_torch.nn.layers import RMSNorm
@@ -77,11 +84,13 @@ class EncDecLM(nn.Module):
         compute dtype (the frontend product outside any kernel, as JAX's
         ``jnp.matmul``)."""
         cd = self.cfg.policy().compute_dtype
-        x = torch.matmul(frames.to(cd), self.frontend["w"].to(cd))
+        with tp.using(self.frontend):
+            x = torch.matmul(frames.to(cd), self.frontend["w"].to(cd))
         x = x + sinusoidal_positions(x.shape[1], self.cfg.d_model,
                                      x.device).to(cd)[None]
         x, _, _ = self.encoder(x)
-        return self.enc_norm(x)
+        with tp.using(self.enc_norm):
+            return self.enc_norm(x)
 
     def apply(self, frames: torch.Tensor, tokens: torch.Tensor,
               distill_layer: Optional[int] = None
@@ -103,6 +112,10 @@ class EncDecLM(nn.Module):
         the engine serves with, as JAX's)."""
         memory = None if frames is None else self.encode(frames)
         return self.decoder.init_cache(batch, max_len, dtype, device, memory=memory)
+
+    def cache_axes(self) -> List[Dict[str, Dict[str, Tuple[str, ...]]]]:
+        """The decoder's cache axes (JAX's ``EncDecLM.cache_axes``)."""
+        return self.decoder.cache_axes()
 
     def decode_step(self, token: torch.Tensor, cache: List[LayerCache],
                     cache_index: torch.Tensor,

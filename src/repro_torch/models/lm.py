@@ -6,12 +6,14 @@ moe_loss)``; ``forward`` returns the logits alone.  A VLM stack (cross
 layers among its self-attention ones) reads ``memory``, precomputed image
 embeddings [B, T, d_model] (the vision tower is a stub, as in JAX).
 
-Under a tensor-parallel split (``distributed/tensor_parallel.py``; the
-dense, MoE, SSM and hybrid stacks) the
-embedding, the final norm and the head take their compute copies at use,
-and the logits stay vocabulary-sharded: ``[rows, S, V/tp]`` a rank, the pad
-columns masked by their global index; no rank builds the whole
-vocabulary's."""
+Under a tensor-parallel split (``distributed/tensor_parallel.py``; every
+family) the embedding, the final norm and the head take their compute
+copies at use, and the logits of ``apply`` stay vocabulary-sharded:
+``[rows, S, V/tp]`` a rank, the pad columns masked by their global index;
+no rank builds the whole vocabulary's.  ``init_cache`` under a split gives
+the rank's share of the cache, placed by the plan from ``cache_axes()``,
+and ``decode_step`` runs on it; its logits come back whole (the ranks'
+vocabulary columns gathered)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -24,6 +26,7 @@ from repro_torch.core.bitlinear import BitLinear, SubLN
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.base import ModelConfig
+from repro_torch.nn.attention import Attention
 from repro_torch.nn.layers import Embedding, RMSNorm
 from repro_torch.nn.module import Axes, child_axes
 from repro_torch.nn.moe import MoEMLP
@@ -41,13 +44,14 @@ EXACT_PRODUCT = ("dense", "moe", "ssm")
 def set_exact(model: nn.Module) -> None:
     """Switch ``model``'s layers to the exact forms a split over more than
     one rank takes: the ternary product (``BitLinear.exact_product``),
-    SubLN's float64 sum of squares (``SubLN.exact_sum``) and the MoE's
-    float64 combine (``MoEMLP.exact_combine``); an unsharded reference of
-    a split's step."""
+    SubLN's float64 sum of squares (``SubLN.exact_sum``), the MoE's
+    float64 combine (``MoEMLP.exact_combine``) and the decode's float64
+    attention sums (``Attention.exact_sum``); an unsharded reference of a
+    split's step."""
     for m in model.modules():
         if isinstance(m, BitLinear):
             m.exact_product = True
-        elif isinstance(m, SubLN):
+        elif isinstance(m, (SubLN, Attention)):
             m.exact_sum = True
         elif isinstance(m, MoEMLP):
             m.exact_combine = True
@@ -142,15 +146,31 @@ class CausalLM(nn.Module):
         (JAX ``_seed_cross``), or one zero position without memory, as the
         engine serves.  The serving engine builds its block pools with
         batch = num_blocks and max_len = block_size."""
-        cache = self.stack.init_cache(batch, max_len, dtype, device, memory)
+        split = tp.active()
+        if split is None:
+            cache = self.stack.init_cache(batch, max_len, dtype, device, memory)
+        else:
+            # the rank's share: the whole cache's shapes on meta, placed
+            whole = self.stack.init_cache(batch, max_len, dtype, "meta", memory)
+            cache = split.place_cache(whole, self.cache_axes(), device)
         if memory is not None:
             memory = memory.to(dtype)
             with torch.no_grad():
                 for blk, layer in zip(self.stack.layers, cache):
-                    if blk.xattn is not None:
-                        for k, t in blk.xattn.project_memory(memory).items():
-                            layer["xattn"][k].copy_(t)
+                    if blk.xattn is None:
+                        continue
+                    with tp.using(blk):
+                        proj = blk.xattn.project_memory(memory)
+                    for k, t in proj.items():
+                        if split is not None:
+                            c = layer["xattn"][k]
+                            t = split.local_of(t, split.cache_spec(c), c._tp_whole)
+                        layer["xattn"][k].copy_(t)
         return cache
+
+    def cache_axes(self) -> List[Dict[str, Dict[str, Tuple[str, ...]]]]:
+        """Per layer, its cache's logical axes (JAX's ``cache_axes``)."""
+        return self.stack.cache_axes()
 
     def decode_step(self, token: torch.Tensor, cache: List[LayerCache],
                     cache_index: torch.Tensor,
@@ -165,7 +185,7 @@ class CausalLM(nn.Module):
         x = self._embed_tokens(token[:, None])
         x, cache = self.stack.decode(x, cache, cache_index, block_tables,
                                      attn_impl, keep)
-        return self._logits(x)[:, 0], cache
+        return tp.gather_heads(self._logits(x)[:, 0], -1), cache
 
     def decode_chunk(self, tokens: torch.Tensor, cache: List[LayerCache],
                      start: torch.Tensor, lens: torch.Tensor,

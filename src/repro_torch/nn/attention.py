@@ -24,7 +24,34 @@ row-parallel ``wo`` (*g*).  Where the plan replicates the kv projections
 projects every kv head and its query heads read their own; the kv weights'
 gradients are then partial sums, reduced by the split.  The head counts
 of the attention core are read from the tensors, so it runs on either.
-The distill states are gathered whole over the heads.
+The distill states are gathered whole over the heads.  A cross layer
+splits the same way, its K/V projected from the memory (which enters
+through *f* too, so that its gradient sums over the ranks).
+
+``decode`` under a split runs on the rank's share of the contiguous cache,
+placed by the plan from ``cache_axes()`` (``Split.cache_spec``):
+
+* kv heads split (they divide over ``"model"``): the rank projects, stores
+  and attends its kv heads with its query heads; ``wo`` row-parallel;
+* positions split (``"kv_seq"``): every rank projects the new K/V whole and
+  the rank holding position ``cache_index[b]`` stores it; the query heads
+  are gathered whole, each rank attends its positions and the ranks merge
+  by log-sum-exp (the rows' maximum maximized over the position axes, then
+  the denominators at that maximum summed, and the numerators: with bf16
+  scores each weight normalized and rounded to bf16 first, as
+  :meth:`Attention._attend` rounds it); the rank keeps its heads' context
+  for SubLN and ``wo``;
+* whole: each rank attends its query heads over their kv heads.
+
+Where the positions are split over more than one rank
+(``tensor_parallel.exact``) the merge takes its exact form: the scores
+and the weighted sums of products summed in float64 and rounded once, so
+that no cut of the positions, nor the order of the ranks' sums, moves a
+value (``exact_sum`` gives an unsharded decode the same form).  With the
+heads split, or the cache whole, no sum crosses the ranks: a rank attends
+as the unsharded decode does.
+
+A cross layer's static cache takes the same placement and writes nothing.
 """
 from __future__ import annotations
 
@@ -77,6 +104,10 @@ class Attention(nn.Module):
         self.scores_dtype = _SCORES_DTYPES[scores_dtype]
         self.impl, self.block_kv = impl, block_kv
         self.rope_theta, self.logit_softcap = rope_theta, logit_softcap
+        # a contiguous decode in the exact form a split over more than one
+        # rank takes (``_attend_merged``) off a split too: an unsharded
+        # reference of a split's decode (``models/lm.py::set_exact``)
+        self.exact_sum = False
         # a cross layer's K/V come from the memory: no RoPE and no causal mask
         self.rope = use_rope and not cross
         self.causal, self.cross = causal, cross
@@ -246,26 +277,24 @@ class Attention(nn.Module):
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         split = tp.active()
         if split is not None:
-            if self.cross:
-                raise ValueError("cross-attention takes no tensor-parallel split")
             x = tp.copy_to(x)
         q = self._project_q(x, positions)
         if self.cross:
             if memory is None:
                 raise ValueError("cross-attention needs memory [B, T, D]")
-            k, v = self._project_kv(memory, None)
+            k, v = self._project_kv(tp.copy_to(memory), None)
             mask = None if memory_mask is None else memory_mask[:, None, None, :]
         else:
             k, v = self._project_kv(x, positions)
-            if split is not None and q.shape[2] != self.n_heads \
-                    and k.shape[2] == self.n_kv_heads:
-                # replicated kv projections: the rank's query heads' own
-                lo, hi = split.kv_range(self.n_heads, self.n_kv_heads)
-                k, v = k[:, :, lo:hi], v[:, :, lo:hi]
             mask = None
-            if self.causal:
-                ar = torch.arange(s, device=x.device)
-                mask = (ar[None, :] <= ar[:, None])[None, None].expand(b, 1, s, s)
+        if split is not None and q.shape[2] != self.n_heads \
+                and k.shape[2] == self.n_kv_heads:
+            # replicated kv projections: the rank's query heads' own
+            lo, hi = split.kv_range(self.n_heads, self.n_kv_heads)
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        if not self.cross and self.causal:
+            ar = torch.arange(s, device=x.device)
+            mask = (ar[None, :] <= ar[:, None])[None, None].expand(b, 1, s, s)
         attend = (self._attend_blocked if self.impl == "blocked" and s > 1
                   else self._attend)
         y = self._out(attend(q, k, v, mask))
@@ -298,14 +327,24 @@ class Attention(nn.Module):
         (on any device), with bf16 scores through :meth:`_attend`, as JAX's
         gather route does.  A cross layer projects q alone and attends its
         whole static cache [B, Hkv, T, Dh] without a mask; it writes
-        nothing."""
+        nothing.  Under a split, the rank's share of the contiguous cache
+        (see the module's docstring)."""
         b = x.shape[0]
         idx = cache_index.to(torch.int32).reshape(-1).expand(b).contiguous()
         positions = idx[:, None]
+        split = tp.active()
+        if split is not None:
+            if block_tables is not None:
+                raise ValueError("a decode under a split runs on the contiguous "
+                                 "cache (the paged pools take no plan)")
+            return self._decode_split(x, cache, idx, split)
         q = self._project_q(x, positions)
         if self.cross:
             # the static cache of the projected memory, read whole, unmasked
-            ctx = self._attend(q, cache["k"], cache["v"], None, kv_layout="bhsd")
+            if self.exact_sum:
+                ctx = self._attend_merged(q, cache["k"], cache["v"], None, exact=True)
+            else:
+                ctx = self._attend(q, cache["k"], cache["v"], None, kv_layout="bhsd")
             return self._out(ctx), cache
         k_new, v_new = self._project_kv(x, positions)           # [B, 1, Hkv, Dh]
         if block_tables is None:
@@ -314,9 +353,12 @@ class Attention(nn.Module):
             kc[rows, :, at] = k_new[:, 0].to(kc.dtype)
             vc[rows, :, at] = v_new[:, 0].to(vc.dtype)
             t = kc.shape[2]
-            mask = torch.arange(t, device=x.device)[None, :] <= idx[:, None]
-            ctx = self._attend(q, kc, vc, mask[:, None, None, :],
-                               kv_layout="bhsd")
+            mask = (torch.arange(t, device=x.device)[None, :] <= idx[:, None]
+                    )[:, None, None, :]
+            if self.exact_sum:
+                ctx = self._attend_merged(q, kc, vc, mask, exact=True)
+            else:
+                ctx = self._attend(q, kc, vc, mask, kv_layout="bhsd")
             return self._out(ctx), cache
         attend = _pick(attn_impl, pa_ops.paged_attention_decode,
                        pa_ops.paged_attention_decode_plain)
@@ -331,6 +373,109 @@ class Attention(nn.Module):
                            cache["v"], block_tables, idx,
                            softcap=self.logit_softcap)
         return self._out(ctx[:, None]), cache
+
+    def _decode_split(self, x: torch.Tensor, cache: Cache, idx: torch.Tensor,
+                      split) -> Tuple[torch.Tensor, Cache]:
+        """:meth:`decode` on the rank's share of the contiguous cache (see
+        the module's docstring)."""
+        b = x.shape[0]
+        x = tp.copy_to(x)
+        positions = idx[:, None]
+        q = self._project_q(x, positions)                      # the rank's heads
+        kc, vc = cache["k"], cache["v"]
+        spec = split.cache_spec(kc)
+        seq_axes = tuple(a for a in spec[2] if split.axis_size(a) > 1)
+        t_loc = kc.shape[2]
+        offset = split.index(seq_axes) * t_loc if seq_axes else 0
+        rows = torch.arange(b, device=x.device)
+        mask = None
+        if not self.cross:
+            k_new, v_new = self._project_kv(x, positions)
+            if k_new.shape[2] != kc.shape[1]:
+                raise ValueError(f"a decode under a split: {k_new.shape[2]} new kv "
+                                 f"heads against a cache of {kc.shape[1]} (spec "
+                                 f"{spec})")
+            at = idx.long() - offset
+            own = (at >= 0) & (at < t_loc)
+            at = torch.where(own, at, torch.zeros_like(at))
+            # the rank holding the position stores it; the others rewrite
+            # what they hold at their first slot
+            kc[rows, :, at] = torch.where(own[:, None, None], k_new[:, 0].to(kc.dtype),
+                                          kc[rows, :, at])
+            vc[rows, :, at] = torch.where(own[:, None, None], v_new[:, 0].to(vc.dtype),
+                                          vc[rows, :, at])
+            pos = offset + torch.arange(t_loc, device=x.device)
+            mask = (pos[None, :] <= idx[:, None])[:, None, None, :]
+        heads_local = q.shape[2] != self.n_heads
+        kv_all = kc.shape[1] == self.n_kv_heads
+        # positions split over "model" with every kv head on the rank: every
+        # query head attends the rank's positions, the rank's own kept after
+        # the merge; else the rank's query heads read their kv heads
+        gather_q = tp.MODEL in seq_axes and heads_local and kv_all
+        k, v = kc, vc
+        if gather_q:
+            q = tp.gather_heads(q, 2)
+        elif heads_local and kv_all:
+            lo, hi = split.kv_range(self.n_heads, self.n_kv_heads)
+            k, v = kc[:, lo:hi], vc[:, lo:hi]
+        if seq_axes:
+            ctx = self._attend_merged(q, k, v, mask, seq_axes, split, tp.exact())
+        elif self.exact_sum:
+            ctx = self._attend_merged(q, k, v, mask, exact=True)
+        else:
+            ctx = self._attend(q, k, v, mask, kv_layout="bhsd")
+        if gather_q:
+            ctx = split.own(ctx, tp.MODEL, 2)
+        return self._out(ctx), cache
+
+    def _attend_merged(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: Optional[torch.Tensor], axes=(), split=None,
+                       exact: bool = False) -> torch.Tensor:
+        """:meth:`_attend` of q [B, S, Hq, Dh] over the rank's positions of
+        k/v [B, Hkv, T_loc, Dh], merged with the other ranks' over ``axes``
+        by log-sum-exp: the rows' maximum maximized over them; with fp32
+        scores the numerators and denominators at that maximum summed, then
+        divided; with bf16 scores the denominators summed first, each
+        weight normalized and rounded to bf16 as :meth:`_attend` rounds it,
+        then the weighted sums summed.  ``exact``: the decode's exact form
+        (``exact_sum``, or positions split over more than one rank): the
+        scores and the weighted sums of fp32 products (exact in float64)
+        summed in float64 and each rounded once, so the value does not
+        depend on how the positions are cut or the order of their sums."""
+        b, s, hq, dh = q.shape
+        hkv = k.shape[1]
+        sd, f32 = self.scores_dtype, torch.float32
+        acc = torch.float64 if exact else f32
+        qg = q.reshape(b, s, hkv, hq // hkv, dh).permute(0, 2, 3, 1, 4)
+        scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(sd).to(acc),
+                              k.to(sd).to(acc)).to(f32) / math.sqrt(dh)
+        if self.logit_softcap > 0.0:
+            scores = self.logit_softcap * torch.tanh(scores / self.logit_softcap)
+        if mask is not None:
+            fill = NEG_INF if sd == f32 else BF16_MASK
+            scores = torch.where(mask[:, :, None], scores,
+                                 torch.full_like(scores, fill))
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        for a in axes:
+            m = split.all_max(m, a)
+        if sd == f32:
+            e = torch.exp(scores - m).to(acc)
+            parts = torch.cat([torch.einsum("bkgst,bktd->bkgsd", e, v.to(acc)),
+                               torch.sum(e, dim=-1, keepdim=True)], dim=-1)
+            for a in axes:
+                parts = split.all_reduce(parts, a, "sum")
+            out = parts[..., :dh] / parts[..., dh:]
+        else:
+            e = torch.exp((scores - m).to(sd).to(f32)).to(sd)
+            z = torch.sum(e.to(acc), dim=-1, keepdim=True)
+            for a in axes:
+                z = split.all_reduce(z, a, "sum")
+            w = (e.to(f32) / z.to(f32).to(sd).to(f32)).to(sd).to(acc)
+            out = torch.einsum("bkgst,bktd->bkgsd", w, v.to(sd).to(acc))
+            for a in axes:
+                out = split.all_reduce(out, a, "sum")
+        out = out.to(f32)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh).to(v.dtype)
 
     def decode_chunk(self, x: torch.Tensor, cache: Cache, start: torch.Tensor,
                      lens: torch.Tensor, block_tables: torch.Tensor,
@@ -388,6 +533,12 @@ class Attention(nn.Module):
         shape = (batch, self.n_kv_heads, max_len, self.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    @staticmethod
+    def cache_axes() -> Dict[str, Axes]:
+        """The cache's logical axes (JAX's ``Attention.cache_axes``)."""
+        return {"k": ("batch", "kv_heads", "kv_seq", "head_dim"),
+                "v": ("batch", "kv_heads", "kv_seq", "head_dim")}
 
 
 def _pick(attn_impl: str, fused, gather):

@@ -22,7 +22,11 @@ its heads' z, x and dt and B, C whole (one group).  The input enters
 through *f*, ``A_log``, ``D`` and ``dt_bias`` are the rank's heads' (the
 plan's ``"ssm_heads"`` shards), the SSD runs on them (``b·H/tp`` rows of
 the kernel), the gated SubLN sums its squares over the shards and
-``out_proj`` is row-parallel (``core/bitlinear.py``).
+``out_proj`` is row-parallel (``core/bitlinear.py``).  ``decode`` under a
+split advances the rank's heads of the state and its own channels of the
+conv tail (the cache placed by the plan from ``cache_axes()``): the tail's
+channels gathered whole for the conv over the rank's heads' x and B, C,
+and the new token's values at the rank's channels computed beside them.
 """
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ class Mamba2Block(nn.Module):
 
     def tp_whole(self, spec_of) -> Tuple[str, ...]:
         """The flat tensors a split uses whole (see the module's docstring)."""
-        return ("in_proj.w", "conv_w", "conv_b")
+        return ("in_proj.w", "in_proj.w_packed", "conv_w", "conv_b")
 
     # -- pieces ----------------------------------------------------------------
 
@@ -194,18 +198,44 @@ class Mamba2Block(nn.Module):
                 "conv": torch.zeros((batch, self.conv_kernel - 1, self.conv_dim),
                                     dtype=dtype, device=device)}
 
+    @staticmethod
+    def cache_axes() -> Dict[str, Axes]:
+        """The cache's logical axes (JAX's ``Mamba2Block.cache_axes``)."""
+        return {"state": ("batch", "ssm_heads", "head_dim", "ssm_state"),
+                "conv": ("batch", "conv_k", "ssm_conv")}
+
     def decode(self, u: torch.Tensor, cache: Dict[str, torch.Tensor],
                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """u [B, 1, D] -> y [B, 1, D]; advances ``cache`` in place.  With
         ``keep`` (bool [B]) a row where it is False leaves its state and
         tail as they were: the JAX engine's ``where(keep, new, old)`` over
-        the cache, done at the one place the cache is written."""
+        the cache, done at the one place the cache is written.  Under a
+        split, the rank's heads (see the module's docstring)."""
         b = u.shape[0]
         di, n, h, p = self.d_inner, self.d_state, self.n_heads, self.head_dim
-        z, xbc_new, dt_raw = self._split(self.in_proj(u), di)
         conv, st = cache["conv"], cache["state"]
-        hist = torch.cat([conv, xbc_new.to(conv.dtype)], dim=1)       # [B, k, c]
-        xbc = self._conv(xbc_new, hist)
+        split = tp.active()
+        if split is not None and split.size > 1:
+            u = tp.copy_to(u)
+            cols, chans = self._own(split)
+            di, h = di // split.size, h // split.size
+            # the rank's channels of the tail: its new values computed too
+            c_axes = split.cache_spec(conv)[2]
+            c0 = split.index(c_axes) * conv.shape[2]
+            out = self.in_proj.forward_cols(
+                u, cols + [(self.d_inner + c0, self.d_inner + c0 + conv.shape[2])])
+            z, xbc_new, dt_raw = self._split(out[..., :-conv.shape[2]], di)
+            prev = split.all_gather(conv, tp.MODEL, 2) if tp.MODEL in c_axes else conv
+            prev = torch.cat([prev[..., lo:hi] for lo, hi in chans], dim=-1)
+            hist = torch.cat([prev, xbc_new.to(conv.dtype)], dim=1)
+            xbc = self._conv(xbc_new, hist, chans=chans)
+            tail = torch.cat([conv[:, 1:], out[..., -conv.shape[2]:].to(conv.dtype)],
+                             dim=1)
+        else:
+            z, xbc_new, dt_raw = self._split(self.in_proj(u), di)
+            hist = torch.cat([conv, xbc_new.to(conv.dtype)], dim=1)   # [B, k, c]
+            xbc = self._conv(xbc_new, hist)
+            tail = hist[:, 1:]
         x = xbc[:, 0, :di].reshape(b, h, p).to(torch.float32)
         B = xbc[:, 0, di:di + n].to(torch.float32)
         C = xbc[:, 0, di + n:].to(torch.float32)
@@ -215,7 +245,6 @@ class Mamba2Block(nn.Module):
         y = y.reshape(b, 1, di).to(u.dtype) * silu(z)
         if self.norm is not None:
             y = self.norm(y)
-        tail = hist[:, 1:]
         if keep is None:
             st.copy_(new)
             conv.copy_(tail)

@@ -28,7 +28,9 @@ Under a tensor-parallel split (``distributed/tensor_parallel.py``) a block
 takes its parameters' compute copies at its use (``tp.using``: the FSDP
 gather along the plan's other axes, the ``"model"`` shard kept) inside its
 forward, so ``torch.utils.checkpoint`` repeats the gather in the
-recompute, as JAX's remat does; nothing gathers the whole model.
+recompute, as JAX's remat does; nothing gathers the whole model.  Its
+decode takes them likewise, on the rank's share of its cache
+(``cache_axes()``: JAX's names, one entry per layer).
 """
 from __future__ import annotations
 
@@ -219,6 +221,17 @@ class Block(nn.Module):
             cache["xattn"] = self.xattn.init_cache(batch, t, dtype, device)
         return cache
 
+    def cache_axes(self) -> Dict[str, Dict[str, Tuple[str, ...]]]:
+        """The layer's cache axes (JAX's ``Block.cache_axes``)."""
+        ax: Dict[str, Dict[str, Tuple[str, ...]]] = {}
+        if self.attn is not None:
+            ax["attn"] = Attention.cache_axes()
+        if self.xattn is not None:
+            ax["xattn"] = Attention.cache_axes()
+        if self.mamba is not None:
+            ax["mamba"] = Mamba2Block.cache_axes()
+        return ax
+
     def decode(self, x: torch.Tensor, cache: LayerCache,
                cache_index: torch.Tensor,
                block_tables: Optional[torch.Tensor] = None,
@@ -230,6 +243,10 @@ class Block(nn.Module):
         writes need no mask: the engine replays a masked row's last (token,
         position), which rewrites the same K/V; a cross layer writes
         nothing."""
+        with tp.using(self):
+            return self._decode(x, cache, cache_index, block_tables, attn_impl, keep)
+
+    def _decode(self, x, cache, cache_index, block_tables, attn_impl, keep):
         if self.mamba is not None:
             x = x + self.mamba.decode(self.norm1(x), cache["mamba"], keep)
         if self.attn is not None:
@@ -355,6 +372,11 @@ class Stack(nn.Module):
                    memory: Optional[torch.Tensor] = None) -> List[LayerCache]:
         return [blk.init_cache(batch, max_len, dtype, device, memory)
                 for blk in self.layers]
+
+    def cache_axes(self) -> List[Dict[str, Dict[str, Tuple[str, ...]]]]:
+        """One entry per layer (JAX's ``Stack.cache_axes`` stacks them over
+        repeats under a leading ``"layers"`` axis, never sharded)."""
+        return [blk.cache_axes() for blk in self.layers]
 
     def decode(self, x: torch.Tensor, cache: List[LayerCache],
                cache_index: torch.Tensor,

@@ -19,36 +19,32 @@ and the AdamW moments by theirs (``state_axes``), so a rank holds the
 plan's share of each; ``place_model(teacher, plan)`` places the distill
 step's teacher likewise.  The
 step takes the whole batch on every rank and computes on the rank's rows
-of it (split over the mesh axes of the ``"batch"`` rule), on one of two
-routes, chosen from the config (``step_route``):
+of it (split over the mesh axes of the ``"batch"`` rule), and the ranks
+along ``"model"`` split the compute (``distributed/tensor_parallel.py``;
+every family: the dense, MoE, SSM and hybrid decoders and the
+cross-attention families, whisper-medium's encoder-decoder and
+llama-3.2-vision-11b): each block gathers its parameters along the other
+axes at its use, keeps their ``"model"`` shards and computes its heads (a
+cross layer's K/V projected from the memory by kv heads), ``d_ff``
+columns, experts (or each expert's ``d_ff`` columns), SSM heads and
+vocabulary slice.  A ``"model"``-sharded parameter's gradient is the
+rank's own; a replicated one is left alone where *f* and *g* made the
+ranks' equal (the norms, the MoE router) and summed where their
+contributions differ (the kv projections replicated by the fallback, the
+qk norms); a tensor used whole (Mamba2's in_proj and conv) gets its shard
+of the ranks' sum.
 
-* ``"split"`` (the dense, MoE, SSM and hybrid decoders): the ranks along
-  ``"model"`` split the compute (``distributed/tensor_parallel.py``): each
-  block gathers its parameters along the other axes at its use, keeps
-  their ``"model"`` shards and computes its heads, ``d_ff`` columns,
-  experts (or each expert's ``d_ff`` columns), SSM heads and vocabulary
-  slice.  A ``"model"``-sharded parameter's gradient is the rank's own; a
-  replicated one is left alone where *f* and *g* made the ranks' equal
-  (the norms, the MoE router) and summed where their contributions differ
-  (the kv projections replicated by the fallback, the qk norms); a tensor
-  used whole (Mamba2's in_proj and conv) gets its shard of the ranks' sum;
-* ``"gathered"`` (the cross-attention families, whisper-medium and
-  llama-3.2-vision-11b): every parameter gathered whole for the forward and
-  backward, the ranks along ``"model"`` computing the same rows, their
-  gradients averaged.
-
-Either way a gradient is summed over the ranks that split the batch.  The
-CE is the whole batch's token mean (each rank's NLL sum over the batch's
-mask count), the MoE loss the mean of the ranks' that split the batch
-(every ``"model"`` rank computes the same one from the replicated routing,
-and the metrics are summed over the batch's axes only), and the metrics
-and ``grad_norm`` are the whole batch's.
+A gradient is summed over the ranks that split the batch.  The CE is the
+whole batch's token mean (each rank's NLL sum over the batch's mask count),
+the MoE loss the mean of the ranks' that split the batch (every ``"model"``
+rank computes the same one from the replicated routing, and the metrics are
+summed over the batch's axes only), and the metrics and ``grad_norm`` are
+the whole batch's.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,7 +55,6 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.encdec import EncDecLM
-from repro_torch.models.lm import CausalLM
 from repro_torch.nn.layers import Embedding
 from repro_torch.nn.moe import MoEMLP, group_count
 from repro_torch.training.optimizer import AdamW, AdamWState
@@ -208,27 +203,6 @@ def place_model(model: nn.Module, plan) -> Dict[str, nn.Parameter]:
     return placed
 
 
-@contextlib.contextmanager
-def gathered(model: nn.Module, params: Dict[str, nn.Parameter], grad_placements):
-    """Within the block, ``model`` holds each placed parameter gathered
-    whole; a gradient taken through it returns to the parameter as
-    ``grad_placements`` (one per mesh dim), reduced to its placements."""
-    swapped = []
-    try:
-        for name, p in params.items():
-            whole = p.full_tensor(grad_placements=grad_placements)
-            if p.device_mesh.device_type == "cuda" and whole.device.type != "cuda":
-                raise RuntimeError(f"{name} gathered onto {whole.device}, off "
-                                   "the card its mesh is on")
-            owner, attr = _owner(model, name)
-            owner._parameters[attr] = whole
-            swapped.append((owner, attr, p))
-        yield
-    finally:
-        for owner, attr, p in swapped:
-            owner._parameters[attr] = p
-
-
 class BatchSplit(NamedTuple):
     rows: slice          # this rank's rows of the batch
     n: int               # ranks the batch is split over
@@ -272,26 +246,6 @@ def _all_sum(t: torch.Tensor, plan, axes) -> torch.Tensor:
     for a in axes:
         dist.all_reduce(t, group=plan.mesh.get_group(a))
     return t
-
-
-# the CausalLM families whose steps take the split route
-SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def step_route(model, plan) -> str:
-    """How a step computes under ``plan``, from the model's config before
-    the step is built: ``"split"`` for a dense, MoE, SSM or hybrid decoder
-    (its heads, ``d_ff`` columns, experts, SSM heads and vocabulary split
-    over ``"model"``, ``distributed/tensor_parallel.py``), ``"gathered"``
-    for the cross-attention families (every parameter gathered whole for
-    the step), and ``"plain"`` without a plan."""
-    if plan is None:
-        return "plain"
-    cfg = getattr(model, "cfg", None)
-    if isinstance(model, CausalLM) and cfg is not None \
-            and cfg.family in SPLIT_FAMILIES:
-        return "split"
-    return "gathered"
 
 
 def make_split(plan, *models, local: bool = False) -> tp.Split:
@@ -340,22 +294,14 @@ def distill_loss_parts(student_model, teacher_model, dcfg: DistillConfig) -> Cal
 
 def _sharded_step(model, optimizer: AdamW, lr_fn: Callable, accum: int, plan,
                   parts: Callable, teacher=None) -> Callable:
-    """A step under ``plan`` on ``step_route``'s route: each rank takes its
-    rows of the whole batch; on the split route a block's parameters are
-    their compute copies at its use, on the gathered route every parameter
-    is gathered whole for the step; the teacher (placed by the caller)
-    likewise, without gradients."""
-    from torch.distributed.tensor import Partial
-    route = step_route(model, plan)
-    t_params = None
-    if teacher is not None:
-        if not all(is_dtensor(p) for p in teacher.parameters()):
-            raise ValueError("a distill step under a plan takes a teacher placed "
-                             "by it: place_model(teacher, plan) first, as "
-                             "init_train_state(student, opt, plan) places the student")
-        t_params = dict(teacher.named_parameters())
-    split = (make_split(plan, model, *([teacher] if teacher is not None else []))
-             if route == "split" else None)
+    """A step under ``plan``: each rank takes its rows of the whole batch
+    and a block's parameters are their compute copies at its use; the
+    teacher (placed by the caller) likewise, without gradients."""
+    if teacher is not None and not all(is_dtensor(p) for p in teacher.parameters()):
+        raise ValueError("a distill step under a plan takes a teacher placed "
+                         "by it: place_model(teacher, plan) first, as "
+                         "init_train_state(student, opt, plan) places the student")
+    split = make_split(plan, model, *([teacher] if teacher is not None else []))
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         for p in state.params.values():
@@ -369,16 +315,8 @@ def _sharded_step(model, optimizer: AdamW, lr_fn: Callable, accum: int, plan,
             mask = mb.get("loss_mask")
             den = (torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
                    if mask is not None else float(rows * seq))
-            with contextlib.ExitStack() as ctx:
-                if split is not None:
-                    split.batch_axes = bs.axes
-                    ctx.enter_context(tp.activated(split))
-                else:
-                    grad_pl = [Partial("sum") if a in bs.axes else Partial("avg")
-                               for a in plan.shape]
-                    ctx.enter_context(gathered(model, state.params, grad_pl))
-                    if teacher is not None:
-                        ctx.enter_context(gathered(teacher, t_params, None))
+            split.batch_axes = bs.axes
+            with tp.activated(split):
                 loss, m = parts(local, den, bs.n)
                 loss.backward()
             keys = list(m)
@@ -423,8 +361,7 @@ def make_distill_step(student_model, teacher_model, optimizer: AdamW,
     holds its weights), student QAT.  With a ``plan`` (``state`` from
     ``init_train_state(student, ..., plan)``, the teacher's parameters from
     ``place_model(teacher, plan)``: JAX's ``t_shardings``) the step runs as
-    the CE step does under one, the teacher split or gathered as the
-    student is."""
+    the CE step does under one, the teacher split as the student is."""
     if plan is not None:
         return _sharded_step(student_model, optimizer, lr_fn, accum, plan,
                              distill_loss_parts(student_model, teacher_model, dcfg),

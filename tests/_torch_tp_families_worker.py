@@ -43,7 +43,7 @@ from repro_torch.nn.moe import MoEMLP  # noqa: E402
 from repro_torch.nn.ssm import Mamba2Block  # noqa: E402
 from repro_torch.training.optimizer import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
-    init_train_state, make_distill_step, make_train_step, place_model, step_route)
+    init_train_state, make_distill_step, make_train_step, place_model)
 
 QAT_KERNEL = Q.QuantConfig(mode="qat", use_kernel=True)
 LR = 1e-3
@@ -116,7 +116,7 @@ def distill_config(cfg):
 
 def run_steps(inp, case, plan, kind, steps):
     """``steps`` steps of ``kind`` ("ce" or "distill") of ``case``'s
-    reduced student (its FP teacher placed by the plan) -> (route, per step
+    reduced student (its FP teacher placed by the plan) -> (the route taken, per step
     the metrics, the parameters after the last step)."""
     scfg, tcfg = config(case)
     student = bridge.jax_params_to_torch(scfg, tree(inp, f"{case}/student/"),
@@ -133,10 +133,12 @@ def run_steps(inp, case, plan, kind, steps):
     else:
         step = make_train_step(student, opt, lambda s: LR, plan=plan)
     ms = []
+    tp.counter.reset()
     for i in range(steps):
         state, m = step(state, batch(inp, case, i))
         ms.append({k: float(v) for k, v in m.items()})
-    return step_route(student, plan), ms, state_np(scfg, state)
+    # the split route makes the Megatron pair's calls, on one rank too
+    return ("split" if tp.counter.count else "plain"), ms, state_np(scfg, state)
 
 
 def watch(inp, case, plan):

@@ -10,9 +10,7 @@ the QAT CE step at dp 1 x tp 2.  Four ranks: the layers at tp 4, the QAT CE
 step at dp 2 x tp 2 (with the shapes of every compute copy and of the
 logits recorded, and the step's FLOPs counted), the same step at tp 4 on
 qwen2.5-3b (one kv head, projected whole on every rank), the CE step at
-dp 2 x tp 2 on the plain QAT route, the distill step at dp 2 x tp 2 and
-llama-3.2-vision-11b's distill step at dp 2 x tp 2 (the gathered route, one
-repeat of its pattern, with image embeddings).
+dp 2 x tp 2 on the plain QAT route and the distill step at dp 2 x tp 2.
 Imports torch and the port only.
 """
 import sys
@@ -37,7 +35,7 @@ from repro_torch.models.lm import CausalLM  # noqa: E402
 from repro_torch.nn.module import DTypePolicy, flatten_with_paths  # noqa: E402
 from repro_torch.training.optimizer import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
-    init_train_state, make_distill_step, make_train_step, place_model, step_route)
+    init_train_state, make_distill_step, make_train_step, place_model)
 
 F32 = DTypePolicy(torch.float32, torch.float32)
 QAT_KERNEL = Q.QuantConfig(mode="qat", use_kernel=True)
@@ -162,12 +160,12 @@ def _watch_the_split(cfg, params, inp, plan):
     return seen, logits, cost.flops
 
 
-def _distill(name, quant, key, inp, plan, layers=None):
-    """One distill step of ``name``'s reduced student (``layers`` deep) on
-    ``quant``'s route (its FP teacher placed by the plan) on batch
-    ``<key>_0``: (the route, the metrics, the parameters)."""
-    cfg = get_config(name).reduced(layers=layers).with_quant(quant)
-    teacher = bridge.jax_params_to_torch(get_config(name).reduced(layers=layers),
+def _distill(name, quant, key, inp, plan):
+    """One distill step of ``name``'s reduced student on ``quant``'s route
+    (its FP teacher placed by the plan) on batch ``<key>_0``: (the route
+    taken, the metrics, the parameters)."""
+    cfg = get_config(name).reduced().with_quant(quant)
+    teacher = bridge.jax_params_to_torch(get_config(name).reduced(),
                                          _tree(inp, f"{key}/teacher/"), device="cpu")
     student = bridge.jax_params_to_torch(cfg, _tree(inp, f"{key}/student/"),
                                          device="cpu")
@@ -176,9 +174,11 @@ def _distill(name, quant, key, inp, plan, layers=None):
     state = init_train_state(student, opt, plan)
     dcfg = TD.DistillConfig(distill_layer=1, use_kernel=True)
     step = make_distill_step(student, teacher, opt, lambda s: LR, dcfg, plan=plan)
+    tp.counter.reset()
     state, m = step(state, _batch(inp, f"{key}_0"))
-    return (step_route(student, plan), {k: float(v) for k, v in m.items()},
-            _state_np(cfg, state))
+    # the split route makes the Megatron pair's calls
+    return (("split" if tp.counter.count else "plain"),
+            {k: float(v) for k, v in m.items()}, _state_np(cfg, state))
 
 
 def main(rank: int, world: int, store: str, io: Path) -> None:
@@ -203,8 +203,6 @@ def main(rank: int, world: int, store: str, io: Path) -> None:
         out["ce_2x2_plain"] = _steps("qwen3_", qwen3.with_quant(Q.QAT), s_params,
                                      inp, plan)
         out["distill_2x2"] = _distill("qwen3-0.6b", QAT_KERNEL, "qwen3", inp, plan)
-        out["gathered_distill_2x2"] = _distill("llama-3.2-vision-11b", Q.QAT,
-                                               "vision", inp, plan, layers=5)
     torch.save(out, io / f"out{world}_{rank}.pt")
     dist.destroy_process_group()
 

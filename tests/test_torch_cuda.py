@@ -114,6 +114,32 @@ def test_w2a8_each_route_matches_plain(cuda, dtype, route, m, k, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["splitk", "wgmma"])
+@pytest.mark.parametrize("m,k,n,parts", [(8, 2048, 1024, 16), (256, 3072, 1024, 16),
+                                         (3, 520, 48, 2), (17, 1024, 2048, 4)])
+def test_w2a8_forward_acc_row_shards(cuda, dtype, route, m, k, n, parts):
+    """A row shard's accumulators (γ the whole rows') equal the plain
+    version's exactly on either route, and the shards' sum scaled once is
+    the whole launch bit for bit (qwen3-0.6b's o_proj and down_proj at tp
+    16 among the shapes)."""
+    x, wp, delta = _w2a8_operands(cuda, m, k, n, dtype)
+    gamma = x.float().abs().amax(dim=-1, keepdim=True)
+    kk = k // parts
+    total = torch.zeros((m, n), dtype=torch.float32, device=cuda)
+    before = w2_kernel.acc_launches.count
+    for r in range(parts):
+        xs = x[:, r * kk:(r + 1) * kk].contiguous()
+        ws = wp[r * kk // 4:(r + 1) * kk // 4]
+        acc = w2_kernel.w2a8_forward_acc(xs, ws, gamma, route=route)
+        torch.testing.assert_close(acc, w2_ref.w2a8_forward_acc_ref(xs, ws, gamma),
+                                   rtol=0, atol=0)
+        total += acc
+    assert w2_kernel.acc_launches.count == before + parts
+    y = (total * (Q.div(gamma, 127.0) * delta)).to(dtype)
+    torch.testing.assert_close(y, w2_kernel.w2a8_kernel(x, wp, delta), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, softcap):
     rng = np.random.default_rng(3)

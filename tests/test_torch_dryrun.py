@@ -47,12 +47,19 @@ def test_dryrun_cell_produces_roofline(tmp_path):
     assert d["roofline"]["flops"] > 0
     assert d["roofline"]["bottleneck"] in ("compute", "memory", "collective")
     assert d["n_devices"] == 256
-    # one rank's step: its 8 of the 128 rows against a 32k cache, the whole
-    # model (the engine takes no plan), nothing on the wire
-    assert (d["dp"], d["rows_per_chip"], d["step"]) == (16, 8, "decode")
-    assert d["collectives"]["counts"] == {} and d["roofline"]["t_collective_s"] == 0
+    # one rank's step on the split route: its 8 of the 128 rows against its
+    # share of a 32k cache (one of the 16 kv heads), its shard of the model,
+    # the split's collectives on the wire
+    assert (d["dp"], d["rows_per_chip"], d["step"], d["route"]) == \
+        (16, 8, "decode", "split")
+    counts = d["collectives"]["counts"]
+    assert counts["all-reduce"] > 0 and counts["all-gather"] > 0
+    assert d["roofline"]["t_collective_s"] > 0
     assert d["op_cost"]["flops"] * 256 == d["roofline"]["flops"]
-    assert d["peak_live_bytes_per_chip"] > d["memest_per_chip"]["caches_whole"]
+    m = d["memest_per_chip"]
+    assert d["peak_live_bytes_per_chip"] > m["caches"]
+    assert m["total"] == pytest.approx(m["params"] + m["at_use_params"]
+                                       + m["caches"] + m["layer_transient"])
     assert d["fits_hbm"] is True
 
 
@@ -96,6 +103,55 @@ def test_train_cell_is_one_ranks_step():
 
 # a dense config cut to two layers: a cell counts in seconds
 TWO_LAYERS = {"n_layers": 2}
+
+
+def _decode_cell(arch, route="split"):
+    """``arch``'s decode_32k cell at two layers on the production mesh,
+    counted on meta: (cell, the collectives it recorded, its cost)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.op_analysis import count
+    cell = build_cell(arch, "decode_32k", {"data": 16, "model": 16},
+                      model_overrides=TWO_LAYERS, route=route)
+    with tp.recording() as rec:
+        cost = count(cell.step_fn, *cell.args, resident=(cell.model,))
+    return cell, rec, cost
+
+
+@pytest.mark.parametrize("arch,heads,seq", [("qwen1.5-0.5b", 1, 32768),
+                                            ("qwen3-0.6b", 8, 2048)])
+def test_split_decode_cell_places_the_cache(arch, heads, seq):
+    """qwen1.5-0.5b's 16 kv heads split one a rank; qwen3-0.6b's 8 do not
+    divide over 16, so its cache splits by positions (2048 of 32768 a rank)
+    and the decode merges the ranks' attention: a max and a sum all-reduce
+    a layer beside the split's projections' sums, the logits gathered."""
+    cell, rec, _ = _decode_cell(arch)
+    batch, cache, index = cell.args
+    assert cell.route == "split" and cell.rows == 8
+    for layer in cache:
+        assert tuple(layer["attn"]["k"].shape) == (8, heads, seq,
+                                                   cell.model_cfg.head_dim)
+    kinds = {(k, a) for k, a, _, _ in rec}
+    assert ("all-gather", "model") in kinds and ("all-reduce", "model") in kinds
+    stats = plan_collectives(cell.plan, dryrun.whole_params(cell.model), "decode",
+                             route="split", recorded=rec)
+    assert sum(stats.counts.values()) == len(rec) and stats.group_size == 16
+    # the logits' gather: the whole padded vocabulary of the rank's rows
+    item = torch.empty((), dtype=cell.model_cfg.policy().compute_dtype).element_size()
+    vocab = 8 * cell.model_cfg.padded_vocab * item
+    assert any(k == "all-gather" and b == vocab for k, _, _, b in rec)
+
+
+def test_decode_cell_on_the_gathered_route():
+    """``route="gathered"``: the rank holds the whole model and every
+    head's cache of its rows, and moves nothing."""
+    cell, rec, _ = _decode_cell("qwen1.5-0.5b", route="gathered")
+    _, cache, _ = cell.args
+    assert cell.route == "gathered" and rec == []
+    assert tuple(cache[0]["attn"]["k"].shape) == (8, 16, 32768, 64)
+    assert all(p.shape == w.shape for p, w in zip(
+        cell.model.parameters(), dryrun.whole_params(cell.model).values()))
+    assert plan_collectives(cell.plan, dict(cell.model.named_parameters()),
+                            "decode").counts == {}
 
 
 def test_distill_cell_builds_under_a_plan():
@@ -195,7 +251,7 @@ def _meta_rank_step_records(state_dtype):
     plan = ShardingPlan({"data": 2, "model": 2}, default_rules(False))
     model = build_model(get_config("qwen3-0.6b").reduced(), device="meta")
     ranks = jax_ranks(dict(model.named_parameters()))
-    specs._local_model(model, plan)
+    tp.shard_model(model, plan)
     split = make_split(plan, model, local=True)
     split.batch_axes = ("data",)
     opt = AdamW(AdamWConfig(state_dtype=state_dtype))

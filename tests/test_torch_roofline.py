@@ -215,29 +215,37 @@ def test_memest_equals_jax_on_every_shared_term(name):
             for opt8 in (False, True):
                 teacher = kind == "distill"
                 j = jmemest.estimate(jc, JSHAPES[shape], n_dev, tp, opt8, kind, teacher)
-                t = memest.estimate(tc, SHAPES[shape], n_dev, tp, opt8, kind, teacher)
-                for k in JAX_TERMS:
-                    assert (k in t) == (k in j), (name, shape, kind, k)
-                    if k in j:
-                        assert t[k] == j[k], (name, shape, kind, k)
-                        checked += 1
-                # the port's own terms, by hand
-                bp = 2 if tc.param_dtype == "bfloat16" else 4
-                assert t["gathered_params"] == p * bp
-                train = kind in ("train", "distill")
-                if train:
-                    per = 2.0 + 8.0 / 256 if opt8 else 8.0
-                    assert t["moments"] == p * per / n_dev
-                    want = sum(t[k] for k in ("params", "gathered_params", "grads",
-                                              "moments", "residual_stack", "logits",
-                                              "layer_transient")) + \
-                        t.get("teacher_params", 0.0)
-                else:
-                    assert "moments" not in t
-                    want = t["gathered_params"] + t["layer_transient"]
-                if kind == "decode":
-                    assert t["caches_whole"] == t["caches"] * tp
-                    want += t["caches_whole"]
-                assert t["total"] == pytest.approx(want, rel=1e-12)
-                assert t["fits_hbm"] == (t["total"] < 80e9)
+                for route in ("split", "gathered"):
+                    t = memest.estimate(tc, SHAPES[shape], n_dev, tp, opt8, kind,
+                                        teacher, route=route)
+                    for k in JAX_TERMS:
+                        assert (k in t) == (k in j), (name, shape, kind, k)
+                        if k in j:
+                            assert t[k] == j[k], (name, shape, kind, k)
+                            checked += 1
+                    # the port's own terms, by hand: on the split route JAX's
+                    # params and caches (the cache placed by the plan) with
+                    # the weights at use; on the gathered route the whole
+                    # model and every head's cache
+                    bp = 2 if tc.param_dtype == "bfloat16" else 4
+                    assert t["gathered_params"] == p * bp
+                    train = kind in ("train", "distill")
+                    held = "at_use_params" if route == "split" else "gathered_params"
+                    if train:
+                        per = 2.0 + 8.0 / 256 if opt8 else 8.0
+                        assert t["moments"] == p * per / n_dev
+                        want = sum(t[k] for k in ("params", held, "grads",
+                                                  "moments", "residual_stack",
+                                                  "logits", "layer_transient")) + \
+                            t.get("teacher_params", 0.0)
+                    else:
+                        assert "moments" not in t
+                        want = t[held] + t["layer_transient"]
+                        if route == "split":
+                            want += t["params"]
+                    if kind == "decode":
+                        assert t["caches_whole"] == t["caches"] * tp
+                        want += t["caches" if route == "split" else "caches_whole"]
+                    assert t["total"] == pytest.approx(want, rel=1e-12)
+                    assert t["fits_hbm"] == (t["total"] < 80e9)
     assert checked > 0

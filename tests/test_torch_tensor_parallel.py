@@ -29,11 +29,6 @@ and steps and JAX's single-device steps.  Tolerances:
   log-softmaxes whose normalizers (~5.7) carry an fp32 ulp of 4.8e-7, so
   against the port's unsharded step it also takes test_torch_train.py's
   absolute floor of 2e-7 (read: 6.4e-8 apart).
-* llama-3.2-vision-11b reduced to one repeat (cross attention, plain QAT
-  route, seeded image embeddings) takes the gathered route under the same
-  plan: its distill step against the port's unsharded one at the same
-  bounds.  (The MoE, SSM and hybrid families take the split route since
-  it covers them: tests/test_torch_tp_families.py.)
 * The split is real: no compute copy of a heads-, mlp- or vocab-split
   weight is whole, the logits are [rows, S, V/tp], and a rank's counted
   FLOPs are at most the unsharded step's over dp·tp (its rows and its
@@ -79,14 +74,11 @@ STEPS = {"1x2": (2, "ce_1x2", "qwen3-0.6b", "qwen3_", "kernel"),
          "1x4": (4, "ce_1x4", "qwen2.5-3b", "qwen25_", "kernel")}
 QUANT = {"kernel": (QAT_KERNEL, JQ.QuantConfig(mode="qat", use_kernel=True)),
          "plain": (TQ.QAT, JQ.QAT)}
-PARAMS = (("qwen3-0.6b", "qwen3"), ("qwen2.5-3b", "qwen25"),
-          ("llama-3.2-vision-11b", "vision"))
-# the reduced depth of a config (None: reduced()'s own)
-LAYERS = {"llama-3.2-vision-11b": 5}
+PARAMS = (("qwen3-0.6b", "qwen3"), ("qwen2.5-3b", "qwen25"))
 
 
 def _jax_params(name):
-    jt = jget(name).reduced(layers=LAYERS.get(name))
+    jt = jget(name).reduced()
     js = jt.with_quant(JQ.QuantConfig(mode="qat", use_kernel=True))
     tparams = jbuild(jt).init(jax.random.PRNGKey(0))
     sparams = _copy_matching(tparams, jbuild(js).init(jax.random.PRNGKey(1)))
@@ -109,6 +101,8 @@ def _inputs():
     inp.update({"loss/s": s, "loss/t": t,
                 "loss/labels": rng.integers(0, 280, (2, 8)).astype(np.int32),
                 "loss/mask": (rng.uniform(size=(2, 8)) < 0.7).astype(f32)})
+    # a batch with image embeddings, unused: drawn so that the rng stream,
+    # and with it every batch, stays the one this file's bounds were read on
     inp["vision_0/image_embeds"] = rng.standard_normal((8, 8, 128)).astype(f32)
     for prefix in ("qwen3_0", "qwen3_1", "qwen25_0", "qwen25_1", "vision_0"):
         inp[f"{prefix}/tokens"] = rng.integers(0, 268, (8, 16)).astype(np.int32)
@@ -341,40 +335,6 @@ def test_distill_step_matches_the_unsharded_port_and_jax(jobs):
     for k, w in want_p.items():
         assert np.abs(got_p[k] - w).max() <= 2 * LR, k
         np.testing.assert_allclose(got_p[k], jflat[k], rtol=5e-3, atol=5e-3, err_msg=k)
-
-
-def test_gathered_distill_step_matches_the_unsharded_port(jobs):
-    """A family outside the split (llama-3.2-vision-11b, cross attention)
-    on the plain QAT route: its distill step under the dp 2 x tp 2 plan
-    takes the gathered route, every parameter whole, and matches the
-    unsharded step."""
-    inp, outs = jobs
-    name = "llama-3.2-vision-11b"
-    tcfg = get_config(name).reduced(layers=LAYERS[name])
-    cfg = tcfg.with_quant(TQ.QAT)
-    student = bridge.jax_params_to_torch(cfg, _tree(inp, "vision/student/"),
-                                         device="cpu")
-    teacher = bridge.jax_params_to_torch(tcfg, _tree(inp, "vision/teacher/"),
-                                         device="cpu")
-    opt = AdamW(AdamWConfig(weight_decay=0.0, grad_clip=0.0))
-    dcfg = TD.DistillConfig(distill_layer=1, use_kernel=True)
-    _, m = make_distill_step(student, teacher, opt, lambda s: LR, dcfg)(
-        init_train_state(student, opt), _batch(inp, "vision_0"))
-    want_p = {k: np.asarray(v) for k, v in flatten_with_paths(
-        bridge.jax_params_from_torch(cfg, student)).items()}
-    for out in outs[4]:
-        got_route, got_m, _ = out["gathered_distill_2x2"]
-        assert got_route == "gathered"
-        assert set(got_m) == set(m)
-        for k in m:
-            np.testing.assert_allclose(got_m[k], float(m[k]), rtol=1e-6,
-                                       atol=2e-7 if k == "loss_ld" else 0.0,
-                                       err_msg=k)
-    got_p = {k[len("params/"):]: v
-             for k, v in outs[4][0]["gathered_distill_2x2"][2].items()}
-    assert set(got_p) == set(want_p)
-    for k, w in want_p.items():
-        assert np.abs(got_p[k] - w).max() <= 2 * LR, k
 
 
 def test_the_split_is_real(jobs):

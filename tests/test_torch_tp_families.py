@@ -77,7 +77,7 @@ from repro_torch.launch.op_analysis import count
 from repro_torch.models import build_model, get_config, lm
 from repro_torch.nn.module import flatten_with_paths
 from repro_torch.training.trainer import (init_train_state, make_distill_step,
-                                          make_train_step, step_route)
+                                          make_split, make_train_step)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_tp_families_worker as W  # noqa: E402
@@ -347,11 +347,17 @@ def test_the_split_is_real(jobs, case):
 
 
 def test_step_route_per_family():
+    """Every family's step under a plan takes the split route: its model
+    registers in the split (``training/trainer.py::make_split``), each
+    parameter with the spec the plan gives it."""
     plan = ShardingPlan({"data": 2, "model": 4}, default_rules(False))
-    for name, route in (("granite-moe-1b-a400m", "split"), ("grok-1-314b", "split"),
-                        ("mamba2-780m", "split"), ("jamba-1.5-large-398b", "split"),
-                        ("qwen3-0.6b", "split"), ("whisper-medium", "gathered"),
-                        ("llama-3.2-vision-11b", "gathered")):
+    for name in ("granite-moe-1b-a400m", "grok-1-314b", "mamba2-780m",
+                 "jamba-1.5-large-398b", "qwen3-0.6b", "whisper-medium",
+                 "llama-3.2-vision-11b"):
         model = build_model(get_config(name).reduced(), device=torch.device("meta"))
-        assert step_route(model, plan) == route, name
-        assert step_route(model, None) == "plain"
+        split = make_split(plan, model)
+        axes, named = model.param_axes(), dict(model.named_parameters())
+        assert len(split.params) == len(named), name
+        for k, p in named.items():
+            assert split.params[id(p)][1].spec == plan.spec(
+                axes[k], tuple(p.shape), record=False), (name, k)
