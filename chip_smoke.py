@@ -6,7 +6,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. card name and power limit; build the CUDA kernels from ``src/repro_torch/
      csrc`` and report the build time, the tensor-core kernels' registers,
-     spills and shared memory (and the paged kernels' at head_dim 256), and
+     spills and shared memory (and the paged kernels' at head_dim 256, 32
+     and 16), and
      their SASS: bitlinear's GEMM and w2a8's
      wgmma route must hold the int8 ``wgmma`` (IGMMA) and the TMA loads
      (UTMALDG), ssd_scan's three product stages TF32 ``mma`` (HMMA) and
@@ -18,7 +19,11 @@ result line):
      card's lower bound for the work; the paged kernels at qwen3-0.6b's
      heads (8 kv heads of 128, g = 2) and gemma-7b's (16 kv heads of 256,
      g = 1), the prefill kernel at two shapes (the original one, and a
-     mixed step of one prefilling and seven decode rows), each paged launch with its split and CTA counts,
+     mixed step of one prefilling and seven decode rows), then both at the
+     reduced head dims (B = 4: the examples' fp32 serving model, 4 kv heads
+     of 32; qwen3-0.6b reduced's 2 of 32, g = 2, in bf16; head_dim 16 at 4 of
+     4 in bf16; a decode step and a chunk step of prefilling and decoding
+     rows), each paged launch with its split and CTA counts,
      its device time alone beside the time a caller sees, and its host
      time per call; bitlinear bitwise in both dtypes at eight shapes, timed
      the same way, with its three device kernels (quantizing pass, K-major
@@ -93,11 +98,11 @@ result line):
      commit (async loop, speculation, supervisor) leaves the tokens; and
      ``python -m repro_torch.launch.serve --arch mamba2-780m`` exits 0 on
      the contiguous cache;
- 12. the dense configs: (a) ``gemma-7b`` at full width and 14 of its 28
+ 12. the dense configs: (a) ``gemma-7b`` at full width and 7 of its 28
      layers (16 kv heads of 256, d_ff 24576, vocab 256000; packed, bf16)
      served through the port's ``Engine`` with the paged kernels at
      head_dim 256, phase 3's prompts x 32 greedy tokens, w2a8 counted at
-     98 launches a step and the paged kernels at 14, step times, tok/s,
+     49 launches a step and the paged kernels at 7, step times, tok/s,
      KV bytes, peak memory, a profile's idle share and the tokens the plain
      route gives alike (printed); (b) its widths at depth 2 in fp32, the
      kernel route against the plain one, teacher-forced: each layer's
@@ -109,14 +114,14 @@ result line):
      over 4096 positions: the blocked forward (block_kv 1024 and 1000)
      against the dense one, outputs and input gradients, bf16 scores
      against fp32, and each forward's peak memory;
- 13. the MoE and hybrid families: granite-moe-1b-a400m served (a) and
-     distilled (b), each at full width and 12 of its 24 layers, one full-width jamba
+ 13. the MoE and hybrid families: granite-moe-1b-a400m served (a) at full
+     width and 6 of its 24 layers and distilled (b) at 12, one full-width jamba
      (mamba, dense) block on both routes (c), jamba reduced served and
      stepped on both routes (d), and ``--arch granite-moe-1b-a400m``
      through the launcher (e);
  14. the cross-attention families: (a) ``whisper-medium`` at full width
      (24 + 24 layers, packed, bf16) served through the port's ``Engine`` on
-     the contiguous cache, 8 prompts of 8–32 tokens x 16 greedy tokens, 192
+     the contiguous cache, 8 prompts of 8–16 tokens x 8 greedy tokens, 192
      w2a8 launches a decode pass, the plain route alike but at bf16 ties;
      (b) its cross caches seeded from frames [4, 1500, 1024] through
      ``encode`` (w2a8 at M = 6,000), bitwise on both routes, 8 forced and
@@ -178,6 +183,21 @@ result line):
      launches asserted; (d) whisper-medium at two encoder and two decoder
      layers, CE and distill steps under the one-rank plan on the split
      route, bitwise the steps without one;
+ 20. the examples and the whole BitDistill workflow: (a) each of
+     ``examples_torch/*.py`` as a subprocess on the card (exit 0, its last
+     line printed; bitdistill_pipeline.py and serve_batch.py at cut step
+     counts), then serve_batch's student (head_dim 32, fp32) served in this
+     process through w2a8 and the paged kernels (counted) and on the plain
+     route, greedy tokens equal; (b) qwen3-0.6b at full width and depth
+     (bf16 compute, fp32 master weights, remat) through the port's
+     ``BitDistillPipeline``, 4 steps a stage: teacher SFT, refine, continued
+     pre-training, distillation with both kernel knobs on (392 bitlinear
+     and 3 relation_kd launches a step), the two models' accuracy,
+     ``convert_to_packed`` and the distilled student served by the port's
+     ``Engine`` (4 requests up front and 4 mid-flight x 16 greedy tokens;
+     196 w2a8 launches a step, the paged kernels counted), the plain
+     route's tokens alike but at bf16 ties; each stage's time, tok/s, the
+     weight bytes and the peak memory printed;
   then summary lines: card, kernels (JSON), and the result line last.
 
 ``python3 chip_smoke.py --phases 2,17`` runs phase 1, the named phases and
@@ -555,7 +575,7 @@ def _paged_row(what, ms, plain, lib, bd, by, grid, host):
               f"{grid['splits']} splits of {grid['split_keys']} keys, "
               f"{grid['ctas']} CTAs + {grid['merge_ctas']} merge CTAs")
     print(f"  {what}: {ms[0]:.4f} ms (plain {plain[0]:.4f}, sdpa {lib[0]:.4f}, "
-          f"bound {bd:.4f} by {by}); device alone {ms[1]:.4f} ms (plain "
+          f"bound {bd:.3g} by {by}); device alone {ms[1]:.4f} ms (plain "
           f"{plain[1]:.4f}, sdpa {lib[1]:.4f}); host {host:.1f} us per call; "
           f"{launch}", flush=True)
     return dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0], bound_ms=bd,
@@ -568,21 +588,40 @@ def _paged_row(what, ms, plain, lib, bd, by, grid, host):
 # (phase 13: head_dim 64)
 PAGED_HEADS = {"qwen3-0.6b": (8, 2, 128), "gemma-7b": (16, 1, 256),
                "granite-moe-1b-a400m": (8, 2, 64)}
+# the reduced head dims at B = 4, each timed in its path's dtype: the
+# examples' fp32 serving model (phase 20a: examples_torch/serve_batch.py),
+# qwen3-0.6b reduced's heads in bf16 and tests/test_system.py's head dim 16;
+# a decode step over depths up to the examples' ~84 positions and a chunk
+# step of prefilling and decoding rows, as serve_batch's engine launches them
+REDUCED_PAGED = {"serve-demo fp32": ((4, 1, 32), "float32"),
+                 "qwen3-0.6b reduced bf16": ((2, 2, 32), "bfloat16"),
+                 "test_system TINY bf16": ((4, 1, 16), "bfloat16")}
+REDUCED_DECODE_DEPTHS = [83, 40, 16, None]
+REDUCED_CHUNK = ([0, 32, 64, 80], [32, 32, 10, 1])
 
 
 def check_paged_decode(dev, flush, results):
     """The decode kernel at qwen3-0.6b's heads (the headline row), at
-    gemma-7b's (``gemma_row``) and at granite-moe-1b-a400m's
-    (``granite_row``)."""
+    gemma-7b's (``gemma_row``), at granite-moe-1b-a400m's (``granite_row``)
+    and at the reduced head dims (``reduced_rows``)."""
+    import torch
     row, worst = _paged_decode_shape(dev, flush, *PAGED_HEADS["qwen3-0.6b"])
     gemma, worst_g = _paged_decode_shape(dev, flush, *PAGED_HEADS["gemma-7b"])
     granite, worst_m = _paged_decode_shape(dev, flush,
                                            *PAGED_HEADS["granite-moe-1b-a400m"])
+    reduced = {}
+    for what, (heads, dt) in REDUCED_PAGED.items():
+        r, w = _paged_decode_shape(dev, flush, *heads, depths=REDUCED_DECODE_DEPTHS,
+                                   timed=getattr(torch, dt))
+        reduced[what] = dict(r, max_abs_err=w, shape=(
+            f"B=4 Hkv={heads[0]} g={heads[1]} Dh={heads[2]} bs=16 depth<=83 {dt}"))
     results["paged_attention_decode"] = dict(
         name="paged_attention_decode", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:114",
-        max_abs_err=max(worst, worst_g, worst_m),
+        max_abs_err=max([worst, worst_g, worst_m] +
+                        [r["max_abs_err"] for r in reduced.values()]),
+        reduced_rows=reduced,
         shape="B=8 Hkv=8 g=2 Dh=128 bs=16 depth<=1023 bf16", **row,
         gemma_row=dict(gemma, max_abs_err=worst_g,
                        shape="B=8 Hkv=16 g=1 Dh=256 bs=16 depth<=1023 bf16"),
@@ -590,18 +629,22 @@ def check_paged_decode(dev, flush, results):
                          shape="B=8 Hkv=8 g=2 Dh=64 bs=16 depth<=1023 bf16"))
 
 
-def _paged_decode_shape(dev, flush, hkv, g, dh):
-    """One decode launch shape: the kernel against its plain version in bf16
-    and fp32 with and without softcap, then in bf16 its times beside the
-    plain version's, SDPA's and the bound.  Returns (numbers, max error)."""
+# mixed depths up to 1024, one idx on a block boundary, one idle row
+DECODE_DEPTHS = [1023, 512, 17, 0, 300, 800, 64, None]
+
+
+def _paged_decode_shape(dev, flush, hkv, g, dh, depths=DECODE_DEPTHS, timed=None):
+    """One decode launch shape (a row per entry of ``depths``, None idle): the
+    kernel against its plain version in bf16 and fp32 with and without
+    softcap, then in ``timed`` (default bf16) its times beside the plain
+    version's, SDPA's and the bound.  Returns (numbers, max error)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.kernel import paged_attention_decode_kernel
     from repro_torch.kernels.paged_attention.ref import paged_attention_decode_ref
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, bs = 8, 16
-    # mixed depths up to 1024, one idx on a block boundary, one idle row
-    depths = [1023, 512, 17, 0, 300, 800, 64, None]
+    b, bs = len(depths), 16
+    timed = torch.bfloat16 if timed is None else timed
     live = [i for i, d in enumerate(depths) if d is not None]
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -619,7 +662,7 @@ def _paged_decode_shape(dev, flush, hkv, g, dh):
                                                   scale, softcap)
             worst = max(worst, _compare_paged("paged decode", out, k1, v1, ro, k2,
                                               v2, live, dt))
-        if dt == torch.bfloat16:
+        if dt == timed:
             ms = both_ms(lambda: paged_attention_decode_kernel(
                 q, kn, vn, k1, v1, bt, idx, scale, 0.0), flush)
             plain = both_ms(lambda: paged_attention_decode_ref(
@@ -641,7 +684,8 @@ def _paged_decode_shape(dev, flush, hkv, g, dh):
             host = host_us(lambda: paged_attention_decode_kernel(
                 q, kn, vn, k1, v1, bt, idx, scale, 0.0))
             row = _paged_row(f"paged decode B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} "
-                             f"L={L} bf16", ms, plain, lib, bd, by, grid, host)
+                             f"L={L} {str(dt)[6:]}", ms, plain, lib, bd, by, grid,
+                             host)
     return row, worst
 
 
@@ -649,7 +693,9 @@ def check_paged_prefill(dev, flush, results):
     """Two T = 32 launches: the original shape (cold starts, mid-prompt chunks
     straddling blocks, decode rows, pad rows, an idle row) and a mixed step
     as the engine launches it (one row prefilling 32 tokens at start 256,
-    seven decode rows at depths 17..990).  The first is the headline row."""
+    seven decode rows at depths 17..990).  The first is the headline row.
+    Then a chunk step at each of ``REDUCED_PAGED``'s heads (``reduced_rows``)."""
+    import torch
     starts = [0, 256, 700, 31, 990, 16, 500, None]
     lens = [32, 32, 20, 1, 1, 7, 32, 1]
     mixed_starts = [256, 17, 130, 300, 511, 640, 800, 990]
@@ -664,7 +710,16 @@ def check_paged_prefill(dev, flush, results):
     granite, granite_mixed = rows["granite-moe-1b-a400m"]
     mixed_shape = ("B=8 T=32: one row 32 tokens at 256, seven decode rows at "
                    "depths 17..990, bf16")
-    worst = max(r["max_abs_err"] for pair in rows.values() for r in pair)
+    reduced = {}
+    for what, (heads, dt) in REDUCED_PAGED.items():
+        reduced[what] = dict(
+            _paged_prefill_shape(dev, flush, *REDUCED_CHUNK, 7,
+                                 "paged prefill chunk step", heads,
+                                 timed=getattr(torch, dt)),
+            shape=f"B=4 Hkv={heads[0]} g={heads[1]} Dh={heads[2]} bs=16 T=32: "
+                  f"rows of 32, 32, 10 and 1 tokens at 0, 32, 64, 80, {dt}")
+    worst = max([r["max_abs_err"] for pair in rows.values() for r in pair] +
+                [r["max_abs_err"] for r in reduced.values()])
     results["paged_prefill_chunk"] = dict(
         row, name="paged_prefill_chunk", route="cuda",
         source="src/repro_torch/csrc/paged_prefill.cu",
@@ -676,22 +731,24 @@ def check_paged_prefill(dev, flush, results):
                        "bf16", mixed_step=dict(gemma_mixed, shape=mixed_shape)),
         granite_row=dict(granite, shape="B=8 Hkv=8 g=2 Dh=64 bs=16 T=32 "
                          "start<=990 bf16",
-                         mixed_step=dict(granite_mixed, shape=mixed_shape)))
+                         mixed_step=dict(granite_mixed, shape=mixed_shape)),
+        reduced_rows=reduced)
 
 
-def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads):
+def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads, timed=None):
     """One prefill launch shape at ``heads`` = (kv heads, g, head_dim), rows
     with start None idle: the kernel
     against its plain version in bf16 and fp32 with and without softcap
     (valid rows of live rows; pools bitwise outside the trash block), then
-    in bf16 its time, the plain version's, SDPA's over the pre-gathered
-    window, and the bound.  Returns the numbers."""
+    in ``timed`` (default bf16) its time, the plain version's, SDPA's over
+    the pre-gathered window, and the bound.  Returns the numbers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_prefill.kernel import paged_prefill_chunk_kernel
     from repro_torch.kernels.paged_prefill.ref import paged_prefill_chunk_ref
     gen = torch.Generator(device=dev).manual_seed(seed)
-    (hkv, g, dh), b, bs, t = heads, 8, 16, 32
+    (hkv, g, dh), b, bs, t = heads, len(starts), 16, 32
+    timed = torch.bfloat16 if timed is None else timed
     live = [i for i, s in enumerate(starts) if s is not None]
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -713,7 +770,7 @@ def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads):
                                                scale, softcap)
             worst = max(worst, _compare_paged(tag, out, k1, v1, ro, k2, v2, live,
                                               dt, rows_valid=valid))
-        if dt == torch.bfloat16:
+        if dt == timed:
             ms = both_ms(lambda: paged_prefill_chunk_kernel(
                 q, kc, vc, k1, v1, bt, start, ln, scale, 0.0), flush)
             plain = both_ms(lambda: paged_prefill_chunk_ref(
@@ -737,7 +794,8 @@ def _paged_prefill_shape(dev, flush, starts, lens, seed, tag, heads):
             host = host_us(lambda: paged_prefill_chunk_kernel(
                 q, kc, vc, k1, v1, bt, start, ln, scale, 0.0))
             row = _paged_row(f"{tag} B={b} Hkv={hkv} g={g} Dh={dh} bs={bs} T={t} "
-                             f"L={L} bf16", ms, plain, lib, bd, by, grid, host)
+                             f"L={L} {str(dt)[6:]}", ms, plain, lib, bd, by, grid,
+                             host)
     return dict(row, max_abs_err=worst)
 
 
@@ -2891,9 +2949,10 @@ def _common_prefix(a, b):
     return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
 
-# 12a's and 13a's depths: half of gemma-7b's 28 and granite's 24 layers,
-# cut to keep the full run inside its time limit (12c serves gemma whole)
-GEMMA_SERVE_LAYERS, GRANITE_SERVE_LAYERS = 14, 12
+# 12a's and 13a's depths: a quarter of gemma-7b's 28 and granite's 24
+# layers, cut to keep the full run inside its time limit (12c serves gemma
+# whole)
+GEMMA_SERVE_LAYERS, GRANITE_SERVE_LAYERS = 7, 6
 
 
 def serve_gemma(dev, out_dir):
@@ -3634,11 +3693,12 @@ def jamba_reduced(dev):
 # -- phase 14: the cross-attention families -----------------------------------------
 
 WHISPER, VISION = "whisper-medium", "llama-3.2-vision-11b"
-# 14a and 14d: the engine's config, 8 prompts of 8..32 tokens x 16 greedy
+# 14a and 14d: the engine's config, 8 prompts of 8..16 tokens x 8 greedy
 # tokens (a decode pass per prompt and greedy token on the contiguous cache:
-# the lengths set the plain route's time, ~1 s a pass for llama-vision)
+# the lengths set the plain route's time, ~1 s a pass for llama-vision; cut
+# from 8..32 x 16 to keep the full run inside its time limit)
 CROSS_SERVE = dict(max_batch=8, max_len=128, prefill_chunk=16, cache_dtype="bfloat16")
-CROSS_TOKENS = 16
+CROSS_TOKENS = 8
 # 14b and 14d at the model level: rows of audio or image memory, and the
 # prompt tokens teacher-forced before as many greedy ones
 MEMORY_ROWS, FORCED = 4, 8
@@ -3647,10 +3707,10 @@ CROSS_TRAIN_BATCH, CROSS_TRAIN_SEQ = 4, 256
 
 
 def _cross_prompts(vocab: int, seed: int = 14):
-    """Eight prompts of 8..32 tokens."""
+    """Eight prompts of 8..16 tokens."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(8, 33, 8)]
+    return [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(8, 17, 8)]
 
 
 def _w2a8_per_pass(cfg) -> int:
@@ -3707,7 +3767,7 @@ def _ties_only(what, want, got, gaps_at):
 def serve_cross(dev, out_dir, name, per_pass, tag):
     """14a / 14d: ``name`` at full width and depth, packed ternary weights
     from the port's seeded init, bf16, through the port's ``Engine``: 8
-    prompts of 8..32 tokens x 16 greedy tokens at ``CROSS_SERVE``.  Gates:
+    prompts of 8..16 tokens x 8 greedy tokens at ``CROSS_SERVE``.  Gates:
     the engine picks the contiguous cache (the decoder's pattern has cross
     layers), w2a8 counts ``per_pass`` launches a decode pass (reckoned from
     the config by ``_w2a8_per_pass`` too) and the paged kernels none, every
@@ -5768,6 +5828,271 @@ def cross_split(dev, out_dir, card, results):
     return paths, out
 
 
+# -- phase 20: the examples and the BitDistill workflow on the card -----------------
+
+# the examples' command lines in 20a: bitdistill_pipeline.py's SFT steps
+# (its continued pre-training takes max(40, steps // 4)) and serve_batch.py's
+# teacher and distillation steps, cut from 250 and 200 to keep 20a short
+EXAMPLE_RUNS = (("quickstart.py", ()), ("long_context_ssm.py", ()),
+                ("bitdistill_pipeline.py", ("--steps", "8")),
+                ("serve_batch.py", ("--steps", "8")))
+# the in-process student's steps: after 20 it emits EOS at every position,
+# which would leave the two routes' greedy parity nothing to tell apart
+SERVE_DEMO_STEPS = 2
+# 20b: each stage's steps, at batch 8 x 256 on cnndm-syn; the accuracy's
+# batches, on a classification task
+WORKFLOW_STEPS, WORKFLOW_SEQ, WORKFLOW_EVAL, EVAL_TASK = 4, 256, 2, "mnli-syn"
+
+
+def _example(name: str):
+    """``examples_torch/<name>`` loaded by its path (no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_" + name[:-3], ROOT / "examples_torch" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _serving_counters():
+    from repro_torch.kernels.paged_attention import kernel as pa_k
+    from repro_torch.kernels.paged_prefill import kernel as pp_k
+    from repro_torch.kernels.w2a8_gemv import kernel as w2_k
+    return (w2_k.launches, pa_k.launches, pp_k.launches)
+
+
+def examples_on_card(dev, out_dir):
+    """20a: the four ``examples_torch/*.py`` as subprocesses on the card, side
+    by side (each must exit 0 and print its last line), then serve_batch's
+    functions in this process: its student distilled ``SERVE_DEMO_STEPS``
+    steps, served through the paged kernels at head_dim 32 and w2a8 (their
+    counters reset just before the serve and read after), and served again
+    on the plain route (``attn_impl="gather"``, ``use_kernel=False``): fp32,
+    so the greedy tokens must be equal.
+    Returns the serve's launches and the summary."""
+    import os
+    import torch
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    summary = {}
+    # the four side by side (each process spends most of its time starting
+    # up), each to its own log; every one waited for or killed
+    runs = []
+    try:
+        for name, args in EXAMPLE_RUNS:
+            log = out_dir / f"example_{name[:-3]}.log"
+            with open(log, "w") as fh:
+                runs.append((name, args, log, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples_torch" / name), *args],
+                    env=env, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT)))
+        for name, args, log, t0, proc in runs:
+            rc = proc.wait(timeout=300)
+            secs = time.perf_counter() - t0
+            text = log.read_text()
+            lines = text.strip().splitlines()
+            if rc != 0 or not lines:
+                fail(f"examples_torch/{name} {' '.join(args)} exited {rc}:\n"
+                     f"{text[-3000:]}")
+            print(f"  examples_torch/{name} {' '.join(args)}: exit 0, done at "
+                  f"{secs:.1f} s; last line: {lines[-1]}", flush=True)
+            summary[name] = dict(args=list(args), seconds=secs, last_line=lines[-1],
+                                 lines=lines)
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ex = _example("serve_batch.py")
+    cfg = ex.CFG
+    t0 = time.perf_counter()
+    qat_cfg, student = ex.distill_student(cfg, dev, SERVE_DEMO_STEPS)
+    print(f"  serve_batch in process: {cfg.name} (head_dim {cfg.head_dim}, fp32) "
+          f"taught and distilled {SERVE_DEMO_STEPS} steps each in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = ex.cnndm_prompts()
+    counters = _serving_counters()
+    for c in counters:
+        c.reset()
+    kern = ex.serve(qat_cfg, student, prompts, ignore_eos=True)
+    launches = {c.name: c.count for c in counters}
+    if kern["attn_impl"] != "fused" or min(launches.values()) < 1:
+        fail(f"serve_batch on the card: attn_impl {kern['attn_impl']!r}, "
+             f"launches {launches}")
+    if launches["w2a8_gemv"] != 7 * cfg.n_layers * kern["steps"]:
+        fail(f"serve_batch: {launches['w2a8_gemv']} w2a8 launches in "
+             f"{kern['steps']} steps, not {7 * cfg.n_layers} a step")
+    plain = ex.serve(qat_cfg, student, prompts, use_kernel=False, attn_impl="gather",
+                     ignore_eos=True)
+    if plain["outputs"] != kern["outputs"]:
+        fail(f"serve_batch: the kernel route's greedy tokens {kern['outputs']} "
+             f"differ from the plain route's {plain['outputs']}")
+    distinct = len({t for toks in kern["outputs"] for t in toks})
+    print(f"  serve_batch kernel route: {launches} in {kern['steps']} steps, "
+          f"{kern['tokens']} tokens, {kern['tok_per_s']:.1f} tok/s; plain route "
+          f"{plain['tok_per_s']:.1f} tok/s; greedy tokens equal "
+          f"({plain['tokens']} of {kern['tokens']}, {distinct} distinct)", flush=True)
+    drop = ("packed_cfg", "packed_model")
+    summary["serve_batch_in_process"] = dict(
+        launches=launches, kernel={k: v for k, v in kern.items() if k not in drop},
+        plain={k: v for k, v in plain.items() if k not in drop})
+    del student, kern, plain
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def workflow_full_width(dev, out_dir):
+    """20b: the BitDistill workflow on qwen3-0.6b at full width and depth
+    (bf16 compute, fp32 master weights, remat) through the port's
+    ``BitDistillPipeline`` on cnndm-syn, ``WORKFLOW_STEPS`` steps a stage at
+    8 x 256: teacher SFT from a seeded init, refine, continued pre-training,
+    distillation with both kernel knobs on (392 bitlinear and 3 relation_kd
+    launches a step, asserted), the teacher's and the student's accuracy
+    (on ``EVAL_TASK``: cnndm-syn has no answer to classify),
+    ``convert_to_packed``, and the student served by the port's ``Engine``
+    (serve_batch's ``serve``: 4 requests up front, 4 after the first step,
+    16 greedy tokens each, bf16 cache; 196 w2a8 launches a step, the paged
+    kernels counted) and again on the plain route, alike but at bf16 ties
+    (the top-2 gap printed there).  No NaN in any stage.  Returns the
+    paths' launches and the summary."""
+    import dataclasses
+    import torch
+    from repro_torch.core.distill import DistillConfig
+    from repro_torch.core.pipeline import BitDistillPipeline, PipelineConfig
+    from repro_torch.kernels.bitlinear import kernel as bl_k
+    from repro_torch.kernels.relation_kd import kernel as rk_k
+    from repro_torch.models import get_config
+
+    class KernelPipeline(BitDistillPipeline):
+        # the student on the bitlinear kernel (the pipeline's own QAT
+        # config leaves it off, as JAX's)
+        def student_config(self):
+            cfg = super().student_config()
+            return cfg.with_quant(dataclasses.replace(cfg.quant, use_kernel=True))
+
+    ex = _example("serve_batch.py")
+    cfg = get_config("qwen3-0.6b").replace(compute_dtype="bfloat16")
+    if not (cfg.remat and cfg.param_dtype == "float32" and cfg.n_layers == 28):
+        fail(f"unexpected qwen3-0.6b config: {cfg}")
+    n = WORKFLOW_STEPS
+    pcfg = PipelineConfig(task="cnndm-syn", seq_len=WORKFLOW_SEQ, batch_size=8,
+                          ct_steps=n, sft_steps=n, warmup=1, log_every=1,
+                          eval_batches=WORKFLOW_EVAL,
+                          distill=DistillConfig(use_kernel=True))
+    pipe = KernelPipeline(cfg, pcfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    times, stages = {}, {}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t0
+        return out
+
+    def finite(tag, res):
+        vals = [res.final_loss] + [v for h in res.metrics_history for v in h.values()]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"20b {tag}: a non-finite metric in {res.metrics_history}")
+        stages[tag] = dict(steps=res.steps, seconds=res.seconds,
+                           first=res.metrics_history[0], final_loss=res.final_loss)
+
+    _, tres = timed("train_teacher", lambda: pipe.train_teacher(seed=0))
+    finite("train_teacher", tres)
+    teacher = pipe.teacher
+    student = timed("refine", lambda: pipe.refine(teacher))
+    bl_k.launches.reset()
+    student, ctres = timed("continue_pretrain", lambda: pipe.continue_pretrain(student))
+    finite("continue_pretrain", ctres)
+    per_step = 2 * 7 * cfg.n_layers              # forward + remat recompute
+    if bl_k.launches.count != per_step * n:
+        fail(f"20b continue_pretrain: {bl_k.launches.count} bitlinear launches "
+             f"in {n} steps, not {per_step} a step")
+    counters = (bl_k.launches, rk_k.launches)
+    for c in counters:
+        c.reset()
+    student, dres = timed("distill_finetune",
+                          lambda: pipe.distill_finetune(student, teacher))
+    finite("distill_finetune", dres)
+    distill = {c.name: c.count for c in counters}
+    if distill != {"bitlinear": per_step * n, "relation_kd": 3 * n}:
+        fail(f"20b distill_finetune: launches {distill} in {n} steps, not "
+             f"({per_step}, 3) a step")
+    # eval_accuracy reads a classification task's answer position, which
+    # cnndm-syn (a summarization task) has not, in JAX's pipeline too: the
+    # two models are read on mnli-syn (phase 5's task) by the same pipeline
+    evals = KernelPipeline(cfg, dataclasses.replace(pcfg, task=EVAL_TASK), device=dev)
+    t_acc = timed("eval_teacher", lambda: evals.eval_accuracy(teacher, quantized=False))
+    s_acc = timed("eval_student", lambda: evals.eval_accuracy(student, quantized=True))
+    for tag, acc in (("teacher", t_acc), ("student", s_acc)):
+        if not 0.0 <= acc <= 1.0:
+            fail(f"20b eval_accuracy of the {tag}: {acc}")
+    del teacher, pipe, evals
+    torch.cuda.empty_cache()
+    prompts = ex.cnndm_prompts()
+    scfg = student.cfg
+    counters = _serving_counters()
+    for c in counters:
+        c.reset()
+    kern = timed("serve", lambda: ex.serve(scfg, student, prompts, max_tokens=16,
+                                           cache_dtype="bfloat16", ignore_eos=True))
+    serve = {c.name: c.count for c in counters}
+    w2a8_per_step = 7 * cfg.n_layers
+    if kern["attn_impl"] != "fused" or min(serve.values()) < 1 \
+            or serve["w2a8_gemv"] != w2a8_per_step * kern["steps"]:
+        fail(f"20b serve: attn_impl {kern['attn_impl']!r}, launches {serve} in "
+             f"{kern['steps']} steps (w2a8 {w2a8_per_step} a step)")
+    for r, toks in enumerate(kern["outputs"]):
+        if not toks or not all(0 <= t < cfg.vocab for t in toks):
+            fail(f"20b serve: request {r} gave {toks}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kmodel = kern.pop("packed_model")
+    del kmodel
+    plain = ex.serve(scfg, student, prompts, max_tokens=16, use_kernel=False,
+                     attn_impl="gather", cache_dtype="bfloat16", ignore_eos=True)
+    pmodel = plain.pop("packed_model")
+    diffs = _ties_only("20b serve", plain["outputs"], kern["outputs"],
+                       lambda r, j: tuple(v[j] for v in _top2(
+                           pmodel, prompts[r], plain["outputs"][r], dev)))
+    same = sum(a == b for x, y in zip(kern["outputs"], plain["outputs"])
+               for a, b in zip(x, y))
+    print(f"  20b qwen3-0.6b ({cfg.n_layers} layers, bf16, remat), {n} steps a "
+          f"stage at 8 x {WORKFLOW_SEQ} on cnndm-syn: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; accuracy teacher {t_acc:.3f}, student {s_acc:.3f}; distill "
+          f"launches {distill} ({per_step} bitlinear and 3 relation_kd a step); "
+          f"weight bytes fp32 {kern['qat_bytes'] / 2**30:.3f} GiB -> packed "
+          f"{kern['packed_bytes'] / 2**30:.3f} GiB; served {kern['requests']} "
+          f"requests / {kern['tokens']} tokens, {kern['tok_per_s']:.1f} tok/s "
+          f"(plain route {plain['tok_per_s']:.1f}), serving launches {serve} in "
+          f"{kern['steps']} steps; plain route's tokens alike {same} of "
+          f"{kern['tokens']} ({len({t for o in kern['outputs'] for t in o})} "
+          "distinct)" + (f", parting at bf16 ties (row, token, gap, ulp) "
+                                 f"{diffs}" if diffs else "")
+          + f"; peak memory {peak:.2f} GiB", flush=True)
+    summary = dict(steps=n, seq=WORKFLOW_SEQ, seconds=times, stages=stages,
+                   accuracy=dict(teacher=t_acc, student=s_acc), distill=distill,
+                   serve=serve, peak_gib=peak, tie_diffs=diffs,
+                   kernel={k: v for k, v in kern.items() if k != "packed_cfg"},
+                   plain={k: v for k, v in plain.items() if k != "packed_cfg"})
+    del student, pmodel
+    torch.cuda.empty_cache()
+    return ({"BitDistill workflow qwen3-0.6b, distill (20b)": distill,
+             "BitDistill workflow qwen3-0.6b, serve (20b)": serve}, summary)
+
+
+def examples_and_workflow(dev, out_dir, by_path):
+    """Phase 20: 20a and 20b, their summaries in ``smoke_examples.json``."""
+    t0 = time.perf_counter()
+    by_path["examples serve_batch (20a)"], ex = examples_on_card(dev, out_dir)
+    t1 = time.perf_counter()
+    print(f"  20a: {t1 - t0:.1f} s", flush=True)
+    paths, wf = workflow_full_width(dev, out_dir)
+    by_path.update(paths)
+    print(f"  20b: {time.perf_counter() - t1:.1f} s", flush=True)
+    (out_dir / "smoke_examples.json").write_text(json.dumps(
+        {"20a": ex, "20b": wf}, indent=1, default=str))
+
+
 def kernels_of(root: Path) -> None:
     """``python3 chip_smoke.py --kernels-of DIR``: phase 2's w2a8, paged,
     bitlinear, relation_kd and ssd_scan checks and timings against the package of the
@@ -5810,7 +6135,7 @@ def serving_of(root: Path) -> None:
 # phases --phases may name (1, the card and the build, always runs), and
 # what each needs run before it: 10b runs at the end of phase 5, and the
 # kernels line reads phase 2's checks
-PHASES = tuple(range(2, 20))
+PHASES = tuple(range(2, 21))
 NEEDS = {10: (5,)}
 
 
@@ -5879,8 +6204,12 @@ def main() -> None:
     gemm_line = (f"bitlinear GEMM: {gemm_info()}; w2a8: {w2a8_info()} (smem_bytes: "
                  "dynamic shared memory per CTA); ptxas: " + "; ".join(
                      f"{fn}: {use}" for fn, use in _kernel_ptxas(info.log)))
-    paged_line = ("paged kernels at head_dim 256 (gemma-7b), ptxas: " + "; ".join(
-        f"{fn}: {use}" for fn, use in _kernel_ptxas(info.log, _paged_instance)))
+    paged_line = "\n".join(
+        f"paged kernels at head_dim {dh} ({who}), ptxas: " + "; ".join(
+            f"{fn}: {use}" for fn, use in _kernel_ptxas(
+                info.log, lambda line, dh=dh: _paged_instance(line, dh)))
+        for dh, who in ((256, "gemma-7b"), (32, "the reduced configs"),
+                        (16, "tests/test_system.py's")))
     (out_dir / "ptxas.txt").write_text(info.log + gemm_line + "\n" + paged_line + "\n")
     print(gemm_line, flush=True)
     print(paged_line, flush=True)
@@ -6062,6 +6391,15 @@ def main() -> None:
               "decode step over emulated ranks, whisper's steps under a plan)")
         paths19, _ = cross_split(dev, out_dir, card, results)
         by_path.update(paths19)
+    # 20. the examples on the card (20a: each as a subprocess, then
+    # serve_batch's serve with the serving kernels' counters reset just
+    # before it and read after) and the whole BitDistill workflow at full
+    # width (20b: the distill stage's and the serve's counters likewise)
+    if run(20):
+        phase("phase 20: the examples (examples_torch/) and the BitDistill workflow "
+              "teacher -> refine -> CT -> distill -> eval -> pack -> serve, "
+              "qwen3-0.6b full width")
+        examples_and_workflow(dev, out_dir, by_path)
 
     # summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

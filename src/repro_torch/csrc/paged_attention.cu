@@ -30,9 +30,19 @@ paged_decode_kernel(const PagedArgs<TQ, TC> a, const PagedProblem p) {
 }
 
 template <typename TQ, typename TC, int DH>
-__global__ void __launch_bounds__(PA_MERGE_ROWS * DH / 8)
+__global__ void __launch_bounds__(pa_merge_rows(DH) * DH / 8)
 paged_decode_kernel_merge(const PagedArgs<TQ, TC> a, const PagedProblem p) {
   paged_merge<TQ, TC, DH>(a, p);
+}
+
+// one head dim's pair of kernels; `allowed` is its shared-memory opt-in
+template <typename TQ, typename TC, int DH>
+static int launch_dh(const PagedArgs<TQ, TC>& a, const PagedProblem& p,
+                     cudaStream_t stream) {
+  static size_t allowed = 0;
+  return paged_launch_dh<TQ, TC, DH>(paged_decode_kernel<TQ, TC, DH>,
+                                     paged_decode_kernel_merge<TQ, TC, DH>,
+                                     &allowed, a, p, stream);
 }
 
 template <typename TQ, typename TC>
@@ -44,22 +54,14 @@ static int launch(const void* q, const void* kn, const void* vn, void* kpool,
                             (TC*)kpool, (TC*)vpool, (const int*)bt,
                             (const int*)idx, nullptr, (TC*)out,
                             ws_acc, ws_mz};
-  if (p.Dh == 64) {
-    static size_t allowed = 0;
-    return paged_launch_dh<TQ, TC, 64>(paged_decode_kernel<TQ, TC, 64>,
-                                       paged_decode_kernel_merge<TQ, TC, 64>,
-                                       &allowed, a, p, stream);
+  switch (p.Dh) {
+    case 16: return launch_dh<TQ, TC, 16>(a, p, stream);
+    case 32: return launch_dh<TQ, TC, 32>(a, p, stream);
+    case 64: return launch_dh<TQ, TC, 64>(a, p, stream);
+    case 128: return launch_dh<TQ, TC, 128>(a, p, stream);
+    case 256: return launch_dh<TQ, TC, 256>(a, p, stream);
   }
-  if (p.Dh == 128) {
-    static size_t allowed = 0;
-    return paged_launch_dh<TQ, TC, 128>(paged_decode_kernel<TQ, TC, 128>,
-                                        paged_decode_kernel_merge<TQ, TC, 128>,
-                                        &allowed, a, p, stream);
-  }
-  static size_t allowed = 0;   // 256: paged_plan takes no other head dim
-  return paged_launch_dh<TQ, TC, 256>(paged_decode_kernel<TQ, TC, 256>,
-                                      paged_decode_kernel_merge<TQ, TC, 256>,
-                                      &allowed, a, p, stream);
+  return (int)cudaErrorInvalidValue;   // paged_plan takes no other head dim
 }
 
 // The plan of a launch, for the wrappers (kernels/paged_attention/kernel.py
@@ -76,7 +78,7 @@ extern "C" int paged_plan_query(int B, int Hkv, int R, int T, int Dh, int bs,
   out[2] = p.NRG;
   out[3] = paged_workspace_floats(p);
   out[4] = (long long)p.Hkv * p.B * p.NS * p.NRG;
-  out[5] = p.NS > 1 ? (long long)p.Hkv * p.B * p.NRG * PA_MERGE_CHUNKS : 0;
+  out[5] = p.NS > 1 ? (long long)p.Hkv * p.B * p.NRG * pa_merge_chunks(p.Dh) : 0;
   return 0;
 }
 

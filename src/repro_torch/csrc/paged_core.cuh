@@ -46,15 +46,20 @@
 //    the four lanes that share a row.  Other dtype pairs (fp32 pools, mixed)
 //    compute the same register tiles with fp32 CUDA-core FMAs from shared
 //    memory (KT = 32), keeping the fp32 tolerance.
-//  * Head dims 64, 128 and 256.  At 256 a thread's accumulators alone are
-//    DH/8 x 4 = 128 fp32 registers, and holding the Q fragments as well
+//  * Head dims 16, 32, 64, 128 and 256.  At 256 a thread's accumulators
+//    alone are DH/8 x 4 = 128 fp32 registers, and holding the Q fragments as well
 //    (DH/16 x 4 = 64 more) would leave too few of the 255 for the tile's
 //    scores and addresses, so the tensor-core path reloads each Q fragment
 //    from shared memory (ldmatrix, Q stays staged for the whole walk) next
 //    to the K fragment it meets, instead of holding them all (kHoldQ).  The
 //    shared memory stays under the 227 KB opt-in: bf16 Q 32 KB + ring
 //    128 KB, fp32 Q 65 KB + ring 130 KB, plus the table slice.  A decode
-//    row with g = 1 (MHA) fills one of the 16 rows of its m16 tile.
+//    row with g = 1 (MHA) fills one of the 16 rows of its m16 tile.  At 32
+//    and 16 a bf16 key row holds 4 or 2 of the swizzle's 16-byte chunks
+//    (pa_swz), DH = 16 has one k-step of Q·Kᵀ, not a pair, and a merge CTA
+//    takes 16 rows so that it stays one whole warp (pa_merge_rows).  These
+//    widths are the reduced configs' and only need to be right: the same
+//    tiles, with most of a thread's registers unused.
 //
 // Reads and writes across CTAs.  The pool writes of a row are done once, by
 // the CTA of row group 0 and of the split that holds position start (the
@@ -78,9 +83,12 @@ constexpr int PA_THREADS = 128;   // 4 warps
 constexpr int PA_WARPS = PA_THREADS / 32;
 constexpr int PA_ROWS = 64;       // query rows per row group: 4 m16 tiles
 constexpr int PA_MAX_SPLITS = 16;
-constexpr int PA_MERGE_ROWS = 8;                   // query rows per merge CTA
-constexpr int PA_MERGE_CHUNKS = PA_ROWS / PA_MERGE_ROWS;
 constexpr float PA_NEG = -2.0e38f;
+
+// query rows per merge CTA: a row takes DH/8 threads (8 elements each), 8
+// rows a CTA, 16 at DH = 16 so that the CTA is one whole warp
+__host__ __device__ constexpr int pa_merge_rows(int dh) { return dh >= 32 ? 8 : 16; }
+__host__ __device__ constexpr int pa_merge_chunks(int dh) { return PA_ROWS / pa_merge_rows(dh); }
 
 struct PagedProblem {
   int B, Hkv, R, T, g, Dh, bs, L;
@@ -130,6 +138,18 @@ struct PagedShape {
   }
   static size_t bytes(int qr, int ntab) { return tab_offset(qr) + sizeof(int) * (size_t)ntab; }
 };
+
+// The XOR swizzle of a bf16 tile of DH columns: the physical 16-byte chunk
+// of chunk c in row r, so that the 8 rows an ldmatrix reads at one chunk
+// fall in distinct banks.  The pattern permutes the W = min(8, DH/8) chunks
+// of a row and changes once per 128-byte line (8/W rows): c ^ (r & 7) for
+// DH >= 64; at 32 and 16 (4 and 2 chunks a row) r & 7 would address past
+// the row, so the line index is masked to the row's chunks.
+template <int DH>
+__host__ __device__ constexpr int pa_swz(int r, int c) {
+  constexpr int W = DH / 8 < 8 ? DH / 8 : 8;
+  return c ^ ((r / (8 / W)) & (W - 1));
+}
 
 // -- small PTX helpers ---------------------------------------------------------
 
@@ -274,7 +294,7 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
     for (int e = tid; e < p.QR * QC; e += PA_THREADS) {
       const int r = e / QC, c = e - r * QC;
       const bool v = r < nrow;
-      pa_cp16(Qs + r * DH + ((c ^ (r & 7)) << 3), qb + (v ? (size_t)r * DH + c * 8 : 0), v);
+      pa_cp16(Qs + r * DH + (pa_swz<DH>(r, c) << 3), qb + (v ? (size_t)r * DH + c * 8 : 0), v);
     }
   } else {
     float* Qs = reinterpret_cast<float*>(pa_sm);
@@ -289,7 +309,7 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
   TC* ring = reinterpret_cast<TC*>(pa_sm + S::q_bytes(p.QR));
   // element offset of 16-byte chunk c of key row i in a K or V tile
   auto kv_off = [](int i, int c) -> int {
-    if constexpr (S::kMma) return i * DH + ((c ^ (i & 7)) << 3);
+    if constexpr (S::kMma) return i * DH + (pa_swz<DH>(i, c) << 3);
     else return i * S::KLD + c * EPC;
   };
   const int n_res_tiles = (n_res + KT - 1) / KT;
@@ -360,7 +380,7 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
   const __nv_bfloat16* Qsm = reinterpret_cast<const __nv_bfloat16*>(pa_sm);
   auto q_frag = [&](uint32_t (&r)[4], int kk) {
     const int c = 2 * kk + qcol;
-    pa_ldsm4(r, Qsm + qrow * DH + ((c ^ (qrow & 7)) << 3));
+    pa_ldsm4(r, Qsm + qrow * DH + (pa_swz<DH>(qrow, c) << 3));
   };
 
   load_tile(0, 0);
@@ -413,7 +433,8 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
           for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
         if constexpr (S::kMma && S::kHoldQ) {
           // two accumulators per n-tile (even and odd k-steps): four
-          // independent mma chains instead of two
+          // independent mma chains instead of two; DH = 16 has one k-step
+          constexpr int KS = DH / 16;
           float sd[2][4];
 #pragma unroll
           for (int n = 0; n < 2; ++n)
@@ -421,7 +442,7 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
             for (int e = 0; e < 4; ++e) sd[n][e] = 0.f;
           const int kr = c16 * 16 + (lane & 7) + ((lane >> 4) << 3);
 #pragma unroll
-          for (int kk = 0; kk < DH / 16; kk += 2) {
+          for (int kk = 0; kk + 1 < KS; kk += 2) {
             uint32_t kb[4], kd[4];
             pa_ldsm4(kb, Kt + kv_off(kr, 2 * kk + ((lane >> 3) & 1)));
             pa_ldsm4(kd, Kt + kv_off(kr, 2 * kk + 2 + ((lane >> 3) & 1)));
@@ -429,6 +450,12 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
             pa_mma(sc[1], qf[kk], kb[2], kb[3]);
             pa_mma(sd[0], qf[kk + 1], kd[0], kd[1]);
             pa_mma(sd[1], qf[kk + 1], kd[2], kd[3]);
+          }
+          if constexpr (KS % 2) {
+            uint32_t kb[4];
+            pa_ldsm4(kb, Kt + kv_off(kr, 2 * (KS - 1) + ((lane >> 3) & 1)));
+            pa_mma(sc[0], qf[KS - 1], kb[0], kb[1]);
+            pa_mma(sc[1], qf[KS - 1], kb[2], kb[3]);
           }
 #pragma unroll
           for (int n = 0; n < 2; ++n)
@@ -621,17 +648,18 @@ __device__ __forceinline__ void paged_attend(const PagedArgs<TQ, TC>& a,
   }
 }
 
-// The splits' partials of one (row, kv-head) combined in split order, 8
-// query rows per CTA: each thread weighs its row's splits itself (e^(m - M)
-// over the splits with z > 0; splits past the row's depth carry z = 0) and
-// combines 8 head-dim elements of that row.
+// The splits' partials of one (row, kv-head) combined in split order,
+// pa_merge_rows(DH) query rows per CTA: each thread weighs its row's splits
+// itself (e^(m - M) over the splits with z > 0; splits past the row's depth
+// carry z = 0) and combines 8 head-dim elements of that row.
 template <typename TQ, typename TC, int DH>
 __device__ __forceinline__ void paged_merge(const PagedArgs<TQ, TC>& a,
                                             const PagedProblem& p) {
   constexpr int TPR = DH / 8;                          // threads per row
+  constexpr int MR = pa_merge_rows(DH), MC = pa_merge_chunks(DH);
   const int h = blockIdx.x, b = blockIdx.y;
-  const int rg = blockIdx.z / PA_MERGE_CHUNKS;
-  const int i = (blockIdx.z - rg * PA_MERGE_CHUNKS) * PA_MERGE_ROWS + threadIdx.x / TPR;
+  const int rg = blockIdx.z / MC;
+  const int i = (blockIdx.z - rg * MC) * MR + threadIdx.x / TPR;
   const int d = (threadIdx.x % TPR) * 8;
   const int nl = p.decode ? 1 : min(a.lens[b], p.T);
   if (i >= min(PA_ROWS, nl * p.g - rg * PA_ROWS)) return;
@@ -680,7 +708,7 @@ static int paged_launch_dh(KA attend, KM merge, size_t* allowed,
   attend<<<dim3(p.Hkv, p.B, p.NS * p.NRG), PA_THREADS, smem, stream>>>(a, p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.NS == 1) return (int)err;
-  merge<<<dim3(p.Hkv, p.B, p.NRG * PA_MERGE_CHUNKS), PA_MERGE_ROWS * DH / 8, 0,
+  merge<<<dim3(p.Hkv, p.B, p.NRG * pa_merge_chunks(DH)), pa_merge_rows(DH) * DH / 8, 0,
           stream>>>(a, p);
   return (int)cudaGetLastError();
 }
@@ -694,7 +722,7 @@ static int paged_launch_dh(KA attend, KM merge, size_t* allowed,
 // plan through paged_plan_query (paged_attention.cu).
 static inline bool paged_plan(PagedProblem& p) {
   if (p.B < 1 || p.R < 1 || p.T < 1 || p.bs < 1 || p.L < 1) return false;
-  if (p.Dh != 64 && p.Dh != 128 && p.Dh != 256) return false;
+  if (p.Dh != 16 && p.Dh != 32 && p.Dh != 64 && p.Dh != 128 && p.Dh != 256) return false;
   const long long keys = (long long)p.L * p.bs;
   const long long grown = (keys + PA_MAX_SPLITS * 64 - 1) / (PA_MAX_SPLITS * 64) * 64;
   const long long base = p.T == 1 ? 128 : 256;
@@ -703,7 +731,7 @@ static inline bool paged_plan(PagedProblem& p) {
   p.NRG = (p.R + PA_ROWS - 1) / PA_ROWS;
   p.ntab = (p.SK - 1) / p.bs + 2;
   p.QR = p.R < PA_ROWS ? (p.R + 15) / 16 * 16 : PA_ROWS;
-  return p.NRG * p.NS <= 65535 && p.NRG * PA_MERGE_CHUNKS <= 65535;
+  return p.NRG * p.NS <= 65535 && p.NRG * pa_merge_chunks(p.Dh) <= 65535;
 }
 
 // fp32 floats of the splits' partials: acc [B, Hkv, NRG, NS, 64, Dh], then

@@ -31,9 +31,19 @@ paged_prefill_kernel(const PagedArgs<TQ, TC> a, const PagedProblem p) {
 }
 
 template <typename TQ, typename TC, int DH>
-__global__ void __launch_bounds__(PA_MERGE_ROWS * DH / 8)
+__global__ void __launch_bounds__(pa_merge_rows(DH) * DH / 8)
 paged_prefill_kernel_merge(const PagedArgs<TQ, TC> a, const PagedProblem p) {
   paged_merge<TQ, TC, DH>(a, p);
+}
+
+// one head dim's pair of kernels; `allowed` is its shared-memory opt-in
+template <typename TQ, typename TC, int DH>
+static int launch_dh(const PagedArgs<TQ, TC>& a, const PagedProblem& p,
+                     cudaStream_t stream) {
+  static size_t allowed = 0;
+  return paged_launch_dh<TQ, TC, DH>(paged_prefill_kernel<TQ, TC, DH>,
+                                     paged_prefill_kernel_merge<TQ, TC, DH>,
+                                     &allowed, a, p, stream);
 }
 
 template <typename TQ, typename TC>
@@ -45,22 +55,14 @@ static int launch(const void* q, const void* kc, const void* vc, void* kpool,
                             (TC*)kpool, (TC*)vpool, (const int*)bt,
                             (const int*)start, (const int*)lens, (TC*)out,
                             ws_acc, ws_mz};
-  if (p.Dh == 64) {
-    static size_t allowed = 0;
-    return paged_launch_dh<TQ, TC, 64>(paged_prefill_kernel<TQ, TC, 64>,
-                                       paged_prefill_kernel_merge<TQ, TC, 64>,
-                                       &allowed, a, p, stream);
+  switch (p.Dh) {
+    case 16: return launch_dh<TQ, TC, 16>(a, p, stream);
+    case 32: return launch_dh<TQ, TC, 32>(a, p, stream);
+    case 64: return launch_dh<TQ, TC, 64>(a, p, stream);
+    case 128: return launch_dh<TQ, TC, 128>(a, p, stream);
+    case 256: return launch_dh<TQ, TC, 256>(a, p, stream);
   }
-  if (p.Dh == 128) {
-    static size_t allowed = 0;
-    return paged_launch_dh<TQ, TC, 128>(paged_prefill_kernel<TQ, TC, 128>,
-                                        paged_prefill_kernel_merge<TQ, TC, 128>,
-                                        &allowed, a, p, stream);
-  }
-  static size_t allowed = 0;   // 256: paged_plan takes no other head dim
-  return paged_launch_dh<TQ, TC, 256>(paged_prefill_kernel<TQ, TC, 256>,
-                                      paged_prefill_kernel_merge<TQ, TC, 256>,
-                                      &allowed, a, p, stream);
+  return (int)cudaErrorInvalidValue;   // paged_plan takes no other head dim
 }
 
 extern "C" int paged_prefill_chunk_launch(

@@ -11,6 +11,7 @@ step at dp 2 x tp 2 (with the shapes of every compute copy and of the
 logits recorded, and the step's FLOPs counted), the same step at tp 4 on
 qwen2.5-3b (one kv head, projected whole on every rank), the CE step at
 dp 2 x tp 2 on the plain QAT route and the distill step at dp 2 x tp 2.
+Each CE step runs on both of the test's draws of batches.
 Imports torch and the port only.
 """
 import sys
@@ -192,16 +193,20 @@ def main(rank: int, world: int, store: str, io: Path) -> None:
     _layers(rank, world, inp, out)
     if world == 2:
         plan = ShardingPlan(make_mesh(1, 2), default_rules(False))
-        out["ce_1x2"] = _steps("qwen3_", qwen3, s_params, inp, plan)
+        for case, prefix in (("ce_1x2", "qwen3_"), ("ce_1x2_shifted", "qwen3s_")):
+            out[case] = _steps(prefix, qwen3, s_params, inp, plan)
     else:
         plan = ShardingPlan(make_mesh(2, 2), default_rules(False))
-        out["ce_2x2"] = _steps("qwen3_", qwen3, s_params, inp, plan)
         out["watch"] = _watch_the_split(qwen3, s_params, inp, plan)
         qwen25 = get_config("qwen2.5-3b").reduced().with_quant(QAT_KERNEL)
-        out["ce_1x4"] = _steps("qwen25_", qwen25, _tree(inp, "qwen25/student/"),
-                               inp, ShardingPlan(make_mesh(1, 4), default_rules(False)))
-        out["ce_2x2_plain"] = _steps("qwen3_", qwen3.with_quant(Q.QAT), s_params,
-                                     inp, plan)
+        plan4 = ShardingPlan(make_mesh(1, 4), default_rules(False))
+        for tail in ("", "_shifted"):
+            q3, q25 = ("qwen3s_", "qwen25s_") if tail else ("qwen3_", "qwen25_")
+            out["ce_2x2" + tail] = _steps(q3, qwen3, s_params, inp, plan)
+            out["ce_1x4" + tail] = _steps(q25, qwen25, _tree(inp, "qwen25/student/"),
+                                          inp, plan4)
+            out["ce_2x2_plain" + tail] = _steps(q3, qwen3.with_quant(Q.QAT),
+                                                s_params, inp, plan)
         out["distill_2x2"] = _distill("qwen3-0.6b", QAT_KERNEL, "qwen3", inp, plan)
     torch.save(out, io / f"out{world}_{rank}.pt")
     dist.destroy_process_group()

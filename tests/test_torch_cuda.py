@@ -212,7 +212,7 @@ def _paged_pools(rng, hkv, dh, bs, L, depths, shared=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_paged_prefill_split_walk(cuda, dtype, dh, softcap):
     """A T = 32 launch over a 1024-position table (four 256-key splits): a
@@ -261,7 +261,7 @@ def test_paged_prefill_split_walk(cuda, dtype, dh, softcap):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_paged_decode_split_walk(cuda, dtype, dh, softcap):
     """Decode over a 1024-position table (eight 128-key splits): depths
@@ -320,6 +320,15 @@ def test_paged_kernels_at_granite_heads(cuda, dtype):
     _paged_kernels_at_heads(cuda, dtype, 8, 2, 64)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hkv,g,dh", [(4, 1, 32), (2, 2, 32), (4, 1, 16)])
+def test_paged_kernels_at_reduced_heads(cuda, dtype, Hkv, g, dh):
+    """The reduced configs' head dims: the examples' serving model
+    (examples_torch/serve_batch.py: 4 kv heads of 32, g = 1), qwen3-0.6b
+    reduced (2 of 32, g = 2) and tests/test_system.py's (4 of 16)."""
+    _paged_kernels_at_heads(cuda, dtype, Hkv, g, dh)
+
+
 def _paged_kernels_at_heads(cuda, dtype, Hkv, g, dh):
     """A decode step and a T = 32 chunk step of one prefilling row among
     decode rows, over mixed depths with an idle row, against the plain
@@ -371,7 +380,7 @@ def test_paged_plan_caps_the_splits(cuda):
     """The launch plan is the .cu's (``paged_core.cuh::paged_plan``): 128-key
     splits for decode, 256 for a chunk, grown so there are at most 16, a
     workspace of 64 rows x (Dh + 2) floats per split and row group, none
-    with one split, and merge CTAs of 8 query rows; a launcher given a
+    with one split, and merge CTAs of 8 query rows (16 at Dh 16); a launcher given a
     smaller workspace refuses."""
     from repro_torch.kernels import build
     assert pa_kernel.plan(8, 8, 2, 1, 128, 16, 64) == dict(
@@ -386,6 +395,10 @@ def test_paged_plan_caps_the_splits(cuda):
     assert (p["splits"], p["workspace_floats"], p["merge_ctas"]) == (1, 0, 0)
     assert pa_kernel.plan(8, 16, 1, 1, 256, 16, 64)["workspace_floats"] == \
         8 * 16 * 8 * 64 * 258
+    # head dims 32 and 16: 8 and 16 query rows a merge CTA (one whole warp)
+    assert pa_kernel.plan(4, 4, 1, 1, 32, 16, 64)["merge_ctas"] == 4 * 4 * 8
+    p = pa_kernel.plan(4, 4, 1, 1, 16, 16, 64)
+    assert (p["merge_ctas"], p["workspace_floats"]) == (4 * 4 * 4, 4 * 4 * 8 * 64 * 18)
     with pytest.raises(ValueError, match="head_dim 96"):
         pa_kernel.plan(2, 2, 2, 1, 96, 16, 8)
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=cuda)

@@ -133,6 +133,11 @@ class TestPagedAttentionDecode:
         (2, 4, 2, 32, 4, 3, [0, 1]),
         # single-block tables
         (2, 2, 2, 32, 8, 1, [0, 6]),
+        # head dim 16 (tests/test_system.py's heads: 4 of 4) and GQA at 16
+        (3, 4, 4, 16, 4, 4, [0, 5, 13]),
+        (3, 4, 2, 16, 4, 4, [4, 7, 13]),
+        # the examples' serving model: 4 kv heads of 32, 16-token blocks
+        (4, 4, 4, 32, 16, 6, [83, 40, 16, 0]),
     ])
     def test_plain_matches_jax(self, args):
         got, ref, pal, live = _paged_case(*args)
@@ -226,6 +231,11 @@ class TestPagedPrefillChunk:
         (2, 4, 2, 32, 4, 4, 8, [0, 6], [3, 5]),
         # T = 1: decode rows through the chunk kernel
         (2, 4, 2, 32, 4, 3, 1, [5, 8], [1, 1]),
+        # head dim 16, MHA and GQA
+        (3, 4, 4, 16, 4, 6, 8, [0, 9, 13], [8, 5, 1]),
+        (2, 4, 2, 16, 4, 4, 4, [7, 2], [2, 3]),
+        # the examples' serving model: a chunk step of prefill and decode rows
+        (4, 4, 4, 32, 16, 6, 32, [0, 32, 64, 17], [32, 32, 10, 1]),
     ])
     def test_plain_matches_jax(self, args):
         got, ref, pal, live = _prefill_case(*args)

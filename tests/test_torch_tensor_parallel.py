@@ -17,11 +17,16 @@ and steps and JAX's single-device steps.  Tolerances:
   the logits' gradient rtol 1e-5, atol 1e-8.
 * The QAT CE step (qwen3-0.6b reduced at dp 1 x tp 2 and dp 2 x tp 2, on
   the kernel route and at dp 2 x tp 2 on the plain route; qwen2.5-3b
-  reduced, one kv head, at tp 4) against the port's unsharded
-  step, two steps: losses and grad_norm rtol 1e-6, parameters within 2·lr
-  (tests/test_torch_distributed.py's bounds); against JAX's single-device
-  step (the bitlinear kernel in interpret mode): loss rtol 1e-5 and every
-  leaf within 5e-3 after the first step (that file's FP case).
+  reduced, one kv head, at tp 4), on two draws of batches, against the
+  port's unsharded step with the same exact forms (``models/lm.py::
+  set_exact``: a split over more than one rank sums SubLN in float64, so
+  its reference does too; with SubLN's fp32 mean the reference rounds a
+  code apart on some batches), two steps: losses and grad_norm rtol 1e-6,
+  parameters within 2·lr (tests/test_torch_distributed.py's bounds);
+  against JAX's single-device step (the bitlinear kernel in interpret
+  mode): loss rtol 1e-5 and every leaf within 5e-3 after the first step
+  (that file's FP case).  The second draw ("-shifted") is the same seed's
+  stream without the unused image-embedding batch, so every batch moves.
 * The distill step at dp 2 x tp 2 likewise against the port's unsharded
   distill step and JAX's (``make_distill_step``, same params via
   ``bridge.py``): metrics rtol 1e-6 / 1e-5 (atol 2e-7), parameters within
@@ -56,6 +61,7 @@ from repro_torch.core import quant as TQ
 from repro_torch.core.bitlinear import BitLinear, SubLN
 from repro_torch.launch.op_analysis import count
 from repro_torch.models import get_config
+from repro_torch.models.lm import set_exact
 from repro_torch.nn.module import DTypePolicy, flatten_with_paths
 from repro_torch.training.optimizer import AdamW, AdamWConfig
 from repro_torch.training.trainer import (init_train_state, make_distill_step,
@@ -71,7 +77,12 @@ QAT_KERNEL = TQ.QuantConfig(mode="qat", use_kernel=True)
 STEPS = {"1x2": (2, "ce_1x2", "qwen3-0.6b", "qwen3_", "kernel"),
          "2x2": (4, "ce_2x2", "qwen3-0.6b", "qwen3_", "kernel"),
          "2x2-plain": (4, "ce_2x2_plain", "qwen3-0.6b", "qwen3_", "plain"),
-         "1x4": (4, "ce_1x4", "qwen2.5-3b", "qwen25_", "kernel")}
+         "1x4": (4, "ce_1x4", "qwen2.5-3b", "qwen25_", "kernel"),
+         "1x2-shifted": (2, "ce_1x2_shifted", "qwen3-0.6b", "qwen3s_", "kernel"),
+         "2x2-shifted": (4, "ce_2x2_shifted", "qwen3-0.6b", "qwen3s_", "kernel"),
+         "2x2-plain-shifted": (4, "ce_2x2_plain_shifted", "qwen3-0.6b", "qwen3s_",
+                               "plain"),
+         "1x4-shifted": (4, "ce_1x4_shifted", "qwen2.5-3b", "qwen25s_", "kernel")}
 QUANT = {"kernel": (QAT_KERNEL, JQ.QuantConfig(mode="qat", use_kernel=True)),
          "plain": (TQ.QAT, JQ.QAT)}
 PARAMS = (("qwen3-0.6b", "qwen3"), ("qwen2.5-3b", "qwen25"))
@@ -86,7 +97,9 @@ def _jax_params(name):
         jax.tree_util.tree_map(np.asarray, sparams)
 
 
-def _inputs():
+def _draw(image: bool):
+    """The seeded inputs; ``image`` draws the unused image-embedding batch
+    between the losses' inputs and the token batches."""
     rng = np.random.default_rng(26)
     f32 = np.float32
     inp = {"layer/x": rng.standard_normal((24, 256)).astype(f32),
@@ -101,15 +114,25 @@ def _inputs():
     inp.update({"loss/s": s, "loss/t": t,
                 "loss/labels": rng.integers(0, 280, (2, 8)).astype(np.int32),
                 "loss/mask": (rng.uniform(size=(2, 8)) < 0.7).astype(f32)})
-    # a batch with image embeddings, unused: drawn so that the rng stream,
-    # and with it every batch, stays the one this file's bounds were read on
-    inp["vision_0/image_embeds"] = rng.standard_normal((8, 8, 128)).astype(f32)
+    if image:
+        inp["vision_0/image_embeds"] = rng.standard_normal((8, 8, 128)).astype(f32)
     for prefix in ("qwen3_0", "qwen3_1", "qwen25_0", "qwen25_1", "vision_0"):
         inp[f"{prefix}/tokens"] = rng.integers(0, 268, (8, 16)).astype(np.int32)
         inp[f"{prefix}/labels"] = rng.integers(0, 268, (8, 16)).astype(np.int32)
         mask = np.ones((8, 16), f32)
         mask[:, :3] = 0.0
         inp[f"{prefix}/loss_mask"] = mask
+    return inp
+
+
+def _inputs():
+    inp = _draw(image=True)
+    # the second draw's batches, under the "-shifted" cases' prefixes
+    shifted = _draw(image=False)
+    for prefix in ("qwen3_0", "qwen3_1", "qwen25_0", "qwen25_1"):
+        model, i = prefix.rsplit("_", 1)
+        for k in ("tokens", "labels", "loss_mask"):
+            inp[f"{model}s_{i}/{k}"] = shifted[f"{prefix}/{k}"]
     for name, key in PARAMS:
         tparams, sparams = _jax_params(name)
         for role, tree in (("teacher", tparams), ("student", sparams)):
@@ -244,6 +267,7 @@ def _unsharded(name, inp, prefix, route, steps=2):
     cfg = get_config(name).reduced().with_quant(QUANT[route][0])
     key = dict(PARAMS)[name]
     model = bridge.jax_params_to_torch(cfg, _tree(inp, f"{key}/student/"), device="cpu")
+    set_exact(model)                            # the split's forms
     opt = AdamW(AdamWConfig(weight_decay=0.0, grad_clip=0.0))
     state = init_train_state(model, opt)
     step = make_train_step(model, opt, lambda s: LR)
