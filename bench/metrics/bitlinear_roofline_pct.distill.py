@@ -1,0 +1,10 @@
+"""bitlinear_roofline_pct.distill: 100 x the least time of the
+window's ``bitlinear`` calls (``harness/work.py``, from the arguments the
+boundary observer recorded) over the profiler's device time of their CUDA
+kernels (``metrics/kernel_names.json``); nothing when either is
+missing."""
+from harness.kernel_names import names_of
+
+
+def read(run):
+    return run.kernel_roofline_pct("bitlinear", names_of("bitlinear"))

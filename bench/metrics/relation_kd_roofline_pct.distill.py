@@ -1,0 +1,10 @@
+"""relation_kd_roofline_pct.distill: 100 x the least time of the
+window's ``relation_kd`` calls (``harness/work.py``, from the arguments the
+boundary observer recorded) over the profiler's device time of their CUDA
+kernels (``metrics/kernel_names.json``); nothing when either is
+missing."""
+from harness.kernel_names import names_of
+
+
+def read(run):
+    return run.kernel_roofline_pct("relation_kd", names_of("relation_kd"))
